@@ -1,0 +1,384 @@
+"""Chip smoke test of rnad_tpu_torch on one NVIDIA card (Hopper, sm_90a).
+
+    python3 chip_smoke.py
+
+Three phases, and any failure exits nonzero:
+
+1. Build both CUDA kernels from ``rnad_tpu_torch/csrc`` (one nvcc each,
+   started together) and print the build time and ptxas's resource report.
+2. Hold each kernel against its plain PyTorch version on the card at the
+   main path's shapes: K2 (packed-row lookup) bitwise, on the demo tree's
+   table with 131072 ids and on a synthetic (786432, 128) table; K1 (fused
+   rollout turn) at 32768 lanes with width-256 random weights and shared
+   noise: episodes equal except where an action's two top Gumbel scores lie
+   within 1e-5 (counted), policy and values within atol 1e-5.  Times each
+   kernel, its plain version and, for K2, ``torch.index_select``.
+3. Drive the main path: the demo tree (eta_sweep's config, seed 0) and 30
+   fused R-NaD train steps at 32768 lanes with a width-256 MLP through
+   ``RNaD.run`` and ``final_eval``, with the kernels' launch counters set to
+   0 just before and read just after (4 K1 launches and 1 K2 launch per
+   step).  Checks finite losses and NashConv, returns in [-1, 1] and the
+   stored solution's NashConv of 0; times rollout half-steps/s and train
+   updates/s; then holds one train step on the card against the same step
+   on the CPU (plain versions) at 256 lanes.
+
+It prints a ``{"kernels": [...]}`` line, the card's name and power limit,
+and last ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
+without the rest of the repository beside it, it exits nonzero before
+printing any result.  TF32 is off for matmuls and cuDNN throughout.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+import torch
+
+# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, f32 CUDA-core FLOP/s.
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS = 67e12
+B_MAIN = 32768
+N_REGATHER = 131072
+STEPS = 30
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def device_ms(fn, iters: int = 20) -> float:
+    """Device time of one ``fn()`` in ms, the mean over ``iters`` calls
+    after a warm-up.  Each call is queued behind a sleep kernel longer than
+    its enqueue, and CUDA events on either side time it on the device, so
+    the host's launch overhead does not show (a kernel's own time, or the
+    busy time of a function of many kernels)."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    total = 0.0
+    for _ in range(iters):
+        # ~2 GHz SM clock: sleep twice the enqueue time, plus a millisecond
+        torch.cuda._sleep(int((2 * host_s + 1e-3) * 2e9))
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        total += start.elapsed_time(end)
+    return total / iters
+
+
+def wall_ms(fn, iters: int = 10) -> float:
+    """ms of one ``fn()`` from CUDA events around ``iters`` back-to-back
+    calls after a warm-up.  Nothing hides the host here, so where the host
+    cannot launch kernels as fast as the device runs them its stalls show
+    as gaps: what a caller waits, launch overhead included."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def nvidia_smi() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def check_lookup(lookup_lib, table, idx, label):
+    got = lookup_lib.lookup(table, idx)
+    torch.cuda.synchronize()
+    want = lookup_lib.lookup_plain(table, idx)
+    if not torch.equal(got, want):
+        raise AssertionError(f"K2 lookup differs from its plain version on "
+                             f"the {label} table")
+    err = float((got - want).abs().max())
+    log(f"K2 lookup {label}: table {tuple(table.shape)}, {idx.numel()} ids: "
+        f"bitwise equal (max_abs_err {err})")
+    return err
+
+
+def check_fused_turn(fused_turn_lib, args, A, T):
+    """K1 against its plain version; returns (max_abs_err, near_ties)."""
+    table, w0, b0, w1, b1, idx, g_act, g_ch = args
+    B = idx.shape[0]
+    got = fused_turn_lib.fused_turn(*args, A=A, T=T)
+    torch.cuda.synchronize()
+    want = fused_turn_lib.fused_turn_plain(*args, A=A, T=T)
+    _, ml, _, _ = fused_turn_lib.turn_logits_plain(table, w0, b0, w1, b1,
+                                                   idx, A=A)
+    top2 = (ml + g_act).topk(2, dim=1).values
+    near = ((top2[:, 0] - top2[:, 1]) < 1e-5).reshape(2, B).any(0)
+    new_g, pol_g, act_g, rew_g, val_g = got
+    new_w, pol_w, act_w, rew_w, val_w = want
+    flipped = (act_g != act_w).any(0)
+    moved = (new_g != new_w) | (rew_g != rew_w)
+    if (flipped & ~near).any():
+        raise AssertionError(f"K1 actions differ on "
+                             f"{int((flipped & ~near).sum())} lanes without "
+                             "a near-tie")
+    if (moved & ~flipped).any():
+        raise AssertionError(f"K1 transitions differ on "
+                             f"{int((moved & ~flipped).sum())} lanes whose "
+                             "actions agree")
+    err = max(float((pol_g - pol_w).abs().max()),
+              float((val_g - val_w).abs().max()))
+    if not err <= 1e-5:
+        raise AssertionError(f"K1 policy/values differ by {err} > 1e-5")
+    log(f"K1 fused_turn: {B} lanes: episodes equal except {int(flipped.sum())}"
+        f" flipped lanes, all within the {int(near.sum())} near-ties; policy"
+        f"/values max_abs_err {err:.3g} (atol 1e-5)")
+    return err, int(near.sum())
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this test runs on an NVIDIA card",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from rnad_tpu_torch.config import (NetConfig, RNaDConfig, ShapingRule,
+                                       TreeConfig)
+    from rnad_tpu_torch.env import engine
+    from rnad_tpu_torch.env import tree as tree_lib
+    from rnad_tpu_torch.learn import rnad
+    from rnad_tpu_torch.metrics import nashconv
+    from rnad_tpu_torch.models import nets
+    from rnad_tpu_torch.ops import _build
+    from rnad_tpu_torch.ops import fused_turn as fused_turn_lib
+    from rnad_tpu_torch.ops import lookup as lookup_lib
+    from rnad_tpu_torch.ops import stepping
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    card = nvidia_smi()
+    log(f"device: {torch.cuda.get_device_name(0)} | torch "
+        f"{torch.__version__} cuda {torch.version.cuda} | {card}")
+
+    # -- phase 1: build --------------------------------------------------
+    t0 = time.perf_counter()
+    seconds = _build.build(["lookup", "fused_turn"])
+    log(f"build: {time.perf_counter() - t0:.1f} s "
+        + ", ".join(f"{k} {v:.1f} s" for k, v in seconds.items()))
+    for name, text in _build.build_logs.items():
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  ptxas {name}: {line.strip()}")
+
+    # -- phase 2: kernels against their plain versions --------------------
+    tree_cfg = TreeConfig(max_actions=3, max_transitions=2,
+                          transition_threshold=0.3, depth_bound=4,
+                          depth_bound_rule=ShapingRule(
+                              delta=-1, stochastic_delta=-2,
+                              stochastic_prob=0.5))
+    tree = tree_lib.generate_tree(tree_cfg, seed=0, device=dev)
+    packed = stepping.make_packed_tables(tree)
+    A, T = tree.max_actions, tree.max_transitions
+    S, D = packed.rows.shape
+    log(f"demo tree: S={S} max_depth={tree.max_depth} packed {S}x{D}")
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    ids = torch.randint(0, S, (N_REGATHER,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    k2_err = check_lookup(lookup_lib, packed.rows, ids, "demo")
+    big = torch.randint(0, 1 << 24, (786432, 128), generator=gen,
+                        device=dev, dtype=torch.int32).float()
+    big_ids = torch.randint(0, big.shape[0], (N_REGATHER,), generator=gen,
+                            device=dev, dtype=torch.int32)
+    k2_err = max(k2_err, check_lookup(lookup_lib, big, big_ids, "synthetic"))
+
+    net = nets.MLP(A, 256, generator=torch.Generator().manual_seed(1)).to(dev)
+    weights = [w.detach().contiguous() for w in nets.mlp_fused_weights(net)]
+    idx = torch.randint(0, S, (B_MAIN,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    g_act, g_ch = engine.turn_noise(B_MAIN, A, T, gen, dev)
+    turn_args = [packed.rows, *weights, idx, g_act, g_ch]
+    k1_err, near_ties = check_fused_turn(fused_turn_lib, turn_args, A, T)
+
+    k1_ms = device_ms(lambda: fused_turn_lib.fused_turn(*turn_args, A=A, T=T))
+    k1_plain_ms = device_ms(
+        lambda: fused_turn_lib.fused_turn_plain(*turn_args, A=A, T=T))
+    regather = lambda: lookup_lib.lookup(packed.rows, ids)
+    k2_ms = device_ms(regather)
+    k2_plain_ms = device_ms(lambda: lookup_lib.lookup_plain(packed.rows, ids))
+    k2_lib_ms = device_ms(lambda: torch.index_select(packed.rows, 0, ids))
+    big_ms = device_ms(lambda: lookup_lib.lookup(big, big_ids))
+    big_lib_ms = device_ms(lambda: torch.index_select(big, 0, big_ids))
+    log(f"K1 fused_turn {B_MAIN} lanes: kernel {k1_ms:.4f} ms, plain "
+        f"{k1_plain_ms:.4f} ms")
+    log(f"K2 lookup demo: kernel {k2_ms:.4f} ms, plain {k2_plain_ms:.4f} ms,"
+        f" index_select {k2_lib_ms:.4f} ms; synthetic: kernel {big_ms:.4f} "
+        f"ms, index_select {big_lib_ms:.4f} ms")
+    del big, big_ids
+
+    # bounds: the larger of bytes over HBM rate and FLOPs over f32 peak
+    H = weights[0].shape[1]
+    din = 2 * A * A
+    k1_flops = 2.0 * 2 * B_MAIN * (din * H + H * (A + 1))
+    k1_bytes = 4.0 * (B_MAIN + S * D + din * H + H + H * (A + 1) + A + 1
+                      + 2 * B_MAIN * A + B_MAIN * T  # noise
+                      + B_MAIN + 2 * B_MAIN * A + 2 * B_MAIN + B_MAIN
+                      + 2 * B_MAIN)  # outputs
+    k1_bound = max(k1_flops / F32_FLOPS, k1_bytes / HBM_BYTES_PER_S) * 1e3
+    k1_by = ("operations" if k1_flops / F32_FLOPS > k1_bytes / HBM_BYTES_PER_S
+             else "bytes")
+    unique_rows = int(torch.unique(ids).numel())
+    k2_bytes = 4.0 * (N_REGATHER + unique_rows * D + N_REGATHER * D)
+    k2_bound = k2_bytes / HBM_BYTES_PER_S * 1e3
+    log(f"bounds: K1 {k1_bound:.4f} ms ({k1_by}; {k1_flops:.4g} FLOP, "
+        f"{k1_bytes:.4g} B), K2 {k2_bound:.4f} ms (bytes; {k2_bytes:.4g} B, "
+        f"{unique_rows} distinct rows)")
+
+    # -- phase 3: the main path -------------------------------------------
+    cfg = RNaDConfig(batch_size=B_MAIN, eta=0.2, bounds=(3,), delta_m=(10,),
+                     lr=1e-3, gamma_averaging=0.01, logit_clip=2.0)
+    net_cfg = NetConfig(type="MLP", max_actions=A, width=256)
+    run = rnad.RNaD(tree, cfg, net_cfg, seed=0, device="cuda")
+    fused_turn_lib.fused_turn.launches = 0
+    lookup_lib.lookup.launches = 0
+    t0 = time.perf_counter()
+    run.run(log_mod=1)
+    final = run.final_eval()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k1_launches = fused_turn_lib.fused_turn.launches
+    k2_launches = lookup_lib.lookup.launches
+    steps = run.state.total_steps
+    losses = [m for _, m in run.history if "loss" in m]
+    evals = [m["nashconv"] for _, m in run.history if "nashconv" in m]
+    log(f"main path: {steps} train steps + {len(evals)} NashConv evals in "
+        f"{wall:.2f} s; K1 launches {k1_launches}, K2 launches {k2_launches}")
+    log(f"  loss first {losses[0]['loss']:.6f} last {losses[-1]['loss']:.6f};"
+        f" NashConv " + ", ".join(f"{v:.6f}" for v in evals))
+    if steps != STEPS or len(losses) != STEPS:
+        raise AssertionError(f"expected {STEPS} train steps, ran {steps}")
+    bad = [(k, v) for m in losses for k, v in m.items()
+           if not torch.isfinite(torch.tensor(v))]
+    if bad or not all(torch.isfinite(torch.tensor(evals))):
+        raise AssertionError(f"non-finite metrics: {bad} {evals}")
+    if len(evals) != 3 or evals[-1] != final:
+        raise AssertionError(f"expected 2 boundary evals and a final one: "
+                             f"{evals}")
+    if k1_launches != tree.max_depth * STEPS or k2_launches != STEPS:
+        raise AssertionError(f"kernel launches K1 {k1_launches} (want "
+                             f"{tree.max_depth * STEPS}), K2 {k2_launches} "
+                             f"(want {STEPS})")
+
+    traj = rnad.rollout(run.state, run.tree, run.packed, cfg)
+    returns = engine.episode_returns(traj)
+    mean_abs = float(returns.abs().mean())
+    if not mean_abs <= 1.0 or traj.indices.shape != (2 * tree.max_depth,
+                                                     B_MAIN):
+        raise AssertionError(f"rollout: mean |return| {mean_abs}, shape "
+                             f"{tuple(traj.indices.shape)}")
+    oracle = float(nashconv.nashconv_pure(tree, tree.solution).nashconv())
+    if not abs(oracle) < 1e-5:
+        raise AssertionError(f"stored solution NashConv {oracle} != 0")
+    log(f"checks: mean |episode return| {mean_abs:.4f}, stored solution "
+        f"NashConv {oracle:.3g}")
+
+    # throughput on the trained state, before any CPU work of this process;
+    # the host-bound wall times spread, so each is the median of 3 runs
+    init = torch.ones((B_MAIN,), dtype=torch.int32, device=dev)
+    rollout = lambda: engine.rollout_from(run.tree, run.packed, run.state.net,
+                                          init, generator=gen)
+    step = lambda: run.train_step(run.state, 1.0)
+    half_steps = 2 * tree.max_depth * B_MAIN
+    rollout_runs = sorted(wall_ms(rollout) for _ in range(3))
+    step_runs = sorted(wall_ms(step) for _ in range(3))
+    rollout_ms, step_ms = rollout_runs[1], step_runs[1]
+    rollout_dev_ms = device_ms(rollout, iters=10)
+    step_dev_ms = device_ms(step, iters=10)
+    runs = lambda xs: "/".join(f"{x:.4f}" for x in xs)
+    log(f"throughput: rollout {half_steps / rollout_ms * 1e3:.6g} env "
+        f"half-steps/s ({rollout_ms:.4f} ms per {half_steps} half-steps, runs "
+        f"{runs(rollout_runs)} ms, device busy {rollout_dev_ms:.4f} ms); train"
+        f" {1e3 / step_ms:.6g} updates/s ({step_ms:.4f} ms per step, runs "
+        f"{runs(step_runs)} ms, device busy {step_dev_ms:.4f} ms) | {card}")
+    check_against_cpu(tree, cfg, net_cfg)
+
+    kernels = [
+        {"name": "fused_turn", "route": "cuda",
+         "source": "rnad_tpu_torch/csrc/fused_turn.cu",
+         "replaces": "rnad_tpu/ops/pallas_turn.py:79",
+         "launches": k1_launches, "max_abs_err": k1_err, "ms": k1_ms,
+         "plain_ms": k1_plain_ms, "bound_ms": k1_bound, "bound_by": k1_by,
+         "library_ms": None, "near_ties": near_ties},
+        {"name": "lookup", "route": "cuda",
+         "source": "rnad_tpu_torch/csrc/lookup.cu",
+         "replaces": "rnad_tpu/ops/pallas_lookup.py:45",
+         "launches": k2_launches, "max_abs_err": k2_err, "ms": k2_ms,
+         "plain_ms": k2_plain_ms, "bound_ms": k2_bound, "bound_by": "bytes",
+         "library_ms": k2_lib_ms},
+    ]
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(card, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def check_against_cpu(tree, cfg, net_cfg) -> None:
+    """One fused train step at 256 lanes on the card (kernels) and on the
+    CPU (plain versions) from the same weights and noise: equal episodes,
+    losses within rtol 1e-4, new weights within 1e-4 (a tenth of the
+    largest step Adam takes, lr)."""
+    import dataclasses
+
+    from rnad_tpu_torch.env import engine
+    from rnad_tpu_torch.learn import rnad
+    from rnad_tpu_torch.models import nets
+    from rnad_tpu_torch.ops import stepping
+
+    small = dataclasses.replace(cfg, batch_size=256)
+    A, T = tree.max_actions, tree.max_transitions
+    gen = torch.Generator().manual_seed(3)
+    noise = [engine.turn_noise(256, A, T, gen, "cpu")
+             for _ in range(tree.max_depth)]
+    out = {}
+    for device in ("cpu", "cuda"):
+        dtree = tree.to(device)
+        packed = stepping.make_packed_tables(dtree)
+        net = nets.build_net(net_cfg, torch.Generator().manual_seed(4))
+        state = rnad.init_train_state(net.to(device),
+                                      torch.Generator(device=device))
+        traj = rnad.rollout(state, dtree, packed, small, noise)
+        metrics = rnad.learn_step(state, packed, traj, 0.5, small)
+        out[device] = (traj, metrics, [p.detach().cpu()
+                                       for p in state.net.parameters()])
+    (tc, mc, pc), (tg, mg, pg) = out["cpu"], out["cuda"]
+    for f in ("indices", "actions", "rewards"):
+        if not torch.equal(getattr(tc, f), getattr(tg, f).cpu()):
+            raise AssertionError(f"card vs CPU step: trajectory {f} differ")
+    for k in ("loss", "loss_v", "loss_nerd"):
+        a, b = float(mc[k]), float(mg[k])
+        if abs(a - b) > 1e-4 * max(abs(a), 1e-6):
+            raise AssertionError(f"card vs CPU step: {k} {b} vs {a}")
+    err = max(float((a - b).abs().max()) for a, b in zip(pc, pg))
+    if not err <= 1e-4:
+        raise AssertionError(f"card vs CPU step: weights differ by {err}")
+    log(f"card vs CPU: one train step at 256 lanes agrees (episodes equal, "
+        f"weights max_abs_err {err:.3g})")
+
+
+if __name__ == "__main__":
+    sys.exit(main())

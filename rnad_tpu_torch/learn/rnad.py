@@ -1,0 +1,383 @@
+"""R-NaD trainer: the fused on-policy train step and the host schedule loop.
+
+Counterpart of ``rnad_tpu/learn/rnad.py``.  One train step runs, in order:
+the rollout (one fused-turn kernel launch per turn), the learner's forward
+with autograd on the regathered observations (one packed-row lookup), the
+frozen passes (the EMA target's value head and the regularization pair's
+policy heads, as ``fuse_net_passes="heads"``), the alpha-interpolated reward
+transform and two-player v-trace, the NeuRD and critic losses, the optax
+global-norm clip, Adam with the optax formulas (b1=0 by default) and the
+EMA target update.  The ``RNaD`` host loop owns the (m, n, alpha) schedule,
+regularization rotation and exact NashConv at update boundaries.
+
+The step updates the ``TrainState`` in place (parameters, Adam moments and
+the EMA target) instead of building new tensors.  The run store, checkpoints
+and resume, the replay buffer and the metric logger are not ported yet:
+metrics go to ``logging`` and to ``RNaD.history``.
+"""
+
+from __future__ import annotations
+
+import copy
+import dataclasses
+import logging
+import time
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..config import NetConfig, RNaDConfig
+from ..env import engine
+from ..env.tree import GameTree
+from ..metrics import nashconv as nashconv_lib
+from ..models import common, nets
+from ..ops import stepping
+from . import vtrace
+
+
+@dataclasses.dataclass
+class AdamState:
+    """Adam moments per parameter (``net.parameters()`` order) and the step
+    count, as optax's ``ScaleByAdamState``."""
+
+    mu: List[torch.Tensor]
+    nu: List[torch.Tensor]
+    count: int = 0
+
+
+@dataclasses.dataclass
+class TrainState:
+    """The four nets of ``rnad_tpu``'s ``TrainState`` (learner, EMA target,
+    regularization pair), the optimizer state, the rollout noise generator
+    and the step counter."""
+
+    net: nets.MLP  # learner (rnad_tpu: variables)
+    net_target: nets.MLP  # EMA target (variables_target)
+    net_reg: nets.MLP  # pi_reg (variables_reg)
+    net_reg_: nets.MLP  # pi_reg_prev (variables_reg_)
+    opt: AdamState
+    generator: torch.Generator  # rollout Gumbel noise
+    total_steps: int = 0
+
+
+def _frozen_copy(net: nets.MLP) -> nets.MLP:
+    out = copy.deepcopy(net)
+    out.requires_grad_(False)
+    return out
+
+
+def init_train_state(net: nets.MLP, generator: torch.Generator
+                     ) -> TrainState:
+    """All four nets start as copies of ``net``; Adam moments are zero."""
+    params = list(net.parameters())
+    return TrainState(
+        net=net, net_target=_frozen_copy(net), net_reg=_frozen_copy(net),
+        net_reg_=_frozen_copy(net),
+        opt=AdamState(mu=[torch.zeros_like(p) for p in params],
+                      nu=[torch.zeros_like(p) for p in params]),
+        generator=generator)
+
+
+@torch.no_grad()
+def optimizer_update(cfg: RNaDConfig, params: List[torch.Tensor],
+                     grads: List[torch.Tensor], opt: AdamState) -> None:
+    """optax ``chain(clip_by_global_norm, adam)`` written out, in place.
+
+    The global norm is the optax per-leaf sum of squares; a norm at or
+    above the clip scales by ``clip / norm`` (no epsilon, unlike
+    ``clip_grad_norm_``).  Adam is ``mu_hat / (sqrt(nu_hat) + eps)`` with
+    optax's bias correction computed in float32."""
+    g_norm = torch.sqrt(sum((g * g).sum() for g in grads))
+    clip = cfg.grad_clip
+    grads = [torch.where(g_norm < clip, g, g / g_norm * clip) for g in grads]
+    b1, b2 = cfg.b1_adam, cfg.b2_adam
+    opt.count += 1
+    # host scalars holding the float32 values optax computes on device
+    corr1 = float(np.float32(1) - np.float32(b1) ** np.int32(opt.count))
+    corr2 = float(np.float32(1) - np.float32(b2) ** np.int32(opt.count))
+    for p, g, mu, nu in zip(params, grads, opt.mu, opt.nu):
+        mu.copy_((1 - b1) * g + b1 * mu)
+        nu.copy_((1 - b2) * (g * g) + b2 * nu)
+        mu_hat = mu / corr1
+        nu_hat = nu / corr2
+        p.add_((-cfg.lr) * (mu_hat / (torch.sqrt(nu_hat) + cfg.epsilon_adam)))
+
+
+@torch.no_grad()
+def ema_update(gamma: float, net: nets.MLP, net_target: nets.MLP) -> None:
+    """target <- gamma * learner + (1 - gamma) * target, in place."""
+    for p, t in zip(net.parameters(), net_target.parameters()):
+        t.copy_(gamma * p + (1.0 - gamma) * t)
+
+
+def neurd_scale_for(cfg: RNaDConfig, total_steps: int) -> float:
+    """Critic-first warmup gate: 0 while ``total_steps <
+    policy_warmup_steps``, 1 after."""
+    warm = cfg.policy_warmup_steps
+    return 1.0 if not warm or total_steps >= warm else 0.0
+
+
+def learn_loss(state: TrainState, packed: stepping.PackedTables,
+               traj: engine.Trajectory, alpha: float, cfg: RNaDConfig,
+               neurd_scale: float = 1.0
+               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Loss of one learner update; differentiable w.r.t. ``state.net``."""
+    valid = traj.valid()
+    player_id = traj.turns
+    observations, masks = engine.trajectory_observations(packed, traj)
+    T, B = traj.rewards.shape
+    A = traj.num_actions
+    obs_flat = observations.reshape(T * B, -1)
+    # alpha and 1 - alpha rounded as float32, as rnad_tpu computes them
+    alpha_f32 = np.float32(alpha)
+    alpha, one_minus_alpha = float(alpha_f32), float(np.float32(1) - alpha_f32)
+
+    logits, v_raw = state.net(obs_flat)
+    logits = logits.reshape(T, B, A)
+    v = v_raw.reshape(T, B)[..., None]
+    pi = common.masked_policy(logits, masks)
+    log_pi = common.masked_log_policy(logits, masks)
+
+    with torch.no_grad():
+        # "heads": the target contributes its value, the reg pair their
+        # policies; the target's policy feeds one diagnostic only.
+        v_target_net = nets.mlp_head_eval(
+            state.net_target, obs_flat, "value").reshape(T, B)[..., None]
+        log_pi_reg = common.masked_log_policy(nets.mlp_head_eval(
+            state.net_reg, obs_flat, "policy").reshape(T, B, A), masks)
+        log_pi_reg_prev = common.masked_log_policy(nets.mlp_head_eval(
+            state.net_reg_, obs_flat, "policy").reshape(T, B, A), masks)
+        pi_target = (common.masked_policy(nets.mlp_head_eval(
+            state.net_target, obs_flat, "policy").reshape(T, B, A), masks)
+            if cfg.detailed_metrics else None)
+
+        pi_processed = vtrace.process_policy(
+            pi.detach(), masks, cfg.n_discrete, cfg.epsilon_threshold)
+        log_policy_reg = log_pi.detach() - (
+            alpha * log_pi_reg + one_minus_alpha * log_pi_reg_prev)
+        v_t2, played2, pol_t2 = vtrace.v_trace_both(
+            v_target_net, valid, player_id, traj.policy, pi_processed,
+            log_policy_reg, traj.actions_oh(), traj.rewards,
+            eta=cfg.eta, lambda_=1.0, c=cfg.c_bar, rho=cfg.roh_bar,
+            gamma=cfg.vtrace_gamma)
+
+    loss_v = vtrace.get_loss_v([v, v], [v_t2[0], v_t2[1]],
+                               [played2[0], played2[1]])
+    is_vector = torch.ones_like(valid)[..., None]
+    loss_nerd = vtrace.get_loss_nerd(
+        [logits, logits], [pi_processed, pi_processed], [pol_t2[0], pol_t2[1]],
+        valid, player_id, masks, [is_vector, is_vector],
+        clip=cfg.neurd_clip, threshold=cfg.logit_clip)
+    loss = (cfg.value_loss_weight * loss_v
+            + neurd_scale * cfg.neurd_loss_weight * loss_nerd)
+
+    metrics = {"loss": loss.detach(), "loss_v": loss_v.detach(),
+               "loss_nerd": loss_nerd.detach()}
+    if not cfg.detailed_metrics:
+        return loss, metrics
+    with torch.no_grad():
+        uniform_policy = masks / torch.clamp(masks.sum(-1, keepdim=True),
+                                             min=1e-30)
+        logit_mean = logits.mean()
+        metrics.update({
+            "traj_len": valid.sum(0).mean(),
+            "logit_mean": logit_mean,
+            "logit_max": (logits - logit_mean).abs().max(),
+            "entropy": nashconv_lib.kld(pi, uniform_policy, valid, masks),
+            "entropy_target": nashconv_lib.kld(pi_target, uniform_policy,
+                                               valid, masks),
+            "actor_learner_kld": nashconv_lib.kld(pi, traj.policy, valid,
+                                                  masks),
+        })
+    return loss, metrics
+
+
+def rollout(state: TrainState, tree: GameTree, packed: stepping.PackedTables,
+            cfg: RNaDConfig, noise=None) -> engine.Trajectory:
+    """The training rollout: ``batch_size`` episodes from the root."""
+    init = torch.ones((cfg.batch_size,), dtype=torch.int32,
+                      device=packed.rows.device)
+    return engine.rollout_from(tree, packed, state.net, init, tree.max_depth,
+                               noise=noise, generator=state.generator)
+
+
+def learn_step(state: TrainState, packed: stepping.PackedTables,
+               traj: engine.Trajectory, alpha: float, cfg: RNaDConfig
+               ) -> Dict[str, torch.Tensor]:
+    """One learner update on ``traj``: loss, gradients, clip + Adam, EMA."""
+    params = list(state.net.parameters())
+    loss, metrics = learn_loss(state, packed, traj, alpha, cfg,
+                               neurd_scale_for(cfg, state.total_steps))
+    grads = torch.autograd.grad(loss, params)
+    metrics["gradient_norm"] = torch.sqrt(sum((g * g).sum() for g in grads))
+    optimizer_update(cfg, params, list(grads), state.opt)
+    ema_update(cfg.gamma_averaging, state.net, state.net_target)
+    state.total_steps += 1
+    return metrics
+
+
+def make_train_step(tree: GameTree, packed: stepping.PackedTables,
+                    cfg: RNaDConfig):
+    """The fused on-policy step ``train_step(state, alpha, noise=None)``:
+    rollout, learn, optimize and EMA; returns (state, metrics).  ``noise``
+    gives each turn's (g_act, g_chance); None draws from
+    ``state.generator``."""
+
+    def train_step(state: TrainState, alpha: float, noise=None):
+        traj = rollout(state, tree, packed, cfg, noise)
+        return state, learn_step(state, packed, traj, alpha, cfg)
+
+    return train_step
+
+
+def rotate_regularization_nets(state: TrainState) -> TrainState:
+    """At each update (m) boundary: pi_reg_prev <- pi_reg; pi_reg <- a copy
+    of the target (the target keeps moving in place)."""
+    state.net_reg_ = state.net_reg
+    state.net_reg = _frozen_copy(state.net_target)
+    return state
+
+
+def alpha_schedule(n: int, delta_m: int) -> float:
+    """Linear 0 -> 1 ramp over the first half of each update period."""
+    return 1.0 if n > delta_m / 2 else n * 2.0 / delta_m
+
+
+def nashconv(tree: GameTree, net: nets.MLP) -> nashconv_lib.NashConvResult:
+    """Exact best-response values of ``net``'s joint policy."""
+    joint = nashconv_lib.joint_policy_all_nodes(tree, net)
+    return nashconv_lib.nashconv_pure(tree, joint, compute_reach=False)
+
+
+def check_supported(cfg: RNaDConfig, net_config: NetConfig) -> None:
+    """Raises ``NotImplementedError`` naming each config field the port
+    does not implement yet, and ``ValueError`` on unknown modes."""
+    missing = {
+        "obs_transform": cfg.obs_transform.kind != "none",
+        "frozen_net_dtype": cfg.frozen_net_dtype != "float32",
+        "rollout_actor_dtype": cfg.rollout_actor_dtype != "float32",
+        "compute_dtype": net_config.compute_dtype != "float32",
+        "n_batches_per_buffer": cfg.n_batches_per_buffer != 1,
+        "buffer_mod": cfg.buffer_mod != 1,
+        "vtrace_mode": cfg.vtrace_mode == "associative",
+        "reg_anchor": cfg.reg_anchor == "best",
+        "lr_schedule": cfg.lr_schedule != "constant",
+    }
+    for field, unsupported in missing.items():
+        if unsupported:
+            raise NotImplementedError(
+                f"{field}: the PyTorch port does not implement this value "
+                "yet")
+    if cfg.vtrace_mode not in ("scan", "auto"):
+        raise ValueError(f"unknown vtrace_mode {cfg.vtrace_mode!r}")
+    if cfg.reg_anchor not in ("target", "fixed"):
+        raise ValueError(f"unknown reg_anchor {cfg.reg_anchor!r}")
+    if cfg.fuse_net_passes not in ("auto", "heads", "off", "frozen", "all"):
+        raise ValueError(f"unknown fuse_net_passes {cfg.fuse_net_passes!r}")
+
+
+class RNaD:
+    """Host-side experiment loop: two-timescale schedule, regularization
+    rotation and NashConv cadence (``rnad_tpu``'s ``RNaD`` without the run
+    store).  Runs on ``device`` ("cuda" unless the caller asks for "cpu").
+
+    TF32 is switched off for matmuls and cuDNN, so every float32 product is
+    a float32 product, as on the reference path."""
+
+    def __init__(self, tree: GameTree, cfg: RNaDConfig = RNaDConfig(),
+                 net_config: Optional[NetConfig] = None, seed: int = 0,
+                 device="cuda"):
+        if net_config is None:
+            net_config = NetConfig(type="MLP", max_actions=tree.max_actions,
+                                   width=256)
+        check_supported(cfg, net_config)
+        if net_config.max_actions != tree.max_actions:
+            raise ValueError(f"net max_actions {net_config.max_actions} != "
+                             f"tree max_actions {tree.max_actions}")
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        self.device = torch.device(device)
+        self.tree = tree.to(self.device)
+        self.packed = stepping.make_packed_tables(self.tree)
+        self.cfg = cfg
+        self.net_config = net_config
+        self.seed = seed
+        self.train_step = make_train_step(self.tree, self.packed, cfg)
+        self.m = 0
+        self.n = 0
+        self.state: Optional[TrainState] = None
+        self.history: List[Tuple[int, Dict[str, float]]] = []
+
+    def initialize(self) -> None:
+        if self.state is not None:
+            return
+        net = nets.build_net(self.net_config,
+                             torch.Generator().manual_seed(self.seed))
+        generator = torch.Generator(device=self.device)
+        generator.manual_seed(self.seed + 1)
+        self.state = init_train_state(net.to(self.device), generator)
+        self.m, self.n = 0, 0
+
+    def _log(self, metrics: Dict[str, float], step: int) -> None:
+        self.history.append((step, metrics))
+        logging.info("step %d: %s", step, " ".join(
+            f"{k}={v:.6g}" for k, v in sorted(metrics.items())))
+
+    def _get_update_info(self) -> Tuple[bool, int]:
+        """(may_resume, delta_m) from the cumulative m-bounds."""
+        bounding = [i for i, b in enumerate(self.cfg.bounds) if b > self.m]
+        if not bounding:
+            return False, 0
+        return True, self.cfg.delta_m[min(bounding)]
+
+    def nashconv(self) -> float:
+        """NashConv of the EMA target net."""
+        result = nashconv(self.tree, self.state.net_target)
+        for depth, val in nashconv_lib.mean_nashconv_by_depth(
+                self.tree, result).items():
+            logging.info("depth:%d nashconv:%f", depth, val)
+        return float(result.nashconv())
+
+    def final_eval(self) -> float:
+        """One exact eval of the current EMA target, logged."""
+        value = self.nashconv()
+        self._log({"nashconv": value}, self.state.total_steps)
+        return value
+
+    def _rotate_for_schedule(self) -> None:
+        if self.cfg.reg_anchor == "fixed":
+            return  # stationary anchor: the reg nets stay the init nets
+        rotate_regularization_nets(self.state)
+
+    def run(self, max_updates: int = 10**6, expl_mod: int = 1,
+            log_mod: int = 20) -> None:
+        self.initialize()
+        last_time = time.perf_counter()
+        last_steps = self.state.total_steps
+        for _ in range(max_updates):
+            may_resume, delta_m = self._get_update_info()
+            if not may_resume:
+                return
+            logging.info("m: %d, delta_m: %d", self.m, delta_m)
+            if (expl_mod > 0 and self.m % expl_mod == 0 and self.n == 0
+                    and self.m != 0):
+                self._log({"nashconv": self.nashconv()},
+                          self.state.total_steps)
+            while self.n < delta_m:
+                alpha = alpha_schedule(self.n, delta_m)
+                _, metrics = self.train_step(self.state, alpha)
+                if self.n % log_mod == 0:
+                    row = {k: float(v) for k, v in metrics.items()}
+                    now = time.perf_counter()
+                    steps = self.state.total_steps - last_steps
+                    sps = steps / max(now - last_time, 1e-9)
+                    row["steps_per_s"] = sps
+                    row["env_steps_per_s"] = (sps * self.cfg.batch_size * 2
+                                              * self.tree.max_depth)
+                    last_time, last_steps = now, self.state.total_steps
+                    self._log(row, self.state.total_steps)
+                self.n += 1
+            self.n = 0
+            self.m += 1
+            self._rotate_for_schedule()

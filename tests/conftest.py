@@ -30,6 +30,11 @@ os.environ.setdefault("JAX_COMPILATION_CACHE_DIR",
 os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS", "0.5")
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA card; skips on a machine without one")
+
+
 @pytest.fixture(scope="session")
 def small_tree():
     from rnad_tpu.config import TreeConfig

@@ -1,0 +1,184 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Every test here is marked ``cuda`` and skips on a machine without an NVIDIA
+card.  This file imports nothing of JAX, so on the card it runs without the
+repository's conftest (which starts JAX):
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
+
+Tolerances: the packed-row lookup (K2) is bit-exact.  The fused turn (K1)
+sums its dot products in another order than cuBLAS, so policy and values
+agree within atol 1e-5, and an action may differ from the plain version's
+only where its two best Gumbel scores lie within 1e-5 of each other (a
+near-tie); the transition of a lane whose actions agree is equal.
+"""
+
+import dataclasses
+
+import pytest
+import torch
+
+from rnad_tpu_torch.config import NetConfig, RNaDConfig, TreeConfig
+from rnad_tpu_torch.env import engine
+from rnad_tpu_torch.env import tree as tree_lib
+from rnad_tpu_torch.learn import rnad
+from rnad_tpu_torch.models import nets
+from rnad_tpu_torch.ops import fused_turn as fused_turn_lib
+from rnad_tpu_torch.ops import lookup as lookup_lib
+from rnad_tpu_torch.ops import stepping
+
+NEAR_TIE = 1e-5
+
+
+@pytest.fixture(scope="module")
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda", 0)
+
+
+def _tree(dev, A=3, T=2, depth=3, seed=0):
+    cfg = TreeConfig(max_actions=A, max_transitions=T,
+                     transition_threshold=0.3, depth_bound=depth)
+    return tree_lib.generate_tree(cfg, seed=seed, device=dev)
+
+
+def _turn_args(dev, tree, width, B, seed):
+    packed = stepping.make_packed_tables(tree)
+    A, T = tree.max_actions, tree.max_transitions
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    net = nets.MLP(A, width, generator=torch.Generator().manual_seed(seed))
+    weights = [w.detach().contiguous()
+               for w in nets.mlp_fused_weights(net.to(dev))]
+    idx = torch.randint(0, tree.size, (B,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    g_act, g_ch = engine.turn_noise(B, A, T, gen, dev)
+    return [packed.rows, *weights, idx, g_act, g_ch]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [0, 1, 1000, 131072])
+def test_lookup_kernel_bitwise(dev, n):
+    gen = torch.Generator(device=dev).manual_seed(n)
+    # random bit patterns, with the exponent's top bit cleared so that every
+    # value is finite (denormals and negative zero included)
+    bits = torch.randint(-2**31, 2**31 - 1, (4099, 128), generator=gen,
+                         device=dev, dtype=torch.int32)
+    table = (bits & ~(1 << 30)).view(torch.float32)
+    idx = torch.randint(0, table.shape[0], (n,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    before = lookup_lib.lookup.launches
+    got = lookup_lib.lookup(table, idx)
+    want = lookup_lib.lookup_plain(table, idx)
+    torch.cuda.synchronize()
+    assert got.shape == (n, 128)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert lookup_lib.lookup.launches == before + (1 if n else 0)
+
+
+@pytest.mark.cuda
+def test_lookup_kernel_rejects(dev):
+    table = torch.zeros((8, 128), device=dev)
+    with pytest.raises(ValueError):
+        lookup_lib.lookup(table, torch.zeros(4, dtype=torch.int32))
+    with pytest.raises(ValueError):
+        lookup_lib.lookup(table[:, :6], torch.zeros(4, dtype=torch.int32,
+                                                    device=dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("A,T,width,B", [(3, 2, 32, 256), (3, 2, 256, 4099),
+                                         (4, 3, 64, 1000), (2, 1, 8, 33)])
+def test_fused_turn_kernel_vs_plain(dev, A, T, width, B):
+    tree = _tree(dev, A=A, T=T)
+    args = _turn_args(dev, tree, width, B, seed=A * 100 + width)
+    before = fused_turn_lib.fused_turn.launches
+    got = fused_turn_lib.fused_turn(*args, A=A, T=T)
+    torch.cuda.synchronize()
+    assert fused_turn_lib.fused_turn.launches == before + 1
+    want = fused_turn_lib.fused_turn_plain(*args, A=A, T=T)
+    _, ml, _, _ = fused_turn_lib.turn_logits_plain(*args[:6], A=A)
+    top2 = (ml + args[6]).topk(2, dim=1).values
+    near = (top2[:, 0] - top2[:, 1] < NEAR_TIE).reshape(2, B).any(0)
+    new_g, pol_g, act_g, rew_g, val_g = got
+    new_w, pol_w, act_w, rew_w, val_w = want
+    flipped = (act_g != act_w).any(0)
+    assert not (flipped & ~near).any()
+    agree = ~flipped
+    assert torch.equal(new_g[agree], new_w[agree])
+    assert torch.equal(rew_g[agree], rew_w[agree])
+    torch.testing.assert_close(pol_g, pol_w, rtol=0, atol=1e-5)
+    torch.testing.assert_close(val_g, val_w, rtol=0, atol=1e-5)
+    assert ((pol_g.sum(-1) - 1).abs() < 1e-5).all()
+
+
+@pytest.mark.cuda
+def test_fused_turn_kernel_rejects(dev):
+    tree = _tree(dev)
+    args = _turn_args(dev, tree, 32, 64, seed=0)
+    bad = list(args)
+    bad[5] = args[5].cpu()
+    with pytest.raises(ValueError, match="indices"):
+        fused_turn_lib.fused_turn(*bad, A=3, T=2)
+    # weights too wide for shared memory
+    wide = nets.MLP(3, 4096).to(dev)
+    big = [w.detach().contiguous() for w in nets.mlp_fused_weights(wide)]
+    with pytest.raises(ValueError, match="shared memory"):
+        fused_turn_lib.fused_turn(args[0], *big, *args[5:], A=3, T=2)
+
+
+@pytest.mark.cuda
+def test_train_step_card_vs_cpu(dev):
+    """One fused train step through both kernels on the card and through
+    the plain versions on the CPU, from the same weights and noise: equal
+    episodes, losses within rtol 1e-5, new weights within 1e-5 (a hundredth
+    of lr, the most Adam with b1=0 moves a weight)."""
+    tree = _tree("cpu", depth=4)
+    cfg = RNaDConfig(batch_size=512, eta=0.2, lr=1e-3, logit_clip=2.0)
+    gen = torch.Generator().manual_seed(3)
+    noise = [engine.turn_noise(512, 3, 2, gen, "cpu")
+             for _ in range(tree.max_depth)]
+    out = {}
+    for device in ("cpu", dev):
+        dtree = tree.to(device)
+        packed = stepping.make_packed_tables(dtree)
+        net = nets.build_net(NetConfig(max_actions=3, width=64),
+                             torch.Generator().manual_seed(4))
+        state = rnad.init_train_state(net.to(device),
+                                      torch.Generator(device=device))
+        k1, k2 = fused_turn_lib.fused_turn.launches, lookup_lib.lookup.launches
+        traj = rnad.rollout(state, dtree, packed, cfg, noise)
+        metrics = rnad.learn_step(state, packed, traj, 0.5, cfg)
+        launched = (fused_turn_lib.fused_turn.launches - k1,
+                    lookup_lib.lookup.launches - k2)
+        assert launched == ((tree.max_depth, 1) if device == dev else (0, 0))
+        out[str(device)] = (traj, metrics, [p.detach().cpu()
+                                            for p in state.net.parameters()])
+    (tc, mc, pc), (tg, mg, pg) = out["cpu"], out[str(dev)]
+    for f in ("indices", "actions", "rewards"):
+        assert torch.equal(getattr(tc, f), getattr(tg, f).cpu()), f
+    for k in ("loss", "loss_v", "loss_nerd"):
+        torch.testing.assert_close(mg[k].cpu(), mc[k], rtol=1e-5, atol=1e-7)
+    for a, b in zip(pc, pg):
+        torch.testing.assert_close(b, a, rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_rnad_runs_on_the_card(dev):
+    tree = _tree("cpu")
+    cfg = RNaDConfig(batch_size=1024, bounds=(2,), delta_m=(3,), lr=1e-3)
+    run = rnad.RNaD(tree, cfg, NetConfig(max_actions=3, width=64))
+    assert run.device.type == "cuda"
+    k1, k2 = fused_turn_lib.fused_turn.launches, lookup_lib.lookup.launches
+    run.run(log_mod=1)
+    value = run.final_eval()
+    assert fused_turn_lib.fused_turn.launches - k1 == 6 * tree.max_depth
+    assert lookup_lib.lookup.launches - k2 == 6
+    assert all(torch.isfinite(torch.tensor(v))
+               for _, m in run.history for v in m.values())
+    assert 0.0 <= value < 10.0
+    small = dataclasses.replace(cfg, batch_size=64)
+    traj = rnad.rollout(run.state, run.tree, run.packed, small)
+    assert traj.indices.is_cuda and engine.episode_returns(traj).abs().max() <= 1

@@ -1,0 +1,52 @@
+"""Helpers of the parity tests between rnad_tpu and rnad_tpu_torch.
+
+Inputs cross between the packages as numpy arrays: trees through their
+array form, weights through the flax<->torch carrier, and rollout noise made
+with ``jax.random`` under rnad_tpu's key discipline (torch cannot replay
+``jax.random`` streams, so the port takes its noise as an argument).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import torch
+
+from rnad_tpu.env import tree as jax_tree_lib
+from rnad_tpu_torch.env import tree as torch_tree_lib
+from rnad_tpu_torch.models import nets as torch_nets
+
+
+def torch_tree(tree) -> torch_tree_lib.GameTree:
+    """An rnad_tpu GameTree as the port's, on the CPU."""
+    return torch_tree_lib.tree_from_arrays(
+        jax_tree_lib.tree_to_arrays(tree), jax_tree_lib.tree_meta(tree),
+        device="cpu")
+
+
+def torch_mlp(params, max_actions: int, width: int) -> torch_nets.MLP:
+    """The port's MLP holding flax ``params``."""
+    net = torch_nets.MLP(max_actions, width)
+    net.load_state_dict(torch_nets.params_from_flax(
+        jax.tree.map(np.asarray, params)))
+    return net
+
+
+def rollout_noise(k_roll, batch_size: int, A: int, T: int, num_turns: int):
+    """Per-turn (g_act (2B, A), g_chance (B, T)) exactly as
+    ``rnad_tpu.env.engine.rollout_from`` draws them from ``k_roll``:
+    split into per-turn keys, then (k_act, k_ch) per turn."""
+    noise = []
+    for key_t in jax.random.split(k_roll, num_turns):
+        k_act, k_ch = jax.random.split(key_t)
+        g_act = jax.random.gumbel(k_act, (2 * batch_size, A), jnp.float32)
+        g_ch = jax.random.gumbel(k_ch, (T, batch_size), jnp.float32).T
+        noise.append((torch.from_numpy(np.array(g_act)),
+                      torch.from_numpy(np.array(g_ch))))
+    return noise
+
+
+def train_step_noise(state_key, batch_size: int, A: int, T: int,
+                     num_turns: int):
+    """The rollout noise of one rnad_tpu train step from ``state.key``."""
+    _, k_roll = jax.random.split(state_key)
+    return rollout_noise(k_roll, batch_size, A, T, num_turns)
