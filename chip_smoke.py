@@ -2,18 +2,24 @@
 
     python3 chip_smoke.py
 
-Three phases, and any failure exits nonzero:
+Four phases, and any failure exits nonzero:
 
-1. Build both CUDA kernels from ``rnad_tpu_torch/csrc`` (one nvcc each,
-   started together) and print the build time and ptxas's resource report.
+1. Build the three CUDA kernels from ``rnad_tpu_torch/csrc`` (one nvcc
+   each, started together) and print the build time and ptxas's registers
+   and spills.  Generate the EquiNet path's A = 5 tree (numpy, seed 0).
 2. Hold each kernel against its plain PyTorch version on the card at the
-   main path's shapes: K2 (packed-row lookup) bitwise, on the demo tree's
+   main paths' shapes: K2 (packed-row lookup) bitwise, on the demo tree's
    table with 131072 ids and on a synthetic (786432, 128) table; K1 (fused
    rollout turn) at 32768 lanes with width-256 random weights and shared
    noise: episodes equal except where an action's two top Gumbel scores lie
-   within 1e-5 (counted), policy and values within atol 1e-5.  Times each
-   kernel, its plain version and, for K2, ``torch.index_select``.
-3. Drive the main path: the demo tree (eta_sweep's config, seed 0) and 30
+   within 1e-5 (counted), policy and values within atol 1e-5; K3 (RM+, 128
+   iterations) on 65536 observed games of the A = 5 tree, the 327680 games
+   of one EquiNet learner regather and 65537 random games with random
+   illegal actions, under ``solver_device.agreement`` (x, y, v within atol
+   1e-5 except on a counted share of diverged games, which are as good as
+   the plain version's as a set: mean and worst exploitability).  Times each kernel, its plain version and, for K2,
+   ``torch.index_select``.
+3. Drive the MLP path: the demo tree (eta_sweep's config, seed 0) and 30
    fused R-NaD train steps at 32768 lanes with a width-256 MLP through
    ``RNaD.run`` and ``final_eval``, with the kernels' launch counters set to
    0 just before and read just after (4 K1 launches and 1 K2 launch per
@@ -21,6 +27,13 @@ Three phases, and any failure exits nonzero:
    stored solution's NashConv of 0; times rollout half-steps/s and train
    updates/s; then holds one train step on the card against the same step
    on the CPU (plain versions) at 256 lanes.
+4. Drive the EquiNet path: the solver-primed EquiNet (64 channels, depth 2,
+   128 RM+ iterations, float32) for 20 steps at 32768 lanes on the A = 5
+   tree (65440 nodes), counters zeroed just before and read just after:
+   per step max_depth + 1 launches each of K3 and K2 and none of K1, and
+   one K3 launch per chunk of each chunked NashConv eval.  The same checks
+   and throughput as phase 3, the peak device memory, and one step at 256
+   lanes on the card against the CPU.
 
 It prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
@@ -30,8 +43,11 @@ printing any result.  TF32 is off for matmuls and cuDNN throughout.
 
 from __future__ import annotations
 
+import dataclasses
 import json
+import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -44,6 +60,8 @@ F32_FLOPS = 67e12
 B_MAIN = 32768
 N_REGATHER = 131072
 STEPS = 30
+EQUI_STEPS = 20
+RM_ITERS = 128
 
 
 def log(msg: str) -> None:
@@ -166,6 +184,14 @@ def main() -> int:
     from rnad_tpu_torch.ops import lookup as lookup_lib
     from rnad_tpu_torch.ops import stepping
 
+    # the EquiNet path: the repo's "big" A = 5 config cut to depth 5, and
+    # flagship-2's net (docs/SCALE.md) in float32
+    equi_tree_cfg = TreeConfig(max_actions=5, max_transitions=2,
+                               transition_threshold=0.25, depth_bound=5,
+                               depth_bound_rule=ShapingRule(-1, -2, 0.55))
+    equi_net_cfg = NetConfig(type="EquiNet", max_actions=5, channels=64,
+                             depth=2, solver_iters=RM_ITERS,
+                             solver_prime=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
@@ -173,15 +199,31 @@ def main() -> int:
     log(f"device: {torch.cuda.get_device_name(0)} | torch "
         f"{torch.__version__} cuda {torch.version.cuda} | {card}")
 
-    # -- phase 1: build --------------------------------------------------
+    # -- phase 1: build, and the EquiNet path's tree ---------------------
     t0 = time.perf_counter()
-    seconds = _build.build(["lookup", "fused_turn"])
+    seconds = _build.build(["lookup", "fused_turn", "rmplus"])
     log(f"build: {time.perf_counter() - t0:.1f} s "
         + ", ".join(f"{k} {v:.1f} s" for k, v in seconds.items()))
     for name, text in _build.build_logs.items():
+        entry = name
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  ptxas {name}: {line.strip()}")
+            if "Compiling entry function" in line:
+                # the kernel's name and template size from the mangled name
+                found = re.search(r"\d+([A-Za-z_]+_kernel)(?:ILi(\d+)E)?",
+                                  line)
+                entry = (f"{found.group(1)}<{found.group(2)}>"
+                         if found and found.group(2) else
+                         found.group(1) if found else name)
+            elif "registers" in line or "spill" in line:
+                log(f"  ptxas {entry}: {line.strip()}")
+    t0 = time.perf_counter()
+    equi_tree = tree_lib.generate_tree(equi_tree_cfg, seed=0, device=dev)
+    log(f"EquiNet tree (A=5, depth_bound 5, seed 0): S={equi_tree.size} "
+        f"max_depth={equi_tree.max_depth}, generated in "
+        f"{time.perf_counter() - t0:.2f} s")
+    if equi_tree.size != 65440 or equi_tree.max_depth != 5:
+        raise AssertionError("the A = 5 tree is not the 65440-node, "
+                             "depth-5 tree of seed 0")
 
     # -- phase 2: kernels against their plain versions --------------------
     tree_cfg = TreeConfig(max_actions=3, max_transitions=2,
@@ -246,6 +288,13 @@ def main() -> int:
     log(f"bounds: K1 {k1_bound:.4f} ms ({k1_by}; {k1_flops:.4g} FLOP, "
         f"{k1_bytes:.4g} B), K2 {k2_bound:.4f} ms (bytes; {k2_bytes:.4g} B, "
         f"{unique_rows} distinct rows)")
+
+    equi_cfg = RNaDConfig(batch_size=B_MAIN, eta=1.0, lr=5e-5,
+                          gamma_averaging=0.001, logit_clip=2.0, bounds=(2,),
+                          delta_m=(10,))
+    equi_run = rnad.RNaD(equi_tree, equi_cfg, equi_net_cfg, seed=0,
+                         device="cuda")
+    k3 = check_rmplus_phase(equi_run, gen)
 
     # -- phase 3: the main path -------------------------------------------
     cfg = RNaDConfig(batch_size=B_MAIN, eta=0.2, bounds=(3,), delta_m=(10,),
@@ -315,19 +364,34 @@ def main() -> int:
         f"{runs(step_runs)} ms, device busy {step_dev_ms:.4f} ms) | {card}")
     check_against_cpu(tree, cfg, net_cfg)
 
+    # -- phase 4: the EquiNet path ----------------------------------------
+    equi = equinet_phase(equi_run, card)
+    by_path = lambda mlp, equinet: {"mlp": mlp, "equinet": equinet}
     kernels = [
         {"name": "fused_turn", "route": "cuda",
          "source": "rnad_tpu_torch/csrc/fused_turn.cu",
          "replaces": "rnad_tpu/ops/pallas_turn.py:79",
-         "launches": k1_launches, "max_abs_err": k1_err, "ms": k1_ms,
+         "launches": k1_launches + equi["k1"],
+         "launches_by_path": by_path(k1_launches, equi["k1"]),
+         "max_abs_err": k1_err, "ms": k1_ms,
          "plain_ms": k1_plain_ms, "bound_ms": k1_bound, "bound_by": k1_by,
          "library_ms": None, "near_ties": near_ties},
         {"name": "lookup", "route": "cuda",
          "source": "rnad_tpu_torch/csrc/lookup.cu",
          "replaces": "rnad_tpu/ops/pallas_lookup.py:45",
-         "launches": k2_launches, "max_abs_err": k2_err, "ms": k2_ms,
+         "launches": k2_launches + equi["k2"],
+         "launches_by_path": by_path(k2_launches, equi["k2"]),
+         "max_abs_err": k2_err, "ms": k2_ms,
          "plain_ms": k2_plain_ms, "bound_ms": k2_bound, "bound_by": "bytes",
          "library_ms": k2_lib_ms},
+        {"name": "rmplus", "route": "cuda",
+         "source": "rnad_tpu_torch/csrc/rmplus.cu",
+         "replaces": "rnad_tpu/ops/pallas_rmplus.py:52",
+         "launches": equi["k3"], "launches_by_path": by_path(0, equi["k3"]),
+         "max_abs_err": k3["max_abs_err"], "ms": k3["ms"],
+         "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
+         "bound_by": k3["bound_by"], "library_ms": None,
+         "diverged_games": k3["diverged"], "games": k3["games"]},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
@@ -335,6 +399,271 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def _games_of(obs):
+    """Observed games (N, 2, A, A) -> (payoffs with illegal cells zeroed,
+    legal rows, legal cols), batch-major, as the EquiNet's solve sees
+    them."""
+    legal = obs[:, 1]
+    lr, lc = legal.amax(2), legal.amax(1)
+    return obs[:, 0] * lr[:, :, None] * lc[:, None, :], lr, lc
+
+
+def check_rmplus_phase(run, gen):
+    """K3 against its plain version on the EquiNet path's games; times the
+    learner's solve.  Returns the numbers of K3's entry in the kernels
+    line."""
+    from rnad_tpu_torch.env import engine, solver_device
+    from rnad_tpu_torch.learn import rnad
+    from rnad_tpu_torch.models import nets
+    from rnad_tpu_torch.ops import rmplus as rmplus_lib
+    from rnad_tpu_torch.ops import stepping
+
+    tree, packed, dev = run.tree, run.packed, run.device
+    A = tree.max_actions
+    ids = torch.randint(1, tree.size, (B_MAIN,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    rows = stepping.lookup(packed, ids)
+    sets = {"observed": _games_of(torch.cat(
+        stepping.slice_observations(packed, rows)))}
+    # the learner's regather after one rollout of the untrained net
+    net = nets.build_net(run.net_config, torch.Generator().manual_seed(0))
+    state = rnad.init_train_state(net.to(dev), torch.Generator(device=dev)
+                                  .manual_seed(5))
+    traj = rnad.rollout(state, tree, packed, run.cfg)
+    obs, _ = engine.trajectory_observations(packed, traj)
+    sets["learner"] = _games_of(obs.reshape(-1, 2, A, A))
+    n = 65537  # random games, random illegal rows and columns, ragged
+    lr = (torch.rand((n, A), generator=gen, device=dev) > 0.2).float()
+    lc = (torch.rand((n, A), generator=gen, device=dev) > 0.2).float()
+    lr[:, 0] = 1.0
+    lc[:, 0] = 1.0
+    M = (torch.rand((n, A, A), generator=gen, device=dev) * 2 - 1)
+    sets["random"] = (M * lr[:, :, None] * lc[:, None, :], lr, lc)
+
+    out = {"max_abs_err": 0.0, "diverged": 0, "games": 0}
+    args = {}
+    for name, (Mz, lr, lc) in sets.items():
+        args[name] = (Mz.permute(1, 2, 0).contiguous(), lr.t().contiguous(),
+                      lc.t().contiguous(), RM_ITERS)
+        got = rmplus_lib.rmplus(*args[name])
+        torch.cuda.synchronize()
+        want = rmplus_lib.rmplus_plain(*args[name])
+        res = solver_device.agreement(Mz, lr, lc, [t.t() for t in got[:2]],
+                                      [t.t() for t in want[:2]], got[2],
+                                      want[2])
+        log(f"K3 rmplus {name}: {res.games} games, {RM_ITERS} iterations: "
+            f"{res.diverged} diverged (> atol {solver_device.ATOL}), "
+            f"max_abs_err {res.max_abs_err:.3g} on the rest; exploitability "
+            f"mean {res.mean_expl[0]:.6g} (plain {res.mean_expl[1]:.6g}), "
+            f"on the diverged {res.mean_expl_diverged[0]:.6g} (plain "
+            f"{res.mean_expl_diverged[1]:.6g}), worst game "
+            f"{res.max_expl[0]:.6g} (plain {res.max_expl[1]:.6g}); per game "
+            f"kernel - plain in [{res.excess[0]:.3g}, {res.excess[1]:.3g}]")
+        if not res.ok:
+            raise AssertionError(f"K3 disagrees with its plain version on the"
+                                 f" {name} games: {res}")
+        out["max_abs_err"] = max(out["max_abs_err"], res.max_abs_err)
+        out["diverged"] += res.diverged
+        out["games"] += res.games
+
+    R = C = A
+    B = args["learner"][0].shape[-1]
+    out["ms"] = device_ms(lambda: rmplus_lib.rmplus(*args["learner"]))
+    out["plain_ms"] = device_ms(
+        lambda: rmplus_lib.rmplus_plain(*args["learner"]), iters=5)
+    rollout_ms = device_ms(lambda: rmplus_lib.rmplus(*args["observed"]))
+    ops = rmplus_lib.operations(R, C, RM_ITERS) * B
+    nbytes = rmplus_lib.io_bytes(R, C, B)
+    out["bound_ms"] = max(ops / F32_FLOPS, nbytes / HBM_BYTES_PER_S) * 1e3
+    out["bound_by"] = ("operations" if ops / F32_FLOPS
+                       > nbytes / HBM_BYTES_PER_S else "bytes")
+    log(f"K3 rmplus learner ({B} games): kernel {out['ms']:.4f} ms, plain "
+        f"{out['plain_ms']:.4f} ms, bound {out['bound_ms']:.4f} ms "
+        f"({out['bound_by']}; {ops:.4g} operations at "
+        f"{rmplus_lib.operations(R, C, RM_ITERS)} a game, {nbytes:.4g} B); "
+        f"rollout turn ({args['observed'][0].shape[-1]} games): kernel "
+        f"{rollout_ms:.4f} ms")
+    return out
+
+
+def equinet_phase(run, card):
+    """The EquiNet main path (phase 4); returns its launch counts."""
+    from rnad_tpu_torch.env import engine
+    from rnad_tpu_torch.metrics import nashconv
+    from rnad_tpu_torch.models import nets
+    from rnad_tpu_torch.ops import fused_turn as fused_turn_lib
+    from rnad_tpu_torch.ops import lookup as lookup_lib
+    from rnad_tpu_torch.ops import rmplus as rmplus_lib
+
+    tree, cfg, dev = run.tree, run.cfg, run.device
+    md = tree.max_depth
+    run.initialize()  # builds the net; launches nothing
+    chunk = min(cfg.nashconv_chunk_nodes,
+                nets.inference_chunk_nodes(run.state.net, tree.max_actions))
+    chunks = math.ceil(tree.size / chunk)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fused_turn_lib.fused_turn.launches = 0
+    lookup_lib.lookup.launches = 0
+    rmplus_lib.rmplus.launches = 0
+    t0 = time.perf_counter()
+    run.run(log_mod=1)
+    final = run.final_eval()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {"k1": fused_turn_lib.fused_turn.launches,
+              "k2": lookup_lib.lookup.launches,
+              "k3": rmplus_lib.rmplus.launches}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    steps = run.state.total_steps
+    losses = [m for _, m in run.history if "loss" in m]
+    evals = [m["nashconv"] for _, m in run.history if "nashconv" in m]
+    log(f"EquiNet path: {steps} train steps + {len(evals)} NashConv evals "
+        f"({chunks} chunks of {chunk} nodes each) in {wall:.2f} s; launches "
+        f"K1 {counts['k1']}, K2 {counts['k2']}, K3 {counts['k3']}; peak "
+        f"device memory {peak:.3f} GiB")
+    log(f"  loss first {losses[0]['loss']:.6f} last {losses[-1]['loss']:.6f};"
+        f" NashConv " + ", ".join(f"{v:.6f}" for v in evals))
+    if steps != EQUI_STEPS or len(losses) != EQUI_STEPS:
+        raise AssertionError(f"expected {EQUI_STEPS} EquiNet steps, ran "
+                             f"{steps}")
+    bad = [(k, v) for m in losses for k, v in m.items()
+           if not math.isfinite(v)]
+    if bad or not all(math.isfinite(v) for v in evals):
+        raise AssertionError(f"non-finite EquiNet metrics: {bad} {evals}")
+    if len(evals) != 2 or evals[-1] != final:
+        raise AssertionError(f"expected a boundary eval and a final one: "
+                             f"{evals}")
+    want = {"k1": 0, "k2": EQUI_STEPS * (md + 1),
+            "k3": EQUI_STEPS * (md + 1) + len(evals) * chunks}
+    if counts != want:
+        raise AssertionError(f"EquiNet path launches {counts}, want {want}")
+
+    B = cfg.batch_size
+    init = torch.ones((B,), dtype=torch.int32, device=dev)
+    rollout = lambda: engine.rollout_from(run.tree, run.packed, run.state.net,
+                                          init, generator=run.state.generator)
+    traj = rollout()
+    mean_abs = float(engine.episode_returns(traj).abs().mean())
+    if not mean_abs <= 1.0 or traj.indices.shape != (2 * md, B):
+        raise AssertionError(f"EquiNet rollout: mean |return| {mean_abs}, "
+                             f"shape {tuple(traj.indices.shape)}")
+    oracle = float(nashconv.nashconv_pure(tree, tree.solution).nashconv())
+    if not abs(oracle) < 1e-5:
+        raise AssertionError(f"A = 5 tree: stored solution NashConv {oracle}")
+    log(f"checks: mean |episode return| {mean_abs:.4f}, stored solution "
+        f"NashConv {oracle:.3g}")
+
+    t0 = time.perf_counter()
+    run.nashconv()
+    torch.cuda.synchronize()
+    log(f"EquiNet NashConv eval ({chunks} chunks): "
+        f"{time.perf_counter() - t0:.4f} s wall")
+    step = lambda: run.train_step(run.state, 1.0)
+    half_steps = 2 * md * B
+    rollout_runs = sorted(wall_ms(rollout, iters=5) for _ in range(3))
+    step_runs = sorted(wall_ms(step, iters=5) for _ in range(3))
+    rollout_ms, step_ms = rollout_runs[1], step_runs[1]
+    rollout_dev_ms = device_ms(rollout, iters=5)
+    step_dev_ms = device_ms(step, iters=5)
+    runs = lambda xs: "/".join(f"{x:.4f}" for x in xs)
+    log(f"EquiNet throughput: rollout {half_steps / rollout_ms * 1e3:.6g} env"
+        f" half-steps/s ({rollout_ms:.4f} ms per {half_steps} half-steps, "
+        f"runs {runs(rollout_runs)} ms, device busy {rollout_dev_ms:.4f} ms);"
+        f" train {1e3 / step_ms:.6g} updates/s ({step_ms:.4f} ms per step, "
+        f"runs {runs(step_runs)} ms, device busy {step_dev_ms:.4f} ms); peak "
+        f"memory {peak:.3f} GiB | {card}")
+    check_equinet_against_cpu(tree, cfg, run.net_config)
+    return counts
+
+
+def check_equinet_against_cpu(tree, cfg, net_cfg, card="cuda") -> None:
+    """One EquiNet train step at 256 lanes on the card (kernels) and on the
+    CPU (plain versions) from the same weights and noise.  A lane's episode
+    may part from the CPU's only at a near-tie: at the first half-step
+    whose action differs, the CPU's two best scores (masked logits +
+    Gumbel noise) lie within 1e-5, or within twice the largest difference
+    between the card's and the CPU's scores of that lane (the primed
+    logits are log x of the RM+ solve, and log magnifies the solves'
+    float32 differences where x is near 0).  New weights within 1e-4 (two
+    steps of lr = 5e-5: Adam with b1=0 turns a gradient that is 0 but for
+    rounding into a step of up to lr either way)."""
+    import copy
+
+    from rnad_tpu_torch.env import engine
+    from rnad_tpu_torch.learn import rnad
+    from rnad_tpu_torch.models import common, nets
+    from rnad_tpu_torch.ops import stepping
+
+    B = 256
+    small = dataclasses.replace(cfg, batch_size=B)
+    A, T, md = tree.max_actions, tree.max_transitions, tree.max_depth
+    gen = torch.Generator().manual_seed(3)
+    noise = [engine.turn_noise(B, A, T, gen, "cpu") for _ in range(md)]
+    out = {}
+    for key, device in (("cpu", "cpu"), ("card", card)):
+        dtree = tree.to(device)
+        packed = stepping.make_packed_tables(dtree)
+        net = nets.build_net(net_cfg, torch.Generator().manual_seed(4))
+        actor = copy.deepcopy(net).to(device)  # the rollout's weights
+        state = rnad.init_train_state(net.to(device),
+                                      torch.Generator(device=device))
+        traj = rnad.rollout(state, dtree, packed, small, noise)
+        metrics = rnad.learn_step(state, packed, traj, 0.5, small)
+        out[key] = (
+            traj, metrics, [p.detach().cpu() for p in state.net.parameters()],
+            actor, packed)
+    tc, tg = out["cpu"][0], out["card"][0]
+    differ = tc.actions != tg.actions.cpu()  # (2 md, B)
+    flipped = differ.any(0)
+    lanes = torch.nonzero(flipped)[:, 0]
+    if len(lanes):
+        first = differ.to(torch.int32).argmax(0)[lanes]
+        turn, seat = first // 2, first % 2
+        idx = tc.indices[first, lanes]
+        g = torch.stack([noise[int(t)][0][int(s) * B + int(b)]
+                         for t, s, b in zip(turn, seat, lanes)])
+        scores = {}
+        for key, device in (("cpu", "cpu"), ("card", card)):
+            _, _, _, actor, packed = out[key]
+            rows = stepping.lookup(packed, idx.to(device))
+            row_obs, col_obs = stepping.slice_observations(packed, rows)
+            row_mask, col_mask = stepping.slice_action_masks(packed, rows)
+            s = seat.to(device)
+            obs = torch.where((s == 0)[:, None, None, None], row_obs, col_obs)
+            mask = torch.where((s == 0)[:, None], row_mask, col_mask)
+            with torch.no_grad():
+                logits, _ = actor(obs)
+            scores[key] = ((common.masked_logits(logits, mask)
+                            + g.to(device)).cpu(), mask.cpu())
+        (sc, mask), (sg, _) = scores["cpu"], scores["card"]
+        top2 = sc.topk(2, dim=1).values
+        gap = top2[:, 0] - top2[:, 1]
+        diff = torch.where(mask > 0, (sg - sc).abs(),
+                           torch.zeros_like(sc)).amax(1)
+        near = gap < torch.clamp(2 * diff, min=1e-5)
+        if not near.all():
+            raise AssertionError(
+                f"EquiNet card vs CPU: {int((~near).sum())} lanes part "
+                f"without a near-tie (gaps {gap[~near].tolist()}, score "
+                f"differences {diff[~near].tolist()})")
+    keep = ~flipped
+    for f in ("indices", "actions", "rewards"):
+        if not torch.equal(getattr(tc, f)[:, keep],
+                           getattr(tg, f).cpu()[:, keep]):
+            raise AssertionError(f"EquiNet card vs CPU: {f} differ on lanes "
+                                 "whose actions agree")
+    pc, pg = out["cpu"][2], out["card"][2]
+    err = max(float((a - b).abs().max()) for a, b in zip(pc, pg))
+    if not err <= 1e-4:
+        raise AssertionError(f"EquiNet card vs CPU: weights differ by {err}")
+    mc, mg = out["cpu"][1], out["card"][1]
+    log(f"EquiNet card vs CPU: one step at {B} lanes agrees: "
+        f"{int(flipped.sum())} lanes parted, all at near-ties; weights "
+        f"max_abs_err {err:.3g}; loss {float(mg['loss']):.6f} (CPU "
+        f"{float(mc['loss']):.6f})")
 
 
 def check_against_cpu(tree, cfg, net_cfg) -> None:

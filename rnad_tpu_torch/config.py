@@ -100,7 +100,8 @@ class ObsTransformConfig:
 
 @dataclasses.dataclass(frozen=True)
 class NetConfig:
-    """Network architecture selection (the port runs the depth-1 f32 MLP)."""
+    """Network architecture selection (the port runs the depth-1 f32 MLP
+    and the f32 EquiNet)."""
 
     type: str = "MLP"  # "MLP" | "ConvNet" | "EquiNet"
     max_actions: int = 3
@@ -153,7 +154,10 @@ class RNaDConfig:
     nashconv_chunk_nodes: int = 200_000
     vtrace_mode: str = "auto"
     frozen_net_dtype: str = "float32"
-    # Every mode computes the same losses; the port always runs "heads".
+    # Every mode computes the same losses.  The port runs "heads" for the
+    # MLP ("auto", "heads", "frozen", "all") and "off" for the EquiNet
+    # ("auto", "off"); learn/rnad.py::resolve_fuse_mode raises as rnad_tpu
+    # does on the other pairs.
     fuse_net_passes: str = "auto"
     detailed_metrics: bool = True
     # Both settings give bit-identical updates in rnad_tpu; the port's

@@ -1,9 +1,12 @@
-"""Batched rollout engine: every turn is one fused-turn kernel launch.
+"""Batched rollout engine: a turn is one fused-turn kernel launch (K1) for
+the MLP, or the generic turn for any net.
 
 Counterpart of ``rnad_tpu/env/engine.py`` (the ``"bma"`` trajectory layout,
 ``rollout_from``, ``trajectory_observations``, ``episode_returns``).  The
 absorbing-state convention (terminated lanes self-loop at index 0 with
 reward 0) means no masking mid-rollout; validity is ``indices != 0``.
+Both turns take the same noise and, given equal logits, play the same
+episodes.
 
 A ``Trajectory`` stores only state indices, the mover's behavior policy,
 sampled action ids, rewards and value estimates.  Observations are pure
@@ -18,8 +21,9 @@ import dataclasses
 from typing import Optional, Sequence, Tuple
 
 import torch
+from torch import nn
 
-from ..models import nets
+from ..models import common, nets
 from ..ops import fused_turn as fused_turn_lib
 from ..ops import stepping
 from .tree import GameTree
@@ -110,15 +114,62 @@ def trajectory_observations(packed: stepping.PackedTables, traj: Trajectory
     return pair(row_obs, col_obs), pair(row_mask, col_mask)
 
 
+def uses_fused_turn(net: nn.Module, mode: str = "auto") -> bool:
+    """Resolves ``RNaDConfig.rollout_rows_actor`` as ``rnad_tpu``'s
+    ``resolve_rows_actor`` does: "auto" takes kernel K1 exactly where it
+    exists (the depth-1 float32 MLP, the only MLP the port builds) and the
+    generic turn for every other net; "off" takes the generic turn; "on"
+    with another net raises ``make_mlp_rows_actor``'s error."""
+    fusable = isinstance(net, nets.MLP)
+    if mode == "off":
+        return False
+    if mode == "on":
+        if not fusable:
+            raise ValueError(
+                f"make_mlp_rows_actor requires an MLP net, got "
+                f"{type(net).__name__}; use the generic actor_fn path")
+        return True
+    if mode != "auto":
+        raise ValueError(f"unknown rollout_rows_actor mode {mode!r}")
+    return fusable
+
+
+def generic_turn(packed: stepping.PackedTables, net: nn.Module,
+                 indices: torch.Tensor, g_act: torch.Tensor,
+                 g_chance: torch.Tensor):
+    """One turn for any net (``rnad_tpu``'s generic turn): the lanes'
+    packed rows (K2), both seats' observations as one (2B, 2, A, A) batch
+    through ``net`` (for a solver EquiNet, one K3 launch), the masked
+    policy, Gumbel-max actions ``argmax(masked logits + g_act)`` and the
+    transition with ``g_chance``.  Returns what ``fused_turn`` returns."""
+    A = packed.max_actions
+    B = indices.shape[0]
+    rows = stepping.lookup(packed, indices)
+    row_obs, col_obs = stepping.slice_observations(packed, rows)
+    logits, values = net(torch.cat([row_obs, col_obs], dim=0))
+    row_mask, col_mask = stepping.slice_action_masks(packed, rows)
+    legal = torch.cat([row_mask, col_mask], dim=0)  # (2B, A)
+    policy = common.masked_policy(logits, legal).reshape(2, B, A)
+    actions = torch.argmax(common.masked_logits(logits, legal) + g_act,
+                           dim=1).to(torch.int32)
+    new_idx, rewards = stepping.select_transition(
+        packed, rows, actions[:B], actions[B:], g_chance)
+    return (new_idx, policy, actions.reshape(2, B), rewards,
+            values.reshape(2, B))
+
+
 @torch.no_grad()
 def rollout_from(tree: GameTree, packed: stepping.PackedTables,
-                 net: nets.MLP, init_indices: torch.Tensor,
+                 net: nn.Module, init_indices: torch.Tensor,
                  num_turns: Optional[int] = None, *,
                  noise: Optional[Sequence[Tuple[torch.Tensor,
                                                 torch.Tensor]]] = None,
-                 generator: Optional[torch.Generator] = None) -> Trajectory:
+                 generator: Optional[torch.Generator] = None,
+                 rows_actor: str = "auto") -> Trajectory:
     """Plays ``num_turns`` turns (default ``tree.max_depth``) from the
-    per-lane states ``init_indices`` (B,) under ``net``'s policy.
+    per-lane states ``init_indices`` (B,) under ``net``'s policy, each turn
+    through kernel K1 or the generic turn as ``uses_fused_turn`` resolves
+    ``rows_actor``.
 
     ``noise`` gives each turn's ``(g_act (2B, A), g_chance (B, T))``; if it
     is None they are drawn from ``generator`` on the tree's device."""
@@ -127,8 +178,14 @@ def rollout_from(tree: GameTree, packed: stepping.PackedTables,
     A, T = packed.max_actions, packed.max_transitions
     B = init_indices.shape[0]
     device = packed.rows.device
-    w0, b0, w1, b1 = (w.detach().contiguous()
-                      for w in nets.mlp_fused_weights(net))
+    if uses_fused_turn(net, rows_actor):
+        weights = [w.detach().contiguous()
+                   for w in nets.mlp_fused_weights(net)]
+        turn = lambda idx, g_act, g_ch: fused_turn_lib.fused_turn(
+            packed.rows, *weights, idx, g_act, g_ch, A=A, T=T)
+    else:
+        turn = lambda idx, g_act, g_ch: generic_turn(packed, net, idx, g_act,
+                                                     g_ch)
     indices = init_indices.to(device=device, dtype=torch.int32).contiguous()
     recs = []
     for t in range(num_turns):
@@ -137,8 +194,7 @@ def rollout_from(tree: GameTree, packed: stepping.PackedTables,
         else:
             g_act, g_ch = (g.to(device=device, dtype=torch.float32)
                            .contiguous() for g in noise[t])
-        new_idx, policy, actions, rewards, values = fused_turn_lib.fused_turn(
-            packed.rows, w0, b0, w1, b1, indices, g_act, g_ch, A=A, T=T)
+        new_idx, policy, actions, rewards, values = turn(indices, g_act, g_ch)
         recs.append((torch.stack([indices, indices]), policy, actions,
                      torch.stack([torch.zeros_like(rewards), rewards]),
                      values))

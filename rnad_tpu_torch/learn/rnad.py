@@ -1,14 +1,18 @@
 """R-NaD trainer: the fused on-policy train step and the host schedule loop.
 
 Counterpart of ``rnad_tpu/learn/rnad.py``.  One train step runs, in order:
-the rollout (one fused-turn kernel launch per turn), the learner's forward
-with autograd on the regathered observations (one packed-row lookup), the
-frozen passes (the EMA target's value head and the regularization pair's
-policy heads, as ``fuse_net_passes="heads"``), the alpha-interpolated reward
+the rollout (per turn, one fused-turn kernel launch for the MLP, or the
+generic turn: a packed-row lookup, the net forward and, for a solver
+EquiNet, one RM+ kernel launch), the learner's forward with autograd on the
+regathered observations (one packed-row lookup, and one RM+ solve shared by
+all four passes), the frozen passes, the alpha-interpolated reward
 transform and two-player v-trace, the NeuRD and critic losses, the optax
 global-norm clip, Adam with the optax formulas (b1=0 by default) and the
-EMA target update.  The ``RNaD`` host loop owns the (m, n, alpha) schedule,
-regularization rotation and exact NashConv at update boundaries.
+EMA target update.  The frozen passes follow ``fuse_net_passes``: "heads"
+(the MLP: the EMA target's value head and the regularization pair's policy
+heads) or "off" (every other net: each frozen net's whole forward).  The
+``RNaD`` host loop owns the (m, n, alpha) schedule, regularization rotation
+and exact NashConv at update boundaries, chunked on large trees.
 
 The step updates the ``TrainState`` in place (parameters, Adam moments and
 the EMA target) instead of building new tensors.  The run store, checkpoints
@@ -26,6 +30,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
 from ..config import NetConfig, RNaDConfig
 from ..env import engine
@@ -52,22 +57,22 @@ class TrainState:
     regularization pair), the optimizer state, the rollout noise generator
     and the step counter."""
 
-    net: nets.MLP  # learner (rnad_tpu: variables)
-    net_target: nets.MLP  # EMA target (variables_target)
-    net_reg: nets.MLP  # pi_reg (variables_reg)
-    net_reg_: nets.MLP  # pi_reg_prev (variables_reg_)
+    net: nn.Module  # learner (rnad_tpu: variables)
+    net_target: nn.Module  # EMA target (variables_target)
+    net_reg: nn.Module  # pi_reg (variables_reg)
+    net_reg_: nn.Module  # pi_reg_prev (variables_reg_)
     opt: AdamState
     generator: torch.Generator  # rollout Gumbel noise
     total_steps: int = 0
 
 
-def _frozen_copy(net: nets.MLP) -> nets.MLP:
+def _frozen_copy(net: nn.Module) -> nn.Module:
     out = copy.deepcopy(net)
     out.requires_grad_(False)
     return out
 
 
-def init_train_state(net: nets.MLP, generator: torch.Generator
+def init_train_state(net: nn.Module, generator: torch.Generator
                      ) -> TrainState:
     """All four nets start as copies of ``net``; Adam moments are zero."""
     params = list(net.parameters())
@@ -105,7 +110,8 @@ def optimizer_update(cfg: RNaDConfig, params: List[torch.Tensor],
 
 
 @torch.no_grad()
-def ema_update(gamma: float, net: nets.MLP, net_target: nets.MLP) -> None:
+def ema_update(gamma: float, net: nn.Module, net_target: nn.Module
+               ) -> None:
     """target <- gamma * learner + (1 - gamma) * target, in place."""
     for p, t in zip(net.parameters(), net_target.parameters()):
         t.copy_(gamma * p + (1.0 - gamma) * t)
@@ -118,39 +124,111 @@ def neurd_scale_for(cfg: RNaDConfig, total_steps: int) -> float:
     return 1.0 if not warm or total_steps >= warm else 0.0
 
 
-def learn_loss(state: TrainState, packed: stepping.PackedTables,
-               traj: engine.Trajectory, alpha: float, cfg: RNaDConfig,
-               neurd_scale: float = 1.0
-               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Loss of one learner update; differentiable w.r.t. ``state.net``."""
-    valid = traj.valid()
-    player_id = traj.turns
+def resolve_fuse_mode(net: nn.Module, cfg: RNaDConfig) -> str:
+    """Resolves ``cfg.fuse_net_passes`` against the net family as
+    ``rnad_tpu`` does, with its errors.  "auto" is "heads" for the MLP (the
+    only family with separable heads) and "off" otherwise.  The MLP's
+    "frozen" and "all" (one fused matmul pair on the TPU) compute the same
+    losses as "heads", which the port runs for them."""
+    mode = cfg.fuse_net_passes
+    is_mlp = isinstance(net, nets.MLP)
+    if mode == "auto":
+        return "heads" if is_mlp else "off"
+    if mode == "heads":
+        if not is_mlp:
+            raise ValueError(
+                f"fuse_net_passes='heads' requires an MLP (the only family "
+                f"with separable heads); got {type(net).__name__}")
+        return mode
+    if mode in ("frozen", "all"):
+        if not is_mlp:
+            raise ValueError(
+                f"fuse_net_passes={mode!r} requires a depth-1 MLP "
+                f"(mlp_multi_net_forward packing); got "
+                f"{type(net).__name__} with depth "
+                f"{getattr(net, 'depth', '?')}")
+        return "heads"
+    if mode != "off":
+        raise ValueError(f"unknown fuse_net_passes mode {mode!r}")
+    return mode
+
+
+@dataclasses.dataclass
+class LearnerInputs:
+    """What the learner's net passes read: the regathered observations
+    (T * B, 2, A, A), the movers' legal masks (T, B, A) and, for a solver
+    EquiNet, its solver features (one K3 launch), shared by all four
+    passes."""
+
+    obs_flat: torch.Tensor
+    masks: torch.Tensor
+    solver_feats: Optional[Tuple[torch.Tensor, ...]] = None
+
+
+def learner_inputs(state: TrainState, packed: stepping.PackedTables,
+                   traj: engine.Trajectory) -> LearnerInputs:
+    """One K2 regather of the trajectory's observations and, for an EquiNet
+    with solver features, one solve over them."""
     observations, masks = engine.trajectory_observations(packed, traj)
     T, B = traj.rewards.shape
+    obs_flat = observations.reshape((T * B,) + observations.shape[2:])
+    feats = None
+    if isinstance(state.net, nets.EquiNet) and state.net.solver_iters:
+        feats = nets.equinet_solver_features(state.net, obs_flat)
+    return LearnerInputs(obs_flat=obs_flat, masks=masks, solver_feats=feats)
+
+
+def learn_loss(state: TrainState, packed: stepping.PackedTables,
+               traj: engine.Trajectory, alpha: float, cfg: RNaDConfig,
+               neurd_scale: float = 1.0,
+               inputs: Optional[LearnerInputs] = None
+               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Loss of one learner update; differentiable w.r.t. ``state.net``.
+    ``inputs`` defaults to ``learner_inputs(state, packed, traj)``."""
+    fuse = resolve_fuse_mode(state.net, cfg)
+    if inputs is None:
+        inputs = learner_inputs(state, packed, traj)
+    valid = traj.valid()
+    player_id = traj.turns
+    obs_flat, masks = inputs.obs_flat, inputs.masks
+    T, B = traj.rewards.shape
     A = traj.num_actions
-    obs_flat = observations.reshape(T * B, -1)
     # alpha and 1 - alpha rounded as float32, as rnad_tpu computes them
     alpha_f32 = np.float32(alpha)
     alpha, one_minus_alpha = float(alpha_f32), float(np.float32(1) - alpha_f32)
 
-    logits, v_raw = state.net(obs_flat)
+    logits, v_raw = state.net(obs_flat, inputs.solver_feats)
     logits = logits.reshape(T, B, A)
     v = v_raw.reshape(T, B)[..., None]
     pi = common.masked_policy(logits, masks)
     log_pi = common.masked_log_policy(logits, masks)
 
     with torch.no_grad():
-        # "heads": the target contributes its value, the reg pair their
-        # policies; the target's policy feeds one diagnostic only.
-        v_target_net = nets.mlp_head_eval(
-            state.net_target, obs_flat, "value").reshape(T, B)[..., None]
-        log_pi_reg = common.masked_log_policy(nets.mlp_head_eval(
-            state.net_reg, obs_flat, "policy").reshape(T, B, A), masks)
-        log_pi_reg_prev = common.masked_log_policy(nets.mlp_head_eval(
-            state.net_reg_, obs_flat, "policy").reshape(T, B, A), masks)
-        pi_target = (common.masked_policy(nets.mlp_head_eval(
-            state.net_target, obs_flat, "policy").reshape(T, B, A), masks)
-            if cfg.detailed_metrics else None)
+        if fuse == "heads":
+            # the target contributes its value, the reg pair their
+            # policies; the target's policy feeds one diagnostic only
+            values_target = nets.mlp_head_eval(state.net_target, obs_flat,
+                                               "value")
+            logits_reg = nets.mlp_head_eval(state.net_reg, obs_flat,
+                                            "policy")
+            logits_reg_prev = nets.mlp_head_eval(state.net_reg_, obs_flat,
+                                                 "policy")
+            logits_t = (nets.mlp_head_eval(state.net_target, obs_flat,
+                                           "policy")
+                        if cfg.detailed_metrics else None)
+        else:  # "off": every frozen net's whole forward
+            logits_t, values_target = state.net_target(obs_flat,
+                                                       inputs.solver_feats)
+            logits_reg, _ = state.net_reg(obs_flat, inputs.solver_feats)
+            logits_reg_prev, _ = state.net_reg_(obs_flat,
+                                                inputs.solver_feats)
+        v_target_net = values_target.reshape(T, B)[..., None]
+        log_pi_reg = common.masked_log_policy(logits_reg.reshape(T, B, A),
+                                              masks)
+        log_pi_reg_prev = common.masked_log_policy(
+            logits_reg_prev.reshape(T, B, A), masks)
+        pi_target = (common.masked_policy(logits_t.reshape(T, B, A), masks)
+                     if cfg.detailed_metrics else None)
 
         pi_processed = vtrace.process_policy(
             pi.detach(), masks, cfg.n_discrete, cfg.epsilon_threshold)
@@ -199,7 +277,8 @@ def rollout(state: TrainState, tree: GameTree, packed: stepping.PackedTables,
     init = torch.ones((cfg.batch_size,), dtype=torch.int32,
                       device=packed.rows.device)
     return engine.rollout_from(tree, packed, state.net, init, tree.max_depth,
-                               noise=noise, generator=state.generator)
+                               noise=noise, generator=state.generator,
+                               rows_actor=cfg.rollout_rows_actor)
 
 
 def learn_step(state: TrainState, packed: stepping.PackedTables,
@@ -244,8 +323,15 @@ def alpha_schedule(n: int, delta_m: int) -> float:
     return 1.0 if n > delta_m / 2 else n * 2.0 / delta_m
 
 
-def nashconv(tree: GameTree, net: nets.MLP) -> nashconv_lib.NashConvResult:
-    """Exact best-response values of ``net``'s joint policy."""
+def nashconv(tree: GameTree, net: nn.Module,
+             chunk_nodes: Optional[int] = None
+             ) -> nashconv_lib.NashConvResult:
+    """Exact best-response values of ``net``'s joint policy: one
+    whole-tree pass, or chunked inference of ``chunk_nodes`` nodes a chunk
+    where the tree has more (``rnad_tpu``'s ``nashconv_fn``)."""
+    if chunk_nodes is not None and tree.size > chunk_nodes:
+        joint = nashconv_lib.joint_policy_from_net(tree, net, chunk_nodes)
+        return nashconv_lib.nashconv_root(tree, joint)
     joint = nashconv_lib.joint_policy_all_nodes(tree, net)
     return nashconv_lib.nashconv_pure(tree, joint, compute_reach=False)
 
@@ -314,6 +400,9 @@ class RNaD:
             return
         net = nets.build_net(self.net_config,
                              torch.Generator().manual_seed(self.seed))
+        # the rollout route and the frozen passes raise here, not mid-step
+        engine.uses_fused_turn(net, self.cfg.rollout_rows_actor)
+        resolve_fuse_mode(net, self.cfg)
         generator = torch.Generator(device=self.device)
         generator.manual_seed(self.seed + 1)
         self.state = init_train_state(net.to(self.device), generator)
@@ -332,8 +421,13 @@ class RNaD:
         return True, self.cfg.delta_m[min(bounding)]
 
     def nashconv(self) -> float:
-        """NashConv of the EMA target net."""
-        result = nashconv(self.tree, self.state.net_target)
+        """NashConv of the EMA target net.  Above ``nashconv_chunk_nodes``
+        nodes, capped by the net's activation footprint
+        (``nets.inference_chunk_nodes``), inference runs in chunks."""
+        net = self.state.net_target
+        chunk = min(self.cfg.nashconv_chunk_nodes,
+                    nets.inference_chunk_nodes(net, self.tree.max_actions))
+        result = nashconv(self.tree, net, chunk)
         for depth, val in nashconv_lib.mean_nashconv_by_depth(
                 self.tree, result).items():
             logging.info("depth:%d nashconv:%f", depth, val)

@@ -7,6 +7,10 @@ their children's, so after ``max_depth`` passes the root values are exact
 col_best[1]; it is 0 iff the joint policy is a Nash equilibrium, which the
 generator's stored solution is.
 
+A net's joint policy comes from one whole-tree pass
+(``joint_policy_all_nodes``) or, on large trees, from chunked inference
+(``joint_policy_from_net``) that feeds the same backward induction.
+
 Child values reach their parent cells by a scatter of the S node values:
 every internal node has exactly one parent cell (tree property).  Only the
 ``index > 0`` cells are scattered, so no two writes hit one slot (a CUDA
@@ -103,16 +107,53 @@ def nashconv_pure(tree: GameTree, joint_policy: torch.Tensor,
                           reach_probability=reach)
 
 
+def nashconv_root(tree: GameTree, joint_policy: torch.Tensor
+                  ) -> NashConvResult:
+    """Best-response values only (reach skipped), for a precomputed joint
+    policy such as chunked inference gives."""
+    return nashconv_pure(tree, joint_policy, compute_reach=False)
+
+
+def _joint_policy(net, ev: torch.Tensor, lg: torch.Tensor) -> torch.Tensor:
+    """Both seats' policies (n, 2A) of ``net`` at the nodes whose
+    expected values and legality are ``ev`` and ``lg`` (n, 1, A, A)."""
+    row_obs, col_obs = seat_observations(ev, lg)
+    obs = torch.cat([row_obs, col_obs], dim=0)
+    logits, _ = net(obs)
+    p = common.masked_policy(logits, obs[:, 1, :, 0])
+    n = ev.shape[0]
+    return torch.cat([p[:n], p[n:]], dim=-1)
+
+
 @torch.no_grad()
 def joint_policy_all_nodes(tree: GameTree, net) -> torch.Tensor:
     """Whole-tree both-seat policy (S, 2A) of ``net`` in one pass."""
-    row_obs, col_obs = seat_observations(tree.expected_value, tree.legal)
-    obs = torch.cat([row_obs, col_obs], dim=0)
-    logits, _ = net(obs)
-    legal = obs[:, 1, :, 0]
-    p = common.masked_policy(logits, legal)
-    n = tree.expected_value.shape[0]
-    return torch.cat([p[:n], p[n:]], dim=-1)
+    return _joint_policy(net, tree.expected_value, tree.legal)
+
+
+@torch.no_grad()
+def joint_policy_from_net(tree: GameTree, net,
+                          inference_batch_size: int = 100_000
+                          ) -> torch.Tensor:
+    """Both-seat policy (S, 2A) of ``net`` for every node, in chunks of
+    ``inference_batch_size`` nodes, so a large tree's inference fits in
+    memory (one forward, and for a solver EquiNet one RM+ solve, a chunk).
+    The tail chunk is zero-padded to the chunk's size with one legal cell
+    per padded node, as ``rnad_tpu`` pads it to its compiled shape."""
+    S = tree.index.shape[0]
+    chunk = min(inference_batch_size, S)
+    outs = []
+    for start in range(0, S, chunk):
+        stop = min(start + chunk, S)
+        ev = tree.expected_value[start:stop]
+        lg = tree.legal[start:stop]
+        if stop - start < chunk:
+            pad = chunk - (stop - start)
+            ev = torch.nn.functional.pad(ev, (0, 0, 0, 0, 0, 0, 0, pad))
+            lg = torch.nn.functional.pad(lg, (0, 0, 0, 0, 0, 0, 0, pad))
+            lg[stop - start:, 0, 0, 0] = 1.0  # keep the softmax sane
+        outs.append(_joint_policy(net, ev, lg)[:stop - start])
+    return torch.cat(outs, dim=0)
 
 
 def mean_nashconv_by_depth(tree: GameTree,

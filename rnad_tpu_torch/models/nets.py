@@ -1,16 +1,21 @@
-"""The two-head policy/value MLP and its fused-weight forms.
+"""Policy/value nets: the depth-1 two-head MLP and the EquiNet.
 
-Counterpart of ``rnad_tpu/models/nets.py`` for the depth-1 MLP (the
-reference architecture): the flattened (2, A, A) observation feeds two
-separate one-hidden-layer heads, ``policy_fc0 -> relu -> policy_fc1``
-(A logits) and ``value_fc0 -> relu -> value_fc1`` (one value).
+Counterpart of ``rnad_tpu/models/nets.py`` for two families.  The MLP (the
+reference architecture) feeds the flattened (2, A, A) observation to two
+separate one-hidden-layer heads, ``policy_fc0 -> relu -> policy_fc1`` (A
+logits) and ``value_fc0 -> relu -> value_fc1`` (one value).  The EquiNet
+is a tower of row/column-exchangeable layers over the (A, A) cells, with
+optional RM+ solver features (kernel K3 on the card) that can prime its
+heads.  Every net's ``forward(obs, solver_feats=None)`` takes (N, C, A, A)
+observations and returns (logits (N, A), values (N,)).
 
 Weights cross between the packages through the carrier below: a flax Dense
 kernel is (in, out) and a torch Linear weight is (out, in), so the carrier
-transposes.  Initialization is torch's own Linear default,
-U(-1/sqrt(fan_in), 1/sqrt(fan_in)) for weight and bias, which is the
-distribution ``rnad_tpu``'s ``torch_linear_kernel_init`` reproduces; draws
-come from an explicit generator.
+transposes; the EquiNet's exchangeable kernels keep flax's channels-last
+layout and cross as they are.  Initialization is torch's own Linear
+default, U(-1/sqrt(fan_in), 1/sqrt(fan_in)) for weight and bias, which is
+the distribution ``rnad_tpu``'s ``torch_linear_kernel_init`` reproduces;
+draws come from an explicit generator.
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ import torch
 from torch import nn
 
 from ..config import NetConfig
+from ..env import solver_device
 
 _LAYERS = ("policy_fc0", "policy_fc1", "value_fc0", "value_fc1")
 
@@ -48,51 +54,237 @@ class MLP(nn.Module):
                 layer.weight.uniform_(-bound, bound, generator=generator)
                 layer.bias.uniform_(-bound, bound, generator=generator)
 
-    def forward(self, obs: torch.Tensor
+    def forward(self, obs: torch.Tensor, solver_feats=None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(N, C, A, A) observations -> (logits (N, A), values (N,))."""
+        """(N, C, A, A) observations -> (logits (N, A), values (N,)).
+        ``solver_feats`` is the EquiNet's; the MLP takes none."""
+        del solver_feats
         x = obs.reshape(obs.shape[0], -1)
         logits = self.policy_fc1(torch.relu(self.policy_fc0(x)))
         value = self.value_fc1(torch.relu(self.value_fc0(x)))
         return logits, value[:, 0]
 
 
+# ---------------------------------------------------------------------------
+# EquiNet: the permutation-equivariant net with RM+ solver features
+# ---------------------------------------------------------------------------
+
+_SolverFeats = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+@torch.no_grad()
+def _solver_features(x: torch.Tensor, iters: int) -> _SolverFeats:
+    """Six equivariant input channels from an RM+ solve of the observed
+    matrix (one K3 launch on the card): the averaged strategies x and y,
+    their logs and the action utilities against them, broadcast over the
+    other seat's axis, plus the head primers: (feats (N, A, A, 6),
+    log x (N, A), value (N,)).  ``x`` is channels-last (N, A, A, 2).
+    Gradient-free: pure features of the data."""
+    M = x[..., 0].float()  # (N, A, A)
+    legal = x[..., 1].float()
+    # the legality channel is legal_rows x legal_cols; row and column maxes
+    # recover the factors under any relabeling of the actions
+    lr = legal.amax(2)
+    lc = legal.amax(1)
+    xs, ys, v = solver_device.solve_zero_sum_rmplus(M, lr, lc, iters=iters)
+    u_r = torch.einsum("nrc,nc->nr", M, ys)  # row utilities against y
+    u_c = -torch.einsum("nr,nrc->nc", xs, M)  # col utilities against x
+    eps = 1e-9
+    log_x = torch.log(xs + eps)
+    rows = [xs, log_x, u_r]  # broadcast over columns
+    cols = [ys, torch.log(ys + eps), u_c]  # broadcast over rows
+    feats = [r[:, :, None].expand(M.shape) for r in rows]
+    feats += [c[:, None, :].expand(M.shape) for c in cols]
+    return torch.stack(feats, dim=-1), log_x, v
+
+
+class _ExchangeableDense(nn.Module):
+    """One row/column-exchangeable linear layer in block form: the flax
+    layer's (6 C_in, C) kernel is cut into six (C_in, C) blocks, each
+    contracted against one un-broadcast pool of the channels-last input
+    (cell, row mean, column mean, global mean, row max, column max) and the
+    results broadcast-added.  The max pools are ``torch.amax``, whose
+    gradient splits evenly between tied maxima as JAX's ``reduce_max``
+    does (``torch.max(dim=...)`` would give it all to one index)."""
+
+    def __init__(self, in_channels: int, features: int,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        bound = 1.0 / (6 * in_channels) ** 0.5
+        self.kernel = nn.Parameter(torch.empty(6 * in_channels, features))
+        self.bias = nn.Parameter(torch.empty(features))
+        with torch.no_grad():
+            self.kernel.uniform_(-bound, bound, generator=generator)
+            self.bias.uniform_(-bound, bound, generator=generator)
+
+    def forward(self, h: torch.Tensor) -> torch.Tensor:
+        cin = h.shape[-1]
+        blk = lambda i: self.kernel[i * cin:(i + 1) * cin]
+        out = h @ blk(0)
+        out = out + h.mean(dim=2, keepdim=True) @ blk(1)
+        out = out + h.mean(dim=1, keepdim=True) @ blk(2)
+        out = out + h.mean(dim=(1, 2), keepdim=True) @ blk(3)
+        out = out + torch.amax(h, dim=2, keepdim=True) @ blk(4)
+        out = out + torch.amax(h, dim=1, keepdim=True) @ blk(5)
+        return out + self.bias
+
+
+class EquiNet(nn.Module):
+    """Permutation-equivariant policy/value net (``rnad_tpu``'s EquiNet).
+
+    The observation goes channels-last (N, A, A, 2), gains the six RM+
+    solver channels when ``solver_iters > 0``, and runs through ``depth``
+    exchangeable layers with ReLU.  The policy head reads each row's mean
+    over columns and the value head the global mean, both concatenated
+    with the same pools of the input (the input skip), so relabeling the
+    mover's actions permutes the logits and leaves the value unchanged.
+    With ``solver_prime`` the heads start at zero and the solve enters
+    through unit gates, so the untrained policy is the RM+ solution
+    (logits log x) and the value its game value.  Layer names are the flax
+    module's: ``ex{i}`` ({kernel (6 C_in, C), bias}), ``policy``, ``value``
+    and the gates."""
+
+    def __init__(self, max_actions: int, channels: int = 128,
+                 depth: int = 4, solver_iters: int = 0,
+                 solver_prime: bool = False, in_channels: int = 2,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.max_actions = max_actions
+        self.channels = channels
+        self.depth = depth
+        self.solver_iters = solver_iters
+        self.primed = bool(solver_iters and solver_prime)
+        c0 = in_channels + (6 if solver_iters else 0)
+        cin = c0
+        for i in range(depth):
+            setattr(self, f"ex{i}", _ExchangeableDense(cin, channels,
+                                                       generator))
+            cin = channels
+        fan = cin + c0
+        self.policy = nn.Linear(fan, 1)
+        self.value = nn.Linear(fan, 1)
+        with torch.no_grad():
+            bound = 1.0 / fan ** 0.5
+            for head in (self.policy, self.value):
+                if self.primed:
+                    head.weight.zero_()
+                    head.bias.zero_()
+                else:
+                    head.weight.uniform_(-bound, bound, generator=generator)
+                    head.bias.uniform_(-bound, bound, generator=generator)
+        if self.primed:
+            self.policy_prime_gate = nn.Parameter(torch.ones(()))
+            self.value_prime_gate = nn.Parameter(torch.ones(()))
+
+    def forward(self, obs: torch.Tensor,
+                solver_feats: Optional[_SolverFeats] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(N, C, A, A) observations -> (logits (N, A), values (N,)).
+        ``solver_feats`` (from ``equinet_solver_features`` on the same
+        observations) skips the solve; otherwise it runs here."""
+        x = obs.permute(0, 2, 3, 1)  # (N, A, A, C): mover rows, opp cols
+        if self.solver_iters:
+            feats, log_x, v_rm = (solver_feats if solver_feats is not None
+                                  else _solver_features(x, self.solver_iters))
+            x = torch.cat([x, feats], dim=-1)
+        x0 = x  # input skip to the heads
+        for i in range(self.depth):
+            x = torch.relu(getattr(self, f"ex{i}")(x))
+        row_feat = torch.cat([x.mean(dim=2), x0.mean(dim=2)], dim=-1)
+        glob = torch.cat([x.mean(dim=(1, 2)), x0.mean(dim=(1, 2))], dim=-1)
+        logits = self.policy(row_feat)[..., 0]
+        value = self.value(glob)[:, 0]
+        if self.primed:
+            logits = logits + self.policy_prime_gate * log_x
+            value = value + self.value_prime_gate * v_rm
+        return logits, value
+
+
+def equinet_solver_features(net: EquiNet, obs_flat: torch.Tensor
+                            ) -> _SolverFeats:
+    """The solver features of ``net`` (solver_iters > 0) for the
+    observations ``obs_flat`` (N, 2, A, A), computed once for several
+    forwards over them (the learner's four passes)."""
+    A = net.max_actions
+    x = obs_flat.reshape(-1, 2, A, A).permute(0, 2, 3, 1)
+    return _solver_features(x, net.solver_iters)
+
+
 def build_net(config: NetConfig,
-              generator: Optional[torch.Generator] = None) -> MLP:
-    if config.type != "MLP":
-        raise NotImplementedError(
-            f"NetConfig.type: the port runs the MLP only, got {config.type!r}")
-    if config.depth != 1:
-        raise NotImplementedError(
-            f"NetConfig.depth: the port runs depth-1 MLPs only, got "
-            f"{config.depth}")
+              generator: Optional[torch.Generator] = None) -> nn.Module:
     if config.compute_dtype != "float32":
         raise NotImplementedError(
             f"NetConfig.compute_dtype: the port computes in float32, got "
             f"{config.compute_dtype!r}")
+    if config.type == "EquiNet":
+        return EquiNet(config.max_actions, channels=config.channels,
+                       depth=config.depth, solver_iters=config.solver_iters,
+                       solver_prime=config.solver_prime, generator=generator)
+    if config.type != "MLP":
+        raise NotImplementedError(
+            f"NetConfig.type: the port runs the MLP and the EquiNet, got "
+            f"{config.type!r}")
+    if config.depth != 1:
+        raise NotImplementedError(
+            f"NetConfig.depth: the port runs depth-1 MLPs only, got "
+            f"{config.depth}")
     return MLP(config.max_actions, config.width, generator=generator)
+
+
+def inference_chunk_nodes(net: nn.Module, max_actions: int,
+                          budget_bytes: int = 2 << 30,
+                          cap: int = 200_000) -> int:
+    """Largest whole-tree inference chunk (in nodes) whose peak activations
+    fit ``budget_bytes``: the dominant per-row terms of the family's
+    forward, times two seats per node and 2x slack, clamped to
+    [1024, cap] (``rnad_tpu``'s formula and budget)."""
+    A = max_actions
+    esz = 4  # float32
+    if isinstance(net, EquiNet):
+        cin = 2 + (6 if net.solver_iters else 0)
+        width = max(6 * net.channels, 6 * cin)
+        per_row = A * A * (width * esz + net.channels * 4)
+    else:  # the MLP
+        per_row = (2 * A * A + 2 * net.width) * esz
+    per_node = 2 * per_row * 2
+    return max(1024, min(cap, int(budget_bytes // per_node)))
 
 
 def params_from_flax(np_params: Dict[str, Dict[str, np.ndarray]]
                      ) -> Dict[str, torch.Tensor]:
-    """flax ``params`` ({layer: {kernel (in, out), bias}}) -> a state_dict
-    for :class:`MLP` (weight (out, in))."""
+    """flax ``params`` -> a state_dict for :class:`MLP` or
+    :class:`EquiNet`.  Dense layers ({kernel (in, out), bias}) become torch
+    Linears (weight (out, in)); the EquiNet's ``ex{i}`` kernels keep the
+    flax layout and its gates are scalars."""
     state = {}
-    for name in _LAYERS:
-        layer = np_params[name]
-        state[f"{name}.weight"] = torch.as_tensor(
-            np.array(layer["kernel"]).T.copy())
-        state[f"{name}.bias"] = torch.as_tensor(np.array(layer["bias"]))
+    for name, layer in np_params.items():
+        if name.endswith("_gate"):
+            state[name] = torch.as_tensor(np.array(layer))
+        elif name.startswith("ex"):
+            state[f"{name}.kernel"] = torch.as_tensor(np.array(layer["kernel"]))
+            state[f"{name}.bias"] = torch.as_tensor(np.array(layer["bias"]))
+        else:
+            state[f"{name}.weight"] = torch.as_tensor(
+                np.array(layer["kernel"]).T.copy())
+            state[f"{name}.bias"] = torch.as_tensor(np.array(layer["bias"]))
     return state
 
 
-def params_to_flax(module: MLP) -> Dict[str, Dict[str, np.ndarray]]:
-    """:class:`MLP` -> flax-layout ``params`` of numpy arrays."""
-    return {name: {"kernel": getattr(module, name).weight.detach().cpu()
-                   .numpy().T.copy(),
-                   "bias": getattr(module, name).bias.detach().cpu().numpy()
-                   .copy()}
-            for name in _LAYERS}
+def params_to_flax(module: nn.Module) -> Dict[str, Dict[str, np.ndarray]]:
+    """:class:`MLP` or :class:`EquiNet` -> flax-layout ``params`` of numpy
+    arrays."""
+    out: Dict = {}
+    for key, p in module.state_dict().items():
+        a = p.detach().cpu().numpy().copy()
+        if "." not in key:  # an EquiNet gate
+            out[key] = a
+            continue
+        name, leaf = key.split(".")
+        if leaf == "weight":
+            out.setdefault(name, {})["kernel"] = a.T.copy()
+        else:
+            out.setdefault(name, {})[leaf] = a
+    return out
 
 
 def mlp_fused_weights(net: MLP) -> Tuple[torch.Tensor, ...]:

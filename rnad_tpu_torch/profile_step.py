@@ -1,19 +1,23 @@
 """Where a train step's time goes on the card.
 
-    python3 -m rnad_tpu_torch.profile_step
+    python3 -m rnad_tpu_torch.profile_step [--net mlp|equinet]
 
-Builds the demo tree (eta_sweep's config, seed 0) and the main path's
-``RNaD`` trainer (32768 lanes, MLP width 256), warms up, then times one fused train
-step split into its phases with CUDA events (rollout, regather and
-learner loss, backward, clip + Adam + EMA), each phase's events recorded
-after a sleep kernel that hides the host's enqueue time.  Then it traces
-a few steps with ``torch.profiler`` and prints the device time by kernel.
-Needs a CUDA card; prints the card's name and power limit beside the
-numbers.
+``--net mlp`` (the default) builds the demo tree (eta_sweep's config, seed
+0) and the MLP path's ``RNaD`` trainer (32768 lanes, MLP width 256).
+``--net equinet`` builds the EquiNet path of ``chip_smoke.py``: the A = 5
+tree (65440 nodes, seed 0) and the solver-primed EquiNet (64 channels,
+depth 2, 128 RM+ iterations, float32) at 32768 lanes.  It warms up, then
+times one fused train step split into its phases with CUDA events
+(rollout, regather and solver features, learner and frozen passes with the
+loss, backward, clip + Adam + EMA), each phase's events recorded after a
+sleep kernel that hides the host's enqueue time.  Then it traces a few
+steps with ``torch.profiler`` and prints the device time by kernel.  Needs
+a CUDA card; prints the card's name and power limit beside the numbers.
 """
 
 from __future__ import annotations
 
+import argparse
 import subprocess
 import time
 
@@ -24,13 +28,24 @@ from .env import tree as tree_lib
 from .learn import rnad
 
 BATCH_SIZE = 32768
-WIDTH = 256
 TABLE_ROWS = 20  # kernels and operators listed from the trace
-DEMO_TREE = TreeConfig(max_actions=3, max_transitions=2,
+CONFIGS = {
+    "mlp": (TreeConfig(max_actions=3, max_transitions=2,
                        transition_threshold=0.3, depth_bound=4,
                        depth_bound_rule=ShapingRule(delta=-1,
                                                     stochastic_delta=-2,
-                                                    stochastic_prob=0.5))
+                                                    stochastic_prob=0.5)),
+            NetConfig(type="MLP", max_actions=3, width=256),
+            RNaDConfig(batch_size=BATCH_SIZE, eta=0.2, lr=1e-3,
+                       gamma_averaging=0.01, logit_clip=2.0)),
+    "equinet": (TreeConfig(max_actions=5, max_transitions=2,
+                           transition_threshold=0.25, depth_bound=5,
+                           depth_bound_rule=ShapingRule(-1, -2, 0.55)),
+                NetConfig(type="EquiNet", max_actions=5, channels=64,
+                          depth=2, solver_iters=128, solver_prime=True),
+                RNaDConfig(batch_size=BATCH_SIZE, eta=1.0, lr=5e-5,
+                           gamma_averaging=0.001, logit_clip=2.0)),
+}
 
 
 def _phases(run: rnad.RNaD, alpha: float):
@@ -41,9 +56,12 @@ def _phases(run: rnad.RNaD, alpha: float):
     def roll():
         box["traj"] = rnad.rollout(state, run.tree, run.packed, cfg)
 
+    def inputs():
+        box["inputs"] = rnad.learner_inputs(state, run.packed, box["traj"])
+
     def loss():
         box["loss"], _ = rnad.learn_loss(state, run.packed, box["traj"],
-                                         alpha, cfg)
+                                         alpha, cfg, inputs=box["inputs"])
 
     def backward():
         box["grads"] = torch.autograd.grad(box["loss"],
@@ -55,8 +73,9 @@ def _phases(run: rnad.RNaD, alpha: float):
         rnad.ema_update(cfg.gamma_averaging, state.net, state.net_target)
         state.total_steps += 1
 
-    return [("rollout (K1 x max_depth)", roll),
-            ("regather (K2) + learner loss", loss),
+    return [("rollout", roll),
+            ("regather (K2), EquiNet solve (K3)", inputs),
+            ("learner + frozen passes, v-trace, loss", loss),
             ("backward", backward), ("clip + Adam + EMA", update)]
 
 
@@ -80,16 +99,17 @@ def phase_ms(run: rnad.RNaD, iters: int = 10):
 
 
 def main() -> None:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--net", choices=sorted(CONFIGS), default="mlp")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_step needs a CUDA card")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, timeout=60, check=True).stdout.strip()
-    tree = tree_lib.generate_tree(DEMO_TREE, seed=0, device="cuda")
-    cfg = RNaDConfig(batch_size=BATCH_SIZE, eta=0.2, lr=1e-3,
-                     gamma_averaging=0.01, logit_clip=2.0)
-    run = rnad.RNaD(tree, cfg, NetConfig(type="MLP", max_actions=3,
-                                         width=WIDTH))
+    tree_cfg, net_cfg, cfg = CONFIGS[args.net]
+    tree = tree_lib.generate_tree(tree_cfg, seed=0, device="cuda")
+    run = rnad.RNaD(tree, cfg, net_cfg)
     run.initialize()
     for _ in range(3):
         run.train_step(run.state, 1.0)
@@ -97,10 +117,11 @@ def main() -> None:
 
     phases = phase_ms(run)
     step = sum(phases.values())
-    print(f"train step at B={BATCH_SIZE}, width {WIDTH}: "
-          f"{step:.4f} ms device time | {card}")
+    print(f"train step at B={BATCH_SIZE}, {net_cfg}: {step:.4f} ms device "
+          f"time; peak memory {torch.cuda.max_memory_allocated() / 2**30:.3f}"
+          f" GiB | {card}")
     for name, ms in phases.items():
-        print(f"  {name:32s} {ms:9.4f} ms  {100 * ms / step:5.1f} %")
+        print(f"  {name:40s} {ms:9.4f} ms  {100 * ms / step:5.1f} %")
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     runs = []

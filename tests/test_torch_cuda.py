@@ -10,7 +10,11 @@ Tolerances: the packed-row lookup (K2) is bit-exact.  The fused turn (K1)
 sums its dot products in another order than cuBLAS, so policy and values
 agree within atol 1e-5, and an action may differ from the plain version's
 only where its two best Gumbel scores lie within 1e-5 of each other (a
-near-tie); the transition of a lane whose actions agree is equal.
+near-tie); the transition of a lane whose actions agree is equal.  The RM+
+solver (K3) is held to its plain version by ``solver_device.agreement``:
+x, y and v within atol 1e-5 except on a counted share of games where
+float32 rounding in another order parted the two runs, which as a set are
+as good as the plain version's (mean and worst exploitability).
 """
 
 import dataclasses
@@ -19,12 +23,13 @@ import pytest
 import torch
 
 from rnad_tpu_torch.config import NetConfig, RNaDConfig, TreeConfig
-from rnad_tpu_torch.env import engine
+from rnad_tpu_torch.env import engine, solver_device
 from rnad_tpu_torch.env import tree as tree_lib
 from rnad_tpu_torch.learn import rnad
 from rnad_tpu_torch.models import nets
 from rnad_tpu_torch.ops import fused_turn as fused_turn_lib
 from rnad_tpu_torch.ops import lookup as lookup_lib
+from rnad_tpu_torch.ops import rmplus as rmplus_lib
 from rnad_tpu_torch.ops import stepping
 
 NEAR_TIE = 1e-5
@@ -129,6 +134,63 @@ def test_fused_turn_kernel_rejects(dev):
         fused_turn_lib.fused_turn(args[0], *big, *args[5:], A=3, T=2)
 
 
+def _random_games(dev, B, R, C, seed):
+    """Random payoffs in [-1, 1) with random illegal rows and columns (at
+    least one legal action a seat), illegal cells zeroed, batch-minor."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    M = torch.rand((B, R, C), generator=gen, device=dev) * 2 - 1
+    lr = (torch.rand((B, R), generator=gen, device=dev) > 0.2).float()
+    lc = (torch.rand((B, C), generator=gen, device=dev) > 0.2).float()
+    lr[:, 0] = 1.0
+    lc[:, 0] = 1.0
+    M = M * lr[:, :, None] * lc[:, None, :]
+    return M, lr, lc
+
+
+def _check_rmplus(M, lr, lc, iters):
+    """K3 against its plain version with the criterion of
+    ``solver_device.agreement``.  Returns the count of diverged games."""
+    Mm = M.permute(1, 2, 0).contiguous()
+    lrm, lcm = lr.t().contiguous(), lc.t().contiguous()
+    before = rmplus_lib.rmplus.launches
+    got = rmplus_lib.rmplus(Mm, lrm, lcm, iters)
+    torch.cuda.synchronize()
+    assert rmplus_lib.rmplus.launches == before + (1 if M.shape[0] else 0)
+    want = rmplus_lib.rmplus_plain(Mm, lrm, lcm, iters)
+    result = solver_device.agreement(M, lr, lc, [t.t() for t in got[:2]],
+                                     [t.t() for t in want[:2]], got[2],
+                                     want[2])
+    assert result.ok, result
+    return result.diverged
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,R,C", [(0, 5, 5), (1, 5, 5), (65537, 5, 5),
+                                   (4099, 3, 7), (1000, 16, 16),
+                                   (333, 1, 2)])
+def test_rmplus_kernel_vs_plain(dev, B, R, C):
+    M, lr, lc = _random_games(dev, B, R, C, seed=B + R)
+    _check_rmplus(M, lr, lc, 128)
+
+
+@pytest.mark.cuda
+def test_rmplus_kernel_at_learner_size(dev):
+    """T * B = 327,680 observed games of the A = 5 EquiNet learner."""
+    M, lr, lc = _random_games(dev, 327680, 5, 5, seed=7)
+    _check_rmplus(M, lr, lc, 128)
+
+
+@pytest.mark.cuda
+def test_rmplus_kernel_rejects(dev):
+    M = torch.zeros((17, 5, 8), device=dev)
+    with pytest.raises(ValueError, match="MAX_ACTIONS"):
+        rmplus_lib.rmplus(M, torch.zeros((17, 8), device=dev),
+                          torch.zeros((5, 8), device=dev), 4)
+    with pytest.raises(ValueError, match="lr"):
+        rmplus_lib.rmplus(M[:5].contiguous(), torch.zeros((5, 8)),
+                          torch.zeros((5, 8), device=dev), 4)
+
+
 @pytest.mark.cuda
 def test_train_step_card_vs_cpu(dev):
     """One fused train step through both kernels on the card and through
@@ -163,6 +225,72 @@ def test_train_step_card_vs_cpu(dev):
         torch.testing.assert_close(mg[k].cpu(), mc[k], rtol=1e-5, atol=1e-7)
     for a, b in zip(pc, pg):
         torch.testing.assert_close(b, a, rtol=0, atol=1e-5)
+
+
+EQUI = NetConfig(type="EquiNet", max_actions=3, channels=16, depth=2,
+                 solver_iters=32, solver_prime=True)
+
+
+@pytest.mark.cuda
+def test_equinet_train_step_card_vs_cpu(dev):
+    """One EquiNet train step on the card (K2 and K3, the generic turn) and
+    on the CPU from the same weights and noise: per step max_depth + 1
+    launches of K2 and K3 and none of K1; at most 2 % of the episodes part
+    (where a float32 RM+ difference flips a near-tied action); new weights
+    within 2 lr (Adam with b1=0 moves a weight at most lr either way)."""
+    tree = _tree("cpu", depth=4)
+    cfg = RNaDConfig(batch_size=512, eta=0.2, lr=1e-3, logit_clip=2.0)
+    gen = torch.Generator().manual_seed(3)
+    noise = [engine.turn_noise(512, 3, 2, gen, "cpu")
+             for _ in range(tree.max_depth)]
+    out = {}
+    for device in ("cpu", dev):
+        dtree = tree.to(device)
+        packed = stepping.make_packed_tables(dtree)
+        net = nets.build_net(EQUI, torch.Generator().manual_seed(4))
+        state = rnad.init_train_state(net.to(device),
+                                      torch.Generator(device=device))
+        before = (fused_turn_lib.fused_turn.launches,
+                  lookup_lib.lookup.launches, rmplus_lib.rmplus.launches)
+        traj = rnad.rollout(state, dtree, packed, cfg, noise)
+        metrics = rnad.learn_step(state, packed, traj, 0.5, cfg)
+        launched = (fused_turn_lib.fused_turn.launches - before[0],
+                    lookup_lib.lookup.launches - before[1],
+                    rmplus_lib.rmplus.launches - before[2])
+        md = tree.max_depth
+        assert launched == ((0, md + 1, md + 1) if device == dev
+                            else (0, 0, 0))
+        assert torch.isfinite(metrics["loss"]).all()
+        out[str(device)] = (traj, [p.detach().cpu()
+                                   for p in state.net.parameters()])
+    (tc, pc), (tg, pg) = out["cpu"], out[str(dev)]
+    parted = (tc.actions != tg.actions.cpu()).any(0)
+    assert parted.float().mean() <= 0.02
+    for f in ("indices", "actions", "rewards"):
+        assert torch.equal(getattr(tc, f)[:, ~parted],
+                           getattr(tg, f).cpu()[:, ~parted]), f
+    for a, b in zip(pc, pg):
+        torch.testing.assert_close(b, a, rtol=0, atol=2 * cfg.lr)
+
+
+@pytest.mark.cuda
+def test_equinet_rnad_runs_on_the_card(dev):
+    tree = _tree("cpu")
+    cfg = RNaDConfig(batch_size=1024, bounds=(2,), delta_m=(3,), lr=1e-3,
+                     nashconv_chunk_nodes=40)
+    run = rnad.RNaD(tree, cfg, EQUI)
+    k = (fused_turn_lib.fused_turn.launches, lookup_lib.lookup.launches,
+         rmplus_lib.rmplus.launches)
+    run.run(log_mod=1)
+    value = run.final_eval()
+    md, chunks = tree.max_depth, -(-tree.size // 40)
+    assert (fused_turn_lib.fused_turn.launches - k[0],
+            lookup_lib.lookup.launches - k[1],
+            rmplus_lib.rmplus.launches - k[2]) == (
+                0, 6 * (md + 1), 6 * (md + 1) + 2 * chunks)
+    assert all(torch.isfinite(torch.tensor(v))
+               for _, m in run.history for v in m.values())
+    assert 0.0 <= value < 10.0
 
 
 @pytest.mark.cuda

@@ -31,6 +31,54 @@ def torch_mlp(params, max_actions: int, width: int) -> torch_nets.MLP:
     return net
 
 
+def torch_equinet(params, max_actions: int, channels: int, depth: int,
+                  solver_iters: int = 0,
+                  solver_prime: bool = False) -> torch_nets.EquiNet:
+    """The port's EquiNet holding flax ``params``."""
+    net = torch_nets.EquiNet(max_actions, channels=channels, depth=depth,
+                             solver_iters=solver_iters,
+                             solver_prime=solver_prime)
+    net.load_state_dict(torch_nets.params_from_flax(
+        jax.tree.map(np.asarray, params)))
+    return net
+
+
+def obs_with_illegal_actions(seed: int, n: int, A: int) -> np.ndarray:
+    """(n, 2, A, A) observations in the generator's convention: legality is
+    the outer product of random row and column masks (at least one legal
+    action a seat) and illegal cells hold value 0, so pooled features tie
+    across illegal rows and columns."""
+    rng = np.random.default_rng(seed)
+    lr = (rng.random((n, A)) < 0.7).astype(np.float32)
+    lc = (rng.random((n, A)) < 0.7).astype(np.float32)
+    lr[:, 0] = 1.0
+    lc[:, 0] = 1.0
+    legal = lr[:, :, None] * lc[:, None, :]
+    ev = rng.normal(size=(n, A, A)).astype(np.float32) * legal
+    return np.stack([ev, legal], axis=1)
+
+
+def diverged_solves(obs: np.ndarray, iters: int) -> np.ndarray:
+    """(N,) True where the two packages' EquiNet solver features of the
+    observed games ``obs`` (N, 2, A, A) differ by more than
+    ``solver_device.ATOL``.  float32 RM+ runs whose sums are taken in
+    another order part ways where a regret hovers at 0 (see
+    ``solver_device.agreement``), and the log x channels magnify a small
+    difference in a probability near 0."""
+    from rnad_tpu.models import nets as jax_nets
+    from rnad_tpu_torch.env import solver_device as torch_sd
+
+    want = jax_nets._solver_features(
+        jnp.asarray(obs).transpose(0, 2, 3, 1), iters)
+    got = torch_nets._solver_features(
+        torch.from_numpy(obs).permute(0, 2, 3, 1), iters)
+    err = np.zeros(obs.shape[0], np.float32)
+    for g, w in zip(got, want):
+        d = np.abs(g.numpy() - np.asarray(w)).reshape(obs.shape[0], -1)
+        err = np.maximum(err, d.max(-1))
+    return err > torch_sd.ATOL
+
+
 def rollout_noise(k_roll, batch_size: int, A: int, T: int, num_turns: int):
     """Per-turn (g_act (2B, A), g_chance (B, T)) exactly as
     ``rnad_tpu.env.engine.rollout_from`` draws them from ``k_roll``:
