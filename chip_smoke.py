@@ -17,8 +17,10 @@ Four phases, and any failure exits nonzero:
    of one EquiNet learner regather and 65537 random games with random
    illegal actions, under ``solver_device.agreement`` (x, y, v within atol
    1e-5 except on a counted share of diverged games, which are as good as
-   the plain version's as a set: mean and worst exploitability).  Times each kernel, its plain version and, for K2,
-   ``torch.index_select``.
+   the plain version's as a set: mean and worst exploitability).  Times
+   each kernel (K3 at both the learner's 327680 games and one rollout
+   turn's 65536), its plain version and, for K2, ``torch.index_select``,
+   and prints each kernel's share of its bound.
 3. Drive the MLP path: the demo tree (eta_sweep's config, seed 0) and 30
    fused R-NaD train steps at 32768 lanes with a width-256 MLP through
    ``RNaD.run`` and ``final_eval``, with the kernels' launch counters set to
@@ -47,7 +49,6 @@ import dataclasses
 import json
 import math
 import os
-import re
 import subprocess
 import sys
 import time
@@ -69,30 +70,10 @@ def log(msg: str) -> None:
 
 
 def device_ms(fn, iters: int = 20) -> float:
-    """Device time of one ``fn()`` in ms, the mean over ``iters`` calls
-    after a warm-up.  Each call is queued behind a sleep kernel longer than
-    its enqueue, and CUDA events on either side time it on the device, so
-    the host's launch overhead does not show (a kernel's own time, or the
-    busy time of a function of many kernels)."""
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    fn()
-    host_s = time.perf_counter() - t0
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    total = 0.0
-    for _ in range(iters):
-        # ~2 GHz SM clock: sleep twice the enqueue time, plus a millisecond
-        torch.cuda._sleep(int((2 * host_s + 1e-3) * 2e9))
-        start.record()
-        fn()
-        end.record()
-        torch.cuda.synchronize()
-        total += start.elapsed_time(end)
-    return total / iters
+    """Device time of one ``fn()`` in ms, each call behind a sleep kernel
+    (``rnad_tpu_torch.kernel_bench.device_ms``)."""
+    from rnad_tpu_torch import kernel_bench
+    return kernel_bench.device_ms(fn, iters)
 
 
 def wall_ms(fn, iters: int = 10) -> float:
@@ -172,6 +153,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from rnad_tpu_torch import kernel_bench
     from rnad_tpu_torch.config import (NetConfig, RNaDConfig, ShapingRule,
                                        TreeConfig)
     from rnad_tpu_torch.env import engine
@@ -204,18 +186,9 @@ def main() -> int:
     seconds = _build.build(["lookup", "fused_turn", "rmplus"])
     log(f"build: {time.perf_counter() - t0:.1f} s "
         + ", ".join(f"{k} {v:.1f} s" for k, v in seconds.items()))
-    for name, text in _build.build_logs.items():
-        entry = name
-        for line in text.splitlines():
-            if "Compiling entry function" in line:
-                # the kernel's name and template size from the mangled name
-                found = re.search(r"\d+([A-Za-z_]+_kernel)(?:ILi(\d+)E)?",
-                                  line)
-                entry = (f"{found.group(1)}<{found.group(2)}>"
-                         if found and found.group(2) else
-                         found.group(1) if found else name)
-            elif "registers" in line or "spill" in line:
-                log(f"  ptxas {entry}: {line.strip()}")
+    for text in _build.build_logs.values():
+        for entry, line in kernel_bench.ptxas_lines(text):
+            log(f"  ptxas {entry}: {line}")
     t0 = time.perf_counter()
     equi_tree = tree_lib.generate_tree(equi_tree_cfg, seed=0, device=dev)
     log(f"EquiNet tree (A=5, depth_bound 5, seed 0): S={equi_tree.size} "
@@ -286,8 +259,9 @@ def main() -> int:
     k2_bytes = 4.0 * (N_REGATHER + unique_rows * D + N_REGATHER * D)
     k2_bound = k2_bytes / HBM_BYTES_PER_S * 1e3
     log(f"bounds: K1 {k1_bound:.4f} ms ({k1_by}; {k1_flops:.4g} FLOP, "
-        f"{k1_bytes:.4g} B), K2 {k2_bound:.4f} ms (bytes; {k2_bytes:.4g} B, "
-        f"{unique_rows} distinct rows)")
+        f"{k1_bytes:.4g} B; the kernel reaches {100 * k1_bound / k1_ms:.1f} "
+        f"% of it), K2 {k2_bound:.4f} ms (bytes; {k2_bytes:.4g} B, "
+        f"{unique_rows} distinct rows; {100 * k2_bound / k2_ms:.1f} %)")
 
     equi_cfg = RNaDConfig(batch_size=B_MAIN, eta=1.0, lr=5e-5,
                           gamma_averaging=0.001, logit_clip=2.0, bounds=(2,),
@@ -391,7 +365,10 @@ def main() -> int:
          "max_abs_err": k3["max_abs_err"], "ms": k3["ms"],
          "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
          "bound_by": k3["bound_by"], "library_ms": None,
-         "diverged_games": k3["diverged"], "games": k3["games"]},
+         "ms_rollout": k3["ms_rollout"],
+         "bound_ms_rollout": k3["bound_ms_rollout"],
+         "diverged_games": k3["diverged"], "games": k3["games"],
+         "diverged_by_set": k3["diverged_by_set"]},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
@@ -442,7 +419,8 @@ def check_rmplus_phase(run, gen):
     M = (torch.rand((n, A, A), generator=gen, device=dev) * 2 - 1)
     sets["random"] = (M * lr[:, :, None] * lc[:, None, :], lr, lc)
 
-    out = {"max_abs_err": 0.0, "diverged": 0, "games": 0}
+    out = {"max_abs_err": 0.0, "diverged": 0, "games": 0,
+           "diverged_by_set": {}}
     args = {}
     for name, (Mz, lr, lc) in sets.items():
         args[name] = (Mz.permute(1, 2, 0).contiguous(), lr.t().contiguous(),
@@ -466,25 +444,33 @@ def check_rmplus_phase(run, gen):
                                  f" {name} games: {res}")
         out["max_abs_err"] = max(out["max_abs_err"], res.max_abs_err)
         out["diverged"] += res.diverged
+        out["diverged_by_set"][name] = res.diverged
         out["games"] += res.games
 
     R = C = A
-    B = args["learner"][0].shape[-1]
-    out["ms"] = device_ms(lambda: rmplus_lib.rmplus(*args["learner"]))
+
+    def bound(B):
+        """(ms, by) of the larger of operations over the f32 peak and bytes
+        over the HBM rate, for B games."""
+        ops = rmplus_lib.operations(R, C, RM_ITERS) * B
+        nbytes = rmplus_lib.io_bytes(R, C, B)
+        return (max(ops / F32_FLOPS, nbytes / HBM_BYTES_PER_S) * 1e3,
+                "operations" if ops / F32_FLOPS > nbytes / HBM_BYTES_PER_S
+                else "bytes")
+
+    # the learner's solve, then one rollout turn's (the observed games)
+    for key, name in (("", "learner"), ("_rollout", "observed")):
+        B = args[name][0].shape[-1]
+        out["ms" + key] = device_ms(lambda: rmplus_lib.rmplus(*args[name]))
+        out["bound_ms" + key], out["bound_by" + key] = bound(B)
+        log(f"K3 rmplus {name} ({B} games): kernel {out['ms' + key]:.4f} ms, "
+            f"bound {out['bound_ms' + key]:.4f} ms ({out['bound_by' + key]};"
+            f" {rmplus_lib.operations(R, C, RM_ITERS)} operations a game, "
+            f"{rmplus_lib.io_bytes(R, C, B):.4g} B), "
+            f"{100 * out['bound_ms' + key] / out['ms' + key]:.1f} % of it")
     out["plain_ms"] = device_ms(
         lambda: rmplus_lib.rmplus_plain(*args["learner"]), iters=5)
-    rollout_ms = device_ms(lambda: rmplus_lib.rmplus(*args["observed"]))
-    ops = rmplus_lib.operations(R, C, RM_ITERS) * B
-    nbytes = rmplus_lib.io_bytes(R, C, B)
-    out["bound_ms"] = max(ops / F32_FLOPS, nbytes / HBM_BYTES_PER_S) * 1e3
-    out["bound_by"] = ("operations" if ops / F32_FLOPS
-                       > nbytes / HBM_BYTES_PER_S else "bytes")
-    log(f"K3 rmplus learner ({B} games): kernel {out['ms']:.4f} ms, plain "
-        f"{out['plain_ms']:.4f} ms, bound {out['bound_ms']:.4f} ms "
-        f"({out['bound_by']}; {ops:.4g} operations at "
-        f"{rmplus_lib.operations(R, C, RM_ITERS)} a game, {nbytes:.4g} B); "
-        f"rollout turn ({args['observed'][0].shape[-1]} games): kernel "
-        f"{rollout_ms:.4f} ms")
+    log(f"K3 rmplus learner: plain version {out['plain_ms']:.4f} ms")
     return out
 
 

@@ -15,40 +15,121 @@
 // select existed only because a TPU core cannot gather; here the row is
 // read directly and the cell is indexed directly.
 //
-// Bound on the H100: operations.  Each (lane, seat) does din*H + H*(A+1)
-// FMAs (11264 at A=3, W=256), against a few hundred bytes of row, noise and
-// outputs, so the f32 CUDA-core rate bounds it, not memory.
+// Bound on the H100: operations.  Each (lane, seat) row does din*H +
+// H*(A+1) FMAs (11264 at A=3, W=256; the full W1 product, block-diagonal
+// zeros included, as the TPU kernel computes it), against a few hundred
+// bytes of row, noise and outputs, so the f32 CUDA-core rate bounds it.
 //
-// Design (simple first): the weights live in shared memory (W1 stored
-// transposed so that neighbouring lanes read neighbouring words), loaded
-// once per block; blocks stay resident and stride over the lanes.  One warp
-// serves one (lane, seat): its 32 threads split the H hidden units, each
-// accumulates its share of the A+1 outputs with plain f32 FMAs, and a
-// shuffle butterfly sums them.  The two warps of a lane meet in shared
-// memory for the transition.  Every shared-memory weight read feeds one
-// FMA, so shared-memory bandwidth, a quarter of the FMA rate, is what this
-// design will hit first; reusing each weight read for several lanes is the
-// next step.  No tensor cores.
+// Design: register tiling on the f32 CUDA cores.  Blocks of 256 threads
+// stay resident and hold the weights in shared memory (zero-padded to whole
+// unit blocks, which adds only exact zeros; W1 transposed), copied in with
+// cp.async, all at once.  A block takes a tile of 32 lanes = 64 (lane,
+// seat) rows and stages the tile's observations in shared memory, k-major,
+// with its Gumbel noise and legality masks, by cp.async into one of two
+// buffers: the next tile's copies are in flight while this tile reduces,
+// runs its epilogue and its transition.  Each thread computes a register tile of 8 rows x 8
+// hidden units: one k step is 4 float4 shared-memory loads for 64 FMAs.
+// The warp's lanes split into 4 row groups x 8 unit groups, so those loads
+// touch 4 and 8 distinct 16-byte words: about one shared-memory wavefront
+// each, where one row group x 32 unit groups (the first register-tiled
+// layout) read 32 distinct W0 words, a wavefront per 8 lanes, and kept the
+// shared-memory pipe about as busy as the FMA pipe.  Each hidden unit's
+// sum over k runs in index order with fmaf, then +b0 and ReLU, in
+// registers.  The second layer forms each thread's partial (8 rows x (A+1))
+// over its units; each output then sums its row's 32 partials through
+// shared memory in a fixed order (no atomics: two runs are bitwise equal).
+// The epilogue gives one thread to each row (mask, softmax, Gumbel-max,
+// writes), then one thread to each lane (the transition); everything after
+// the logits is exact, as before.  No tensor cores: TF32 would round the
+// logits by ~1e-3, far outside the near-tie band that keeps episodes equal.
+// Launch settings that depend only on (device, A, H) are cached.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <map>
+#include <mutex>
+#include <tuple>
+
+#ifndef RNAD_FUSED_TURN_ROW_GROUPS
+#define RNAD_FUSED_TURN_ROW_GROUPS 4  // a warp's lanes: row groups x unit groups
+#endif
 
 namespace {
 
 constexpr int kMaxA = 8;
 constexpr int kMaxT = 8;
-constexpr int kThreads = 512;
+constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
+constexpr int kTileRows = 64;              // (lane, seat) rows of a tile
+constexpr int kTileLanes = kTileRows / 2;  // seat 0 rows, then seat 1
+// A thread computes 8 rows x 8 hidden units.  A warp's lanes form
+// kRowGroups groups of 8 rows times kUnitGroups groups of 8 units, so one
+// k step reads kRowGroups distinct float4 pairs of observations and
+// kUnitGroups of W0 (each unit group's two float4 columns kHalf apart).
+constexpr int kRowGroups = RNAD_FUSED_TURN_ROW_GROUPS;
+constexpr int kUnitGroups = 32 / kRowGroups;
+constexpr int kWarpRows = 8 * kRowGroups;
+constexpr int kRowBlocks = kTileRows / kWarpRows;  // warps along the rows
+constexpr int kUnitBlocks = kWarps / kRowBlocks;   // warps along the units
+constexpr int kBlockUnits = 8 * kUnitGroups;       // a warp's units a pass
+constexpr int kHalf = 4 * kUnitGroups;
+constexpr int kUnitsPerPass = kUnitBlocks * kBlockUnits;
+constexpr int kObsStride = kTileRows + 4;  // k-major, 16-byte rows
+constexpr int kContrib = kUnitBlocks * kUnitGroups;  // partials of a row
 constexpr float kNeg = -1e30f;
 
-__host__ __device__ inline size_t smem_floats(int A, int H) {
-  const int din = 2 * A * A;
-  const int nout = A + 1;
-  return (size_t)din * H + H + (size_t)nout * H + nout + (size_t)kWarps * din +
-         kWarps;
+static_assert(kRowGroups == 1 || kRowGroups == 2 || kRowGroups == 4 ||
+                  kRowGroups == 8,
+              "a warp's 32 lanes split into row and unit groups");
+static_assert(kContrib == 32, "each output sums 32 partials");
+static_assert(kThreads == 4 * kTileRows, "4 threads stage each row");
+
+// H rounded up to whole warp unit blocks (zero weights: exact +0 terms).
+__host__ __device__ inline int padded_units(int H) {
+  return (H + kBlockUnits - 1) / kBlockUnits * kBlockUnits;
 }
 
-__global__ void __launch_bounds__(kThreads)
+__host__ __device__ inline int up4(int n) { return (n + 3) / 4 * 4; }
+
+// Shared-memory layout in floats; every region starts 16-byte aligned.  A
+// tile's staged inputs (observations, Gumbel noise, masks) have two
+// buffers: the next tile's are copied in while this one finishes.
+struct Layout {
+  int w0, b0, w1t, b1, obs, red, out, gact, mask, act, total;
+  int obs_size, rows_size;  // one buffer of s_obs; of s_gact and s_mask
+  __host__ __device__ Layout(int A, int H) {
+    const int din = 2 * A * A, nout = A + 1, Hp = padded_units(H);
+    obs_size = up4(din * kObsStride);
+    rows_size = up4(kTileRows * A);
+    w0 = 0;                                   // (din, Hp)
+    b0 = w0 + din * Hp;                       // (Hp,)
+    w1t = b0 + Hp;                            // (A+1, Hp)
+    b1 = w1t + nout * Hp;                     // (A+1,)
+    obs = b1 + up4(nout);                     // 2 x (din, kObsStride)
+    red = obs + 2 * obs_size;                 // (32, (A+1) x 64 + 1)
+    out = red + up4(kContrib * (nout * kTileRows + 1));
+    gact = out + up4(kTileRows * nout);       // (rows, A+1) logits, value
+    mask = gact + 2 * rows_size;              // 2 x (rows, A)
+    act = mask + 2 * rows_size;               // (rows,) int
+    total = act + kTileRows;
+  }
+};
+
+// One 4-byte asynchronous copy from device to shared memory (no register
+// holds the value); copies_done() waits for all of this thread's copies.
+__device__ __forceinline__ void copy4(float* dst, const float* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void copies_done() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+template <int A>
+__global__ void __launch_bounds__(kThreads, A <= 4 ? 2 : 1)
 fused_turn_kernel(const float* __restrict__ table, int32_t S, int32_t D,
                   const int32_t* __restrict__ idx,
                   const float* __restrict__ w0, const float* __restrict__ b0,
@@ -57,133 +138,279 @@ fused_turn_kernel(const float* __restrict__ table, int32_t S, int32_t D,
                   const float* __restrict__ g_ch, int32_t* __restrict__ new_idx,
                   float* __restrict__ policy, int32_t* __restrict__ actions,
                   float* __restrict__ rewards, float* __restrict__ values,
-                  int32_t B, int32_t A, int32_t T, int32_t H) {
-  extern __shared__ float smem[];
-  const int din = 2 * A * A;
-  const int nout = A + 1;
+                  int32_t B, int32_t T, int32_t H) {
+  constexpr int din = 2 * A * A;
+  constexpr int nout = A + 1;
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const Layout L(A, H);
+  const int Hp = padded_units(H);
   const int mask_off = 2 * din;
   const int trans_off = mask_off + 2 * A;
-  float* s_w0 = smem;                       // (din, H)
-  float* s_b0 = s_w0 + (size_t)din * H;     // (H,)
-  float* s_w1t = s_b0 + H;                  // (A+1, H), W1 transposed
-  float* s_b1 = s_w1t + (size_t)nout * H;   // (A+1,)
-  float* s_obs = s_b1 + nout;               // (warps, din)
-  int* s_act = (int*)(s_obs + kWarps * din);  // (warps,)
+  float* s_w0 = smem + L.w0;
+  float* s_b0 = smem + L.b0;
+  float* s_w1t = smem + L.w1t;
+  float* s_b1 = smem + L.b1;
+  float* s_obs = smem + L.obs;
+  float* s_out = smem + L.out;
+  float* s_gact = smem + L.gact;
+  float* s_mask = smem + L.mask;
+  int* s_act = reinterpret_cast<int*>(smem + L.act);
+  const int tid = threadIdx.x;
 
-  for (int i = threadIdx.x; i < din * H; i += blockDim.x) s_w0[i] = w0[i];
-  for (int i = threadIdx.x; i < H; i += blockDim.x) s_b0[i] = b0[i];
-  for (int i = threadIdx.x; i < H * nout; i += blockDim.x) {
-    const int u = i / nout, o = i - u * nout;
-    s_w1t[o * H + u] = w1[i];
+  // weights, zero-padded to Hp units, all copies in flight at once
+  for (int k = 0; k < din; ++k)
+    for (int u = tid; u < Hp; u += kThreads) {
+      if (u < H) copy4(s_w0 + k * Hp + u, w0 + (int64_t)k * H + u);
+      else s_w0[k * Hp + u] = 0.f;
+    }
+  for (int o = 0; o < nout; ++o)
+    for (int u = tid; u < Hp; u += kThreads) {
+      if (u < H) copy4(s_w1t + o * Hp + u, w1 + (int64_t)u * nout + o);
+      else s_w1t[o * Hp + u] = 0.f;
+    }
+  for (int u = tid; u < Hp; u += kThreads) {
+    if (u < H) copy4(s_b0 + u, b0 + u);
+    else s_b0[u] = 0.f;
   }
-  for (int i = threadIdx.x; i < nout; i += blockDim.x) s_b1[i] = b1[i];
-  __syncthreads();
+  if (tid < nout) copy4(s_b1 + tid, b1 + tid);
 
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int seat = warp & 1;
-  const int lanes_per_block = kWarps / 2;
-  float* obs = s_obs + warp * din;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int rg = lane % kRowGroups, ug = lane / kRowGroups;
+  const int row0 = (warp % kRowBlocks) * kWarpRows + rg * 8;
+  const int ublock = (warp / kRowBlocks) * kBlockUnits;
+  const int contrib = (warp / kRowBlocks) * kUnitGroups + ug;
+  constexpr int nred = nout * kTileRows;  // outputs of a tile
+  float* s_red = smem + L.red;
+  const int tiles = (B + kTileLanes - 1) / kTileLanes;
 
-  for (int base = blockIdx.x * lanes_per_block; base < B;
-       base += gridDim.x * lanes_per_block) {
-    const int b = base + (warp >> 1);
-    const bool active = b < B;
-    const float* row = nullptr;
-    if (active) {
-      int s = idx[b];
-      s = s < 0 ? 0 : (s >= S ? S - 1 : s);
-      row = table + (int64_t)s * D;
-      for (int k = lane; k < din; k += 32) obs[k] = row[seat * din + k];
-      __syncwarp();
+  // Staging: 4 threads copy each (lane, seat) row of a tile.  A thread's
+  // row is the same in every tile, so it reads one state id per tile.
+  const int srow = tid / 4, sq = tid % 4;
+  const int sseat = srow / kTileLanes, slane = srow % kTileLanes;
+  const auto state = [&](int b) {  // lane b's state id, clamped to [0, S)
+    const int s = __ldg(idx + b);
+    return s < 0 ? 0 : (s >= S ? S - 1 : s);
+  };
+  const auto state_of = [&](int tile) {  // -1: no such lane
+    const int b = tile * kTileLanes + slane;
+    return tile >= tiles || b >= B ? -1 : state(b);
+  };
+  const auto stage = [&](int tile, int buf, int s) {
+    float* obs = s_obs + buf * L.obs_size;
+    float* gact = s_gact + buf * L.rows_size;
+    float* mask = s_mask + buf * L.rows_size;
+    if (s < 0) {
+      for (int k = sq; k < din; k += 4) obs[k * kObsStride + srow] = 0.f;
+      for (int a = sq; a < A; a += 4) gact[srow * A + a] = mask[srow * A + a] = 0.f;
+      return;
+    }
+    const int b = tile * kTileLanes + slane;
+    const float* row = table + (int64_t)s * D;
+    for (int k = sq; k < din; k += 4)
+      copy4(obs + k * kObsStride + srow, row + sseat * din + k);
+    for (int a = sq; a < A; a += 4) {
+      copy4(gact + srow * A + a, g_act + ((int64_t)sseat * B + b) * A + a);
+      copy4(mask + srow * A + a, row + mask_off + sseat * A + a);
+    }
+  };
 
-      float part[kMaxA + 1];
+  int buf = 0;
+  stage(blockIdx.x, 0, state_of(blockIdx.x));
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x, buf ^= 1) {
+    const int lane0 = tile * kTileLanes;
+    const int next_state = state_of(tile + gridDim.x);  // in flight meanwhile
+    copies_done();
+    __syncthreads();  // this tile's inputs (and the weights) have landed
+    const float* t_obs = s_obs + buf * L.obs_size;
+    const float* t_gact = s_gact + buf * L.rows_size;
+    const float* t_mask = s_mask + buf * L.rows_size;
+
+    // -- both layers on a register tile of 8 rows x 8 units --------------
+    float part[8][nout];
 #pragma unroll
-      for (int o = 0; o <= kMaxA; ++o) part[o] = 0.f;
-      for (int u = lane; u < H; u += 32) {
-        float h = 0.f;
-        for (int k = 0; k < din; ++k) h = fmaf(obs[k], s_w0[k * H + u], h);
-        h = fmaxf(h + s_b0[u], 0.f);
+    for (int r = 0; r < 8; ++r)
 #pragma unroll
-        for (int o = 0; o <= kMaxA; ++o)
-          if (o < nout) part[o] = fmaf(h, s_w1t[o * H + u], part[o]);
+      for (int o = 0; o < nout; ++o) part[r][o] = 0.f;
+    for (int base = ublock; base < Hp; base += kUnitsPerPass) {
+      const int u0 = base + ug * 4;  // units u0..u0+3, u0+kHalf..u0+kHalf+3
+      float acc[8][8];
+#pragma unroll
+      for (int r = 0; r < 8; ++r)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[r][j] = 0.f;
+#pragma unroll 6
+      for (int k = 0; k < din; ++k) {
+        const float* ok = t_obs + k * kObsStride + row0;
+        const float4 oa = *reinterpret_cast<const float4*>(ok);
+        const float4 ob = *reinterpret_cast<const float4*>(ok + 4);
+        const float* wk = s_w0 + k * Hp + u0;
+        const float4 wa = *reinterpret_cast<const float4*>(wk);
+        const float4 wb = *reinterpret_cast<const float4*>(wk + kHalf);
+        const float o[8] = {oa.x, oa.y, oa.z, oa.w, ob.x, ob.y, ob.z, ob.w};
+        const float w[8] = {wa.x, wa.y, wa.z, wa.w, wb.x, wb.y, wb.z, wb.w};
+#pragma unroll
+        for (int r = 0; r < 8; ++r)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) acc[r][j] = fmaf(o[r], w[j], acc[r][j]);
       }
 #pragma unroll
-      for (int o = 0; o <= kMaxA; ++o) {
-        if (o < nout) {
+      for (int j = 0; j < 8; ++j) {
+        const int u = u0 + (j < 4 ? j : kHalf + j - 4);
+        const float bias = s_b0[u];
+        float w1u[nout];
 #pragma unroll
-          for (int off = 16; off > 0; off >>= 1)
-            part[o] += __shfl_xor_sync(0xffffffffu, part[o], off);
+        for (int o = 0; o < nout; ++o) w1u[o] = s_w1t[o * Hp + u];
+#pragma unroll
+        for (int r = 0; r < 8; ++r) {
+          const float h = fmaxf(acc[r][j] + bias, 0.f);
+#pragma unroll
+          for (int o = 0; o < nout; ++o) part[r][o] = fmaf(h, w1u[o], part[r][o]);
         }
       }
+    }
+    // the next tile's inputs go to the other buffers, whose last readers
+    // (the previous tile's compute and epilogue) are past the barrier above
+    stage(tile + gridDim.x, buf ^ 1, next_state);
+    // each output sums its row's 32 partials in contribution order (unit
+    // blocks, then unit groups: no atomics, the same order every run)
+#pragma unroll
+    for (int r = 0; r < 8; ++r)
+#pragma unroll
+      for (int o = 0; o < nout; ++o)
+        s_red[contrib * (nred + 1) + o * kTileRows + row0 + r] = part[r][o];
+    __syncthreads();
+    for (int p = tid; p < nred; p += kThreads) {
+      float sum = s_red[p];
+#pragma unroll
+      for (int c = 1; c < kContrib; ++c) sum += s_red[c * (nred + 1) + p];
+      const int o = p / kTileRows, r = p - o * kTileRows;
+      s_out[r * nout + o] = sum + s_b1[o];
+    }
+    __syncthreads();
 
-      if (lane == 0) {
+    // -- epilogue: one thread per (lane, seat) row ------------------------
+    if (tid < kTileRows) {
+      const int r = tid, seat = r / kTileLanes;
+      const int b = lane0 + r % kTileLanes;
+      if (b < B) {
         const int slot = seat * B + b;
-        float ml[kMaxA];
+        const float* out = s_out + r * nout;
+        float ml[A];
+        bool legal[A];
         float mx = kNeg;
-        bool legal[kMaxA];
 #pragma unroll
-        for (int a = 0; a < kMaxA; ++a) {
-          if (a < A) {
-            legal[a] = row[mask_off + seat * A + a] > 0.f;
-            ml[a] = legal[a] ? part[a] + s_b1[a] : kNeg;
-            mx = fmaxf(mx, ml[a]);
-          }
+        for (int a = 0; a < A; ++a) {
+          legal[a] = t_mask[r * A + a] > 0.f;
+          ml[a] = legal[a] ? out[a] : kNeg;
+          mx = fmaxf(mx, ml[a]);
         }
-        float e[kMaxA];
+        float e[A];
         float sum = 0.f;
 #pragma unroll
-        for (int a = 0; a < kMaxA; ++a) {
-          if (a < A) {
-            e[a] = expf(ml[a] - mx);
-            sum += e[a];
-          }
+        for (int a = 0; a < A; ++a) {
+          e[a] = expf(ml[a] - mx);
+          sum += e[a];
         }
         int best = 0;
-        float best_score = ml[0] + g_act[(int64_t)slot * A];
+        float best_score = ml[0] + t_gact[r * A];
 #pragma unroll
-        for (int a = 0; a < kMaxA; ++a) {
-          if (a < A) {
-            policy[(int64_t)slot * A + a] = legal[a] ? e[a] / sum : 0.f;
-            if (a > 0) {
-              const float score = ml[a] + g_act[(int64_t)slot * A + a];
-              if (score > best_score) {
-                best_score = score;
-                best = a;
-              }
+        for (int a = 0; a < A; ++a) {
+          policy[(int64_t)slot * A + a] = legal[a] ? e[a] / sum : 0.f;
+          if (a > 0) {
+            const float score = ml[a] + t_gact[r * A + a];
+            if (score > best_score) {
+              best_score = score;
+              best = a;
             }
           }
         }
         actions[slot] = best;
-        values[slot] = part[A] + s_b1[A];
-        s_act[warp] = best;
+        values[slot] = out[A];
+        s_act[r] = best;
       }
     }
     __syncthreads();
-    if (active && seat == 0 && lane == 0) {
-      const int cell = s_act[warp] * A + s_act[warp + 1];
-      const float* trip = row + trans_off + cell * 3 * T;
-      int tc = 0;
-      float best_score = trip[0] + g_ch[(int64_t)b * T];
-      for (int t = 1; t < T; ++t) {
-        const float score = trip[t] + g_ch[(int64_t)b * T + t];
-        if (score > best_score) {
-          best_score = score;
-          tc = t;
+    // -- transition: one thread per lane ----------------------------------
+    if (tid < kTileLanes) {
+      const int b = lane0 + tid;
+      if (b < B) {
+        const int cell = s_act[tid] * A + s_act[tid + kTileLanes];
+        const float* trip =
+            table + (int64_t)state(b) * D + trans_off + cell * 3 * T;
+        const float* g = g_ch + (int64_t)b * T;
+        int tc = 0;
+        float best_score = trip[0] + g[0];
+        for (int t = 1; t < T; ++t) {
+          const float score = trip[t] + g[t];
+          if (score > best_score) {
+            best_score = score;
+            tc = t;
+          }
         }
+        const int child = (int)trip[T + tc];
+        new_idx[b] = child;
+        rewards[b] = child == 0 ? trip[2 * T + tc] : 0.f;
       }
-      const int child = (int)trip[T + tc];
-      new_idx[b] = child;
-      rewards[b] = child == 0 ? trip[2 * T + tc] : 0.f;
     }
-    __syncthreads();
+    // The next tile rewrites s_red and s_out only after its first barrier,
+    // which this tile's readers of them have passed, and s_act after three.
   }
+}
+
+// Launch settings that depend only on (device, A, H): the shared-memory
+// attribute is set and the grid is sized once, then cached.
+std::mutex cache_mutex;
+std::map<std::tuple<int, int, int>, int> grid_cache;
+
+template <int A>
+cudaError_t launch(const float* table, int32_t S, int32_t D,
+                   const int32_t* idx, const float* w0, const float* b0,
+                   const float* w1, const float* b1, const float* g_act,
+                   const float* g_ch, int32_t* new_idx, float* policy,
+                   int32_t* actions, float* rewards, float* values, int32_t B,
+                   int32_t T, int32_t H, cudaStream_t stream) {
+  const size_t smem = (size_t)Layout(A, H).total * sizeof(float);
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  int blocks = 0;
+  {
+    std::lock_guard<std::mutex> lock(cache_mutex);
+    const auto key = std::make_tuple(device, A, H);
+    auto found = grid_cache.find(key);
+    if (found != grid_cache.end()) {
+      blocks = found->second;
+    } else {
+      err = cudaFuncSetAttribute(fused_turn_kernel<A>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)smem);
+      if (err != cudaSuccess) return err;
+      int sms = 0, per_sm = 0;
+      if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                        device)) != cudaSuccess)
+        return err;
+      if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+               &per_sm, fused_turn_kernel<A>, kThreads, smem)) != cudaSuccess)
+        return err;
+      if (per_sm < 1) return cudaErrorInvalidConfiguration;
+      blocks = sms * per_sm;
+      grid_cache[key] = blocks;
+    }
+  }
+  const int64_t tiles = ((int64_t)B + kTileLanes - 1) / kTileLanes;
+  const unsigned grid = (unsigned)(tiles < blocks ? tiles : blocks);
+  fused_turn_kernel<A><<<grid, kThreads, smem, stream>>>(
+      table, S, D, idx, w0, b0, w1, b1, g_act, g_ch, new_idx, policy, actions,
+      rewards, values, B, T, H);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" size_t rnad_fused_turn_smem_bytes(int32_t A, int32_t H) {
-  return smem_floats(A, H) * sizeof(float);
+  return (size_t)Layout(A, H).total * sizeof(float);
 }
 
 extern "C" int rnad_fused_turn(const void* table, int32_t S, int32_t D,
@@ -196,30 +423,27 @@ extern "C" int rnad_fused_turn(const void* table, int32_t S, int32_t D,
   if (A < 1 || A > kMaxA || T < 1 || T > kMaxT || H < 1)
     return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
-  const size_t smem = rnad_fused_turn_smem_bytes(A, H);
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_turn_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  int device = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&device)) != cudaSuccess) return (int)err;
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                    device)) != cudaSuccess)
-    return (int)err;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, fused_turn_kernel, kThreads, smem)) != cudaSuccess)
-    return (int)err;
-  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-  const int lanes_per_block = kWarps / 2;
-  int64_t blocks = ((int64_t)B + lanes_per_block - 1) / lanes_per_block;
-  if (blocks > (int64_t)sms * per_sm) blocks = (int64_t)sms * per_sm;
-  fused_turn_kernel<<<(unsigned)blocks, kThreads, smem, (cudaStream_t)stream>>>(
-      (const float*)table, S, D, (const int32_t*)idx, (const float*)w0,
-      (const float*)b0, (const float*)w1, (const float*)b1,
-      (const float*)g_act, (const float*)g_ch, (int32_t*)new_idx,
-      (float*)policy, (int32_t*)actions, (float*)rewards, (float*)values, B,
-      A, T, H);
-  return (int)cudaGetLastError();
+  switch (A) {
+#define RNAD_FUSED_TURN_CASE(K)                                             \
+  case K:                                                                   \
+    return (int)launch<K>(                                                  \
+        (const float*)table, S, D, (const int32_t*)idx, (const float*)w0,   \
+        (const float*)b0, (const float*)w1, (const float*)b1,               \
+        (const float*)g_act, (const float*)g_ch, (int32_t*)new_idx,         \
+        (float*)policy, (int32_t*)actions, (float*)rewards, (float*)values, \
+        B, T, H, (cudaStream_t)stream);
+    RNAD_FUSED_TURN_CASE(1)
+    RNAD_FUSED_TURN_CASE(2)
+    RNAD_FUSED_TURN_CASE(3)
+    RNAD_FUSED_TURN_CASE(4)
+    RNAD_FUSED_TURN_CASE(5)
+    RNAD_FUSED_TURN_CASE(6)
+    RNAD_FUSED_TURN_CASE(7)
+    RNAD_FUSED_TURN_CASE(8)
+#undef RNAD_FUSED_TURN_CASE
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 extern "C" const char* rnad_fused_turn_error_string(int err) {

@@ -3,16 +3,18 @@
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 for Hopper (``sm_90a``) into its own shared library under
 ``rnad_tpu_torch/_build/`` (git-ignored), then loaded with ``ctypes``.  The
-library's file name carries a hash of its source, so an edited source is
-rebuilt at its next use and a stale one is never loaded.  Nothing is built
-when a module is imported: the wrappers call :func:`load` at their first
-launch, and :func:`build` compiles several sources at once (one ``nvcc``
-process each, started together).  A failed build raises.
+library's file name carries a hash of its source and of any ``-D`` defines,
+so an edited source is rebuilt at its next use and a stale one is never
+loaded.  Nothing is built when a module is imported: the wrappers call
+:func:`entry` at their first launch, and :func:`build` compiles several
+sources at once (one ``nvcc`` process each, started together).  A failed
+build raises.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -27,7 +29,7 @@ BUILD_DIR = _PKG / "_build"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
-# ptxas resource report of each library built by this process
+# ptxas resource report of each library built by this process, by file name
 build_logs: Dict[str, str] = {}
 
 
@@ -43,26 +45,33 @@ def _nvcc() -> str:
     return path
 
 
-def _library_path(name: str) -> Path:
-    src = SRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+def library_path(name: str, defines: Sequence[str] = (),
+                 src_dir: Path = SRC_DIR) -> Path:
+    """Where ``<src_dir>/<name>.cu`` built with ``-D<define>`` each lives."""
+    digest = hashlib.sha256(Path(src_dir, f"{name}.cu").read_bytes())
+    for d in defines:
+        digest.update(b"\0" + d.encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
-def build(names: Sequence[str]) -> Dict[str, float]:
+def build(names: Sequence[str], defines: Sequence[str] = (),
+          src_dir: Path = SRC_DIR) -> Dict[str, float]:
     """Compiles every named source whose library is missing, all in
-    parallel.  Returns the seconds each build took (0.0 if cached)."""
+    parallel, with ``-D<define>`` for each of ``defines``.  Returns the
+    seconds each build took (0.0 if cached); ``build_logs`` keeps what
+    ptxas reported."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     start = time.perf_counter()
     for name in names:
-        out = _library_path(name)
+        out = library_path(name, defines, src_dir)
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         cmd = [_nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
                "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo",
-               "-o", str(tmp), str(SRC_DIR / f"{name}.cu")]
+               *(f"-D{d}" for d in defines),
+               "-o", str(tmp), str(Path(src_dir, f"{name}.cu"))]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, out)
@@ -71,7 +80,7 @@ def build(names: Sequence[str]) -> Dict[str, float]:
     for name, (proc, tmp, out) in procs.items():
         log, _ = proc.communicate()
         seconds[name] = time.perf_counter() - start
-        build_logs[name] = log
+        build_logs[out.name] = log
         if proc.returncode != 0:
             failures.append(f"nvcc failed for {name}.cu:\n{log}")
             continue
@@ -81,22 +90,40 @@ def build(names: Sequence[str]) -> Dict[str, float]:
     return seconds
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
-    lib = _loaded.get(name)
+def load(name: str, defines: Sequence[str] = (),
+         src_dir: Path = SRC_DIR) -> ctypes.CDLL:
+    """The loaded library of ``<src_dir>/<name>.cu``, built first if
+    needed."""
+    path = str(library_path(name, defines, src_dir))
+    lib = _loaded.get(path)
     if lib is None:
-        build([name])
-        lib = ctypes.CDLL(str(_library_path(name)))
-        _loaded[name] = lib
+        build([name], defines, src_dir)
+        lib = ctypes.CDLL(path)
+        _loaded[path] = lib
     return lib
 
 
-def check(lib: ctypes.CDLL, entry: str, err: int) -> None:
-    """Raises if the C entry point ``entry`` returned a CUDA error code
-    (each library exports ``<entry>_error_string`` to name it)."""
+def bind(lib: ctypes.CDLL, symbol: str, argtypes, restype=ctypes.c_int):
+    """``lib.<symbol>`` with its ctypes signature set."""
+    fn = getattr(lib, symbol)
+    fn.restype = restype
+    fn.argtypes = list(argtypes)
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def entry(name: str, symbol: str, argtypes: tuple, restype=ctypes.c_int):
+    """The C function ``symbol`` of ``csrc/<name>.cu``, loaded and given its
+    ctypes signature once, at the first launch."""
+    return bind(load(name), symbol, argtypes, restype)
+
+
+def check(lib_name: str, entry_name: str, err: int) -> None:
+    """Raises if the C entry point ``entry_name`` of ``csrc/<lib_name>.cu``
+    returned a CUDA error code (each library exports
+    ``<entry>_error_string`` to name it)."""
     if err != 0:
-        what = getattr(lib, f"{entry}_error_string")
-        what.restype = ctypes.c_char_p
-        what.argtypes = [ctypes.c_int]
-        raise RuntimeError(f"{entry}: CUDA error {err} "
+        what = entry(lib_name, f"{entry_name}_error_string", (ctypes.c_int,),
+                     ctypes.c_char_p)
+        raise RuntimeError(f"{entry_name}: CUDA error {err} "
                            f"({what(err).decode()})")

@@ -27,6 +27,12 @@ from . import _build, stepping
 MAX_ACTIONS = 8
 MAX_TRANSITIONS = 8
 SMEM_LIMIT_BYTES = 232_448  # what one Hopper block may use
+TILE_LANES = 32  # lanes a block takes at a time (csrc/fused_turn.cu)
+# rnad_fused_turn(table, S, D, idx, w0, b0, w1, b1, g_act, g_ch, new_idx,
+#                 policy, actions, rewards, values, B, A, T, H, stream)
+ARGTYPES = ((ctypes.c_void_p, ctypes.c_int32, ctypes.c_int32)
+            + (ctypes.c_void_p,) * 12 + (ctypes.c_int32,) * 4
+            + (ctypes.c_void_p,))
 
 _Outputs = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
                  torch.Tensor]
@@ -111,21 +117,14 @@ def fused_turn(table: torch.Tensor, w0: torch.Tensor, b0: torch.Tensor,
                                 g_chance, A=A, T=T)
     if table.device.type != "cuda":
         raise ValueError(f"fused_turn runs on cuda or cpu, not {table.device}")
-    lib = _build.load("fused_turn")
     H = w0.shape[1]
-    smem_bytes = lib.rnad_fused_turn_smem_bytes
-    smem_bytes.restype = ctypes.c_size_t
-    smem_bytes.argtypes = [ctypes.c_int32, ctypes.c_int32]
-    need = smem_bytes(A, H)
+    need = _build.entry("fused_turn", "rnad_fused_turn_smem_bytes",
+                        (ctypes.c_int32,) * 2, ctypes.c_size_t)(A, H)
     if need > SMEM_LIMIT_BYTES:
         raise ValueError(f"fused_turn keeps the weights in shared memory: "
                          f"{need} bytes at A={A}, 2W={H} exceed "
                          f"{SMEM_LIMIT_BYTES}")
-    fn = lib.rnad_fused_turn
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p, ctypes.c_int32, ctypes.c_int32]
-                   + [ctypes.c_void_p] * 12
-                   + [ctypes.c_int32] * 4 + [ctypes.c_void_p])
+    fn = _build.entry("fused_turn", "rnad_fused_turn", ARGTYPES)
     S, D = table.shape
     B = indices.shape[0]
     dev = table.device
@@ -143,7 +142,7 @@ def fused_turn(table: torch.Tensor, w0: torch.Tensor, b0: torch.Tensor,
                  g_act.data_ptr(), g_chance.data_ptr(), new_idx.data_ptr(),
                  policy.data_ptr(), actions.data_ptr(), rewards.data_ptr(),
                  values.data_ptr(), B, A, T, H, stream)
-    _build.check(lib, "rnad_fused_turn", err)
+    _build.check("fused_turn", "rnad_fused_turn", err)
     fused_turn.launches += 1
     return new_idx, policy, actions, rewards, values
 

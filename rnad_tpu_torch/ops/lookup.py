@@ -13,6 +13,9 @@ import torch
 
 from . import _build
 
+_ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+             ctypes.c_int64, ctypes.c_int32, ctypes.c_int32, ctypes.c_void_p)
+
 
 def lookup_plain(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """Plain version: one indexing gather."""
@@ -42,12 +45,7 @@ def lookup(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         return lookup_plain(table, idx)
     if table.device.type != "cuda":
         raise ValueError(f"lookup runs on cuda or cpu, not {table.device}")
-    lib = _build.load("lookup")
-    fn = lib.rnad_lookup
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_int64, ctypes.c_int32, ctypes.c_int32,
-                   ctypes.c_void_p]
+    fn = _build.entry("lookup", "rnad_lookup", _ARGTYPES)
     S, D = table.shape
     N = idx.shape[0]
     out = torch.empty((N, D), dtype=table.dtype, device=table.device)
@@ -57,7 +55,7 @@ def lookup(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(table.data_ptr(), idx.data_ptr(), out.data_ptr(), N, S, D,
                  stream)
-    _build.check(lib, "rnad_lookup", err)
+    _build.check("lookup", "rnad_lookup", err)
     lookup.launches += 1
     return out
 

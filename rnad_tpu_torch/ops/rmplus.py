@@ -25,6 +25,10 @@ import torch
 from . import _build
 
 MAX_ACTIONS = 16
+# rnad_rmplus(M, lr, lc, x, y, v, B, R, C, iters, stream)
+ARGTYPES = ((ctypes.c_void_p,) * 6
+            + (ctypes.c_int64, ctypes.c_int32, ctypes.c_int32,
+               ctypes.c_int32, ctypes.c_void_p))
 
 _Outputs = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -109,18 +113,21 @@ def _check_args(M, lr, lc, iters) -> None:
 def rmplus(M: torch.Tensor, lr: torch.Tensor, lc: torch.Tensor,
            iters: int) -> _Outputs:
     """Batch-minor RM+: M (R, C, B) with illegal cells zeroed, lr (R, B),
-    lc (C, B) -> (x (R, B), y (C, B), v (B,))."""
+    lc (C, B) -> (x (R, B), y (C, B), v (B,)).
+
+    The masks hold only 0.0 and 1.0, as every caller builds them (the
+    ``amax`` of a 0/1 legality channel).  The kernel relies on it: a regret
+    on an illegal action then stays exactly +0, so it skips the plain
+    version's products by the mask (csrc/rmplus.cu, step 1).  It also takes
+    one reciprocal per normalization and contracts products into FMAs, so
+    its rounding differs from the plain version's; ``solver_device.
+    agreement`` is the criterion the two are held to."""
     _check_args(M, lr, lc, iters)
     if M.device.type == "cpu":
         return rmplus_plain(M, lr, lc, iters)
     if M.device.type != "cuda":
         raise ValueError(f"rmplus runs on cuda or cpu, not {M.device}")
-    lib = _build.load("rmplus")
-    fn = lib.rnad_rmplus
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 6
-                   + [ctypes.c_int64, ctypes.c_int32, ctypes.c_int32,
-                      ctypes.c_int32, ctypes.c_void_p])
+    fn = _build.entry("rmplus", "rnad_rmplus", ARGTYPES)
     R, C, B = M.shape
     dev = M.device
     x = torch.empty((R, B), dtype=torch.float32, device=dev)
@@ -132,7 +139,7 @@ def rmplus(M: torch.Tensor, lr: torch.Tensor, lc: torch.Tensor,
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(M.data_ptr(), lr.data_ptr(), lc.data_ptr(), x.data_ptr(),
                  y.data_ptr(), v.data_ptr(), B, R, C, int(iters), stream)
-    _build.check(lib, "rnad_rmplus", err)
+    _build.check("rmplus", "rnad_rmplus", err)
     rmplus.launches += 1
     return x, y, v
 

@@ -22,7 +22,8 @@ import dataclasses
 import pytest
 import torch
 
-from rnad_tpu_torch.config import NetConfig, RNaDConfig, TreeConfig
+from rnad_tpu_torch.config import (NetConfig, RNaDConfig, ShapingRule,
+                                   TreeConfig)
 from rnad_tpu_torch.env import engine, solver_device
 from rnad_tpu_torch.env import tree as tree_lib
 from rnad_tpu_torch.learn import rnad
@@ -93,9 +94,15 @@ def test_lookup_kernel_rejects(dev):
                                                     device=dev))
 
 
+TILE = fused_turn_lib.TILE_LANES
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("A,T,width,B", [(3, 2, 32, 256), (3, 2, 256, 4099),
-                                         (4, 3, 64, 1000), (2, 1, 8, 33)])
+@pytest.mark.parametrize("A,T,width,B", [
+    (3, 2, 32, 256), (3, 2, 256, 4099), (4, 3, 64, 1000), (2, 1, 8, 33),
+    # the MLP path's shape, and the ragged edges of a block's tile of lanes
+    (3, 2, 256, 32768), (3, 2, 256, TILE - 1), (3, 2, 256, TILE),
+    (3, 2, 256, TILE + 1), (8, 8, 16, 2 * TILE + 1)])
 def test_fused_turn_kernel_vs_plain(dev, A, T, width, B):
     tree = _tree(dev, A=A, T=T)
     args = _turn_args(dev, tree, width, B, seed=A * 100 + width)
@@ -117,6 +124,19 @@ def test_fused_turn_kernel_vs_plain(dev, A, T, width, B):
     torch.testing.assert_close(pol_g, pol_w, rtol=0, atol=1e-5)
     torch.testing.assert_close(val_g, val_w, rtol=0, atol=1e-5)
     assert ((pol_g.sum(-1) - 1).abs() < 1e-5).all()
+
+
+@pytest.mark.cuda
+def test_fused_turn_kernel_is_deterministic(dev):
+    """Two launches on the same inputs are bitwise equal: the second layer's
+    partials are reduced in a fixed order, with no atomics."""
+    tree = _tree(dev)
+    args = _turn_args(dev, tree, 256, 32768, seed=5)
+    first = fused_turn_lib.fused_turn(*args, A=3, T=2)
+    second = fused_turn_lib.fused_turn(*args, A=3, T=2)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
 
 
 @pytest.mark.cuda
@@ -178,6 +198,38 @@ def test_rmplus_kernel_at_learner_size(dev):
     """T * B = 327,680 observed games of the A = 5 EquiNet learner."""
     M, lr, lc = _random_games(dev, 327680, 5, 5, seed=7)
     _check_rmplus(M, lr, lc, 128)
+
+
+@pytest.mark.cuda
+def test_rmplus_kernel_on_observed_tree_games(dev):
+    """Both seats' observed games at 32768 random states of the EquiNet
+    path's A = 5 tree (65,536 games, one rollout turn's solve)."""
+    cfg = TreeConfig(max_actions=5, max_transitions=2,
+                     transition_threshold=0.25, depth_bound=5,
+                     depth_bound_rule=ShapingRule(-1, -2, 0.55))
+    tree = tree_lib.generate_tree(cfg, seed=0, device=dev)
+    packed = stepping.make_packed_tables(tree)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    ids = torch.randint(1, tree.size, (32768,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    obs = torch.cat(stepping.slice_observations(
+        packed, stepping.lookup(packed, ids)))
+    legal = obs[:, 1]
+    lr, lc = legal.amax(2), legal.amax(1)
+    assert obs.shape[0] == 65536
+    _check_rmplus(obs[:, 0] * lr[:, :, None] * lc[:, None, :], lr, lc, 128)
+
+
+@pytest.mark.cuda
+def test_rmplus_kernel_is_deterministic(dev):
+    M, lr, lc = _random_games(dev, 65536, 5, 5, seed=11)
+    args = (M.permute(1, 2, 0).contiguous(), lr.t().contiguous(),
+            lc.t().contiguous(), 128)
+    first = rmplus_lib.rmplus(*args)
+    second = rmplus_lib.rmplus(*args)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
 
 
 @pytest.mark.cuda

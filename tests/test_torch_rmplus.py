@@ -18,7 +18,9 @@ import torch
 from rnad_tpu.env import solver_device as jax_sd
 from rnad_tpu.ops import pallas_rmplus
 from rnad_tpu_torch.env import solver_device as torch_sd
+from rnad_tpu_torch.models import nets as torch_nets
 from rnad_tpu_torch.ops import rmplus as rmplus_lib
+from rnad_tpu_torch.ops import stepping
 from tests.torch_parity import torch_tree
 
 
@@ -169,6 +171,56 @@ def test_wrapper_checks_its_arguments():
         rmplus_lib.rmplus(M.transpose(0, 1), lr, lc, 8)
     with pytest.raises(ValueError, match="iters"):
         rmplus_lib.rmplus(M, lr, lc, -1)
+
+
+def test_masks_are_zero_one_and_illegal_regrets_stay_zero(small_tree,
+                                                          monkeypatch):
+    """The mask contract kernel K3's exact cuts rely on.  The masks that
+    the EquiNet's solver features and ``joint_policy_rmplus`` hand to
+    ``rmplus`` hold only 0.0 and 1.0; given such masks, every regret and
+    running average that ``rmplus_plain`` normalizes is exactly +0 on the
+    illegal actions, so its product by the mask changes nothing."""
+    tree = torch_tree(small_tree)
+    seen = []
+    real = torch_sd.rmplus
+
+    def record(M, lr, lc, iters):
+        seen.append((M, lr, lc))
+        return real(M, lr, lc, iters)
+
+    monkeypatch.setattr(torch_sd, "rmplus", record)
+    packed = stepping.make_packed_tables(tree)
+    rows = stepping.lookup(packed, torch.arange(tree.size, dtype=torch.int32))
+    obs = torch.cat(stepping.slice_observations(packed, rows))
+    torch_nets._solver_features(obs.permute(0, 2, 3, 1), iters=16)
+    torch_sd.joint_policy_rmplus(tree, iters=16, chunk=50)
+    assert len(seen) == 1 + -(-tree.size // 50)
+    illegal = 0
+    for _, lr, lc in seen:
+        for mask in (lr, lc):
+            assert bool(((mask == 0) | (mask == 1)).all())
+            illegal += int((mask == 0).sum())
+    assert illegal > 0  # the tree has illegal actions to check
+
+    normalized = []
+    plain_normalize = rmplus_lib._normalize
+
+    def check(q, legal):
+        off = q[legal == 0]
+        assert bool((off == 0).all()) and not bool(torch.signbit(off).any())
+        assert torch.equal(q * legal, q)
+        normalized.append(int((legal == 0).sum()))
+        return plain_normalize(q, legal)
+
+    monkeypatch.setattr(rmplus_lib, "_normalize", check)
+    M, lr, lc = _random_games(5, 500, 5, 5)
+    games = seen + [(torch.from_numpy(np.ascontiguousarray(M.transpose(1, 2,
+                                                                       0))),
+                     torch.from_numpy(np.ascontiguousarray(lr.T)),
+                     torch.from_numpy(np.ascontiguousarray(lc.T)))]
+    for M, lr, lc in games:
+        rmplus_lib.rmplus_plain(M, lr, lc, 32)
+    assert sum(normalized) > 0
 
 
 def test_operation_count():
