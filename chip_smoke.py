@@ -70,10 +70,30 @@ def log(msg: str) -> None:
 
 
 def device_ms(fn, iters: int = 20) -> float:
-    """Device time of one ``fn()`` in ms, each call behind a sleep kernel
-    (``rnad_tpu_torch.kernel_bench.device_ms``)."""
-    from rnad_tpu_torch import kernel_bench
-    return kernel_bench.device_ms(fn, iters)
+    """Device time of one ``fn()`` in ms, the mean over ``iters`` calls
+    after a warm-up.  Each call is queued behind a sleep kernel longer than
+    its enqueue, and CUDA events on either side time it on the device, so
+    the host's launch overhead does not show (a kernel's own time, or the
+    busy time of a function of many kernels)."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    total = 0.0
+    for _ in range(iters):
+        # ~2 GHz SM clock: sleep twice the enqueue time, plus a millisecond
+        torch.cuda._sleep(int((2 * host_s + 1e-3) * 2e9))
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        total += start.elapsed_time(end)
+    return total / iters
 
 
 def wall_ms(fn, iters: int = 10) -> float:
@@ -153,7 +173,6 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from rnad_tpu_torch import kernel_bench
     from rnad_tpu_torch.config import (NetConfig, RNaDConfig, ShapingRule,
                                        TreeConfig)
     from rnad_tpu_torch.env import engine
@@ -186,9 +205,9 @@ def main() -> int:
     seconds = _build.build(["lookup", "fused_turn", "rmplus"])
     log(f"build: {time.perf_counter() - t0:.1f} s "
         + ", ".join(f"{k} {v:.1f} s" for k, v in seconds.items()))
-    for text in _build.build_logs.values():
-        for entry, line in kernel_bench.ptxas_lines(text):
-            log(f"  ptxas {entry}: {line}")
+    for name in seconds:
+        for kernel, line in _build.ptxas_lines(_build.build_log(name)):
+            log(f"  ptxas {kernel}: {line}")
     t0 = time.perf_counter()
     equi_tree = tree_lib.generate_tree(equi_tree_cfg, seed=0, device=dev)
     log(f"EquiNet tree (A=5, depth_bound 5, seed 0): S={equi_tree.size} "
@@ -247,7 +266,7 @@ def main() -> int:
     # bounds: the larger of bytes over HBM rate and FLOPs over f32 peak
     H = weights[0].shape[1]
     din = 2 * A * A
-    k1_flops = 2.0 * 2 * B_MAIN * (din * H + H * (A + 1))
+    k1_flops = 2.0 * B_MAIN * fused_turn_lib.operations(A, H)
     k1_bytes = 4.0 * (B_MAIN + S * D + din * H + H + H * (A + 1) + A + 1
                       + 2 * B_MAIN * A + B_MAIN * T  # noise
                       + B_MAIN + 2 * B_MAIN * A + 2 * B_MAIN + B_MAIN

@@ -15,10 +15,12 @@
 // select existed only because a TPU core cannot gather; here the row is
 // read directly and the cell is indexed directly.
 //
-// Bound on the H100: operations.  Each (lane, seat) row does din*H +
-// H*(A+1) FMAs (11264 at A=3, W=256; the full W1 product, block-diagonal
-// zeros included, as the TPU kernel computes it), against a few hundred
-// bytes of row, noise and outputs, so the f32 CUDA-core rate bounds it.
+// Bound on the H100: operations.  Each (lane, seat) row needs din*H FMAs
+// for the first layer and W*(A+1) for the second (W1 is block-diagonal:
+// the policy half feeds the A logits, the value half the value), 10240 at
+// A=3, W=256, against a few hundred bytes of row, noise and outputs, so the
+// f32 CUDA-core rate bounds it.  The kernel computes the full W1 product,
+// zeros included, as the TPU kernel does (ops/fused_turn.py::operations).
 //
 // Design: register tiling on the f32 CUDA cores.  Blocks of 256 threads
 // stay resident and hold the weights in shared memory (zero-padded to whole
@@ -27,33 +29,30 @@
 // seat) rows and stages the tile's observations in shared memory, k-major,
 // with its Gumbel noise and legality masks, by cp.async into one of two
 // buffers: the next tile's copies are in flight while this tile reduces,
-// runs its epilogue and its transition.  Each thread computes a register tile of 8 rows x 8
-// hidden units: one k step is 4 float4 shared-memory loads for 64 FMAs.
-// The warp's lanes split into 4 row groups x 8 unit groups, so those loads
-// touch 4 and 8 distinct 16-byte words: about one shared-memory wavefront
-// each, where one row group x 32 unit groups (the first register-tiled
-// layout) read 32 distinct W0 words, a wavefront per 8 lanes, and kept the
-// shared-memory pipe about as busy as the FMA pipe.  Each hidden unit's
-// sum over k runs in index order with fmaf, then +b0 and ReLU, in
-// registers.  The second layer forms each thread's partial (8 rows x (A+1))
-// over its units; each output then sums its row's 32 partials through
-// shared memory in a fixed order (no atomics: two runs are bitwise equal).
+// runs its epilogue and its transition.  Each thread computes a register
+// tile of 8 rows x 8 hidden units: one k step is 4 float4 shared-memory
+// loads for 64 FMAs.  A warp's lanes are 4 row groups x 8 unit groups.
+// Each hidden unit's sum over k runs in index order with fmaf, then +b0 and
+// ReLU, in registers.  The second layer forms each thread's partial (8 rows
+// x (A+1)) over its units.  A warp first sums its 8 unit groups' partials
+// with shuffles (a fixed tree), so shared memory holds 4 partials an
+// output, one per warp along the units, which each output then sums in a
+// fixed order (no atomics: two runs are bitwise equal).
 // The epilogue gives one thread to each row (mask, softmax, Gumbel-max,
 // writes), then one thread to each lane (the transition); everything after
 // the logits is exact, as before.  No tensor cores: TF32 would round the
 // logits by ~1e-3, far outside the near-tie band that keeps episodes equal.
-// Launch settings that depend only on (device, A, H) are cached.
+// The shared-memory attribute is set once per (device, A), to the most a
+// block may opt in to, and the grid once per (device, A, H).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <map>
 #include <mutex>
+#include <set>
 #include <tuple>
-
-#ifndef RNAD_FUSED_TURN_ROW_GROUPS
-#define RNAD_FUSED_TURN_ROW_GROUPS 4  // a warp's lanes: row groups x unit groups
-#endif
+#include <utility>
 
 namespace {
 
@@ -67,7 +66,7 @@ constexpr int kTileLanes = kTileRows / 2;  // seat 0 rows, then seat 1
 // kRowGroups groups of 8 rows times kUnitGroups groups of 8 units, so one
 // k step reads kRowGroups distinct float4 pairs of observations and
 // kUnitGroups of W0 (each unit group's two float4 columns kHalf apart).
-constexpr int kRowGroups = RNAD_FUSED_TURN_ROW_GROUPS;
+constexpr int kRowGroups = 4;
 constexpr int kUnitGroups = 32 / kRowGroups;
 constexpr int kWarpRows = 8 * kRowGroups;
 constexpr int kRowBlocks = kTileRows / kWarpRows;  // warps along the rows
@@ -76,13 +75,11 @@ constexpr int kBlockUnits = 8 * kUnitGroups;       // a warp's units a pass
 constexpr int kHalf = 4 * kUnitGroups;
 constexpr int kUnitsPerPass = kUnitBlocks * kBlockUnits;
 constexpr int kObsStride = kTileRows + 4;  // k-major, 16-byte rows
-constexpr int kContrib = kUnitBlocks * kUnitGroups;  // partials of a row
+constexpr int kContrib = kUnitBlocks;  // partials of an output in s_red
 constexpr float kNeg = -1e30f;
 
-static_assert(kRowGroups == 1 || kRowGroups == 2 || kRowGroups == 4 ||
-                  kRowGroups == 8,
-              "a warp's 32 lanes split into row and unit groups");
-static_assert(kContrib == 32, "each output sums 32 partials");
+static_assert(kRowGroups * kUnitGroups == 32 && kUnitGroups == 8,
+              "a warp's unit groups are lanes 4 apart: shuffles 16, 8, 4");
 static_assert(kThreads == 4 * kTileRows, "4 threads stage each row");
 
 // H rounded up to whole warp unit blocks (zero weights: exact +0 terms).
@@ -107,7 +104,7 @@ struct Layout {
     w1t = b0 + Hp;                            // (A+1, Hp)
     b1 = w1t + nout * Hp;                     // (A+1,)
     obs = b1 + up4(nout);                     // 2 x (din, kObsStride)
-    red = obs + 2 * obs_size;                 // (32, (A+1) x 64 + 1)
+    red = obs + 2 * obs_size;                 // (4, (A+1) x 64 + 1)
     out = red + up4(kContrib * (nout * kTileRows + 1));
     gact = out + up4(kTileRows * nout);       // (rows, A+1) logits, value
     mask = gact + 2 * rows_size;              // 2 x (rows, A)
@@ -180,7 +177,7 @@ fused_turn_kernel(const float* __restrict__ table, int32_t S, int32_t D,
   const int rg = lane % kRowGroups, ug = lane / kRowGroups;
   const int row0 = (warp % kRowBlocks) * kWarpRows + rg * 8;
   const int ublock = (warp / kRowBlocks) * kBlockUnits;
-  const int contrib = (warp / kRowBlocks) * kUnitGroups + ug;
+  const int contrib = warp / kRowBlocks;  // the warp's unit block
   constexpr int nred = nout * kTileRows;  // outputs of a tile
   float* s_red = smem + L.red;
   const int tiles = (B + kTileLanes - 1) / kTileLanes;
@@ -273,13 +270,19 @@ fused_turn_kernel(const float* __restrict__ table, int32_t S, int32_t D,
     // the next tile's inputs go to the other buffers, whose last readers
     // (the previous tile's compute and epilogue) are past the barrier above
     stage(tile + gridDim.x, buf ^ 1, next_state);
-    // each output sums its row's 32 partials in contribution order (unit
-    // blocks, then unit groups: no atomics, the same order every run)
+    // the warp's 8 unit groups (lanes 4 apart) sum by shuffles, then each
+    // output sums the 4 warps' partials in unit-block order (no atomics,
+    // the same order every run)
 #pragma unroll
     for (int r = 0; r < 8; ++r)
 #pragma unroll
-      for (int o = 0; o < nout; ++o)
-        s_red[contrib * (nred + 1) + o * kTileRows + row0 + r] = part[r][o];
+      for (int o = 0; o < nout; ++o) {
+        float v = part[r][o];
+#pragma unroll
+        for (int off = 16; off >= 4; off >>= 1)
+          v += __shfl_down_sync(0xffffffffu, v, off);
+        if (ug == 0) s_red[contrib * (nred + 1) + o * kTileRows + row0 + r] = v;
+      }
     __syncthreads();
     for (int p = tid; p < nred; p += kThreads) {
       float sum = s_red[p];
@@ -359,9 +362,11 @@ fused_turn_kernel(const float* __restrict__ table, int32_t S, int32_t D,
   }
 }
 
-// Launch settings that depend only on (device, A, H): the shared-memory
-// attribute is set and the grid is sized once, then cached.
+// Launch settings, set once: the shared-memory attribute of
+// fused_turn_kernel<A> on a device at the most a block may opt in to (it
+// belongs to the kernel, whatever H), and the grid of each (device, A, H).
 std::mutex cache_mutex;
+std::set<std::pair<int, int>> smem_set;
 std::map<std::tuple<int, int, int>, int> grid_cache;
 
 template <int A>
@@ -378,15 +383,24 @@ cudaError_t launch(const float* table, int32_t S, int32_t D,
   int blocks = 0;
   {
     std::lock_guard<std::mutex> lock(cache_mutex);
+    if (!smem_set.count(std::make_pair(device, A))) {
+      int optin = 0;
+      if ((err = cudaDeviceGetAttribute(
+               &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device)) !=
+          cudaSuccess)
+        return err;
+      if ((err = cudaFuncSetAttribute(
+               fused_turn_kernel<A>,
+               cudaFuncAttributeMaxDynamicSharedMemorySize, optin)) !=
+          cudaSuccess)
+        return err;
+      smem_set.insert(std::make_pair(device, A));
+    }
     const auto key = std::make_tuple(device, A, H);
     auto found = grid_cache.find(key);
     if (found != grid_cache.end()) {
       blocks = found->second;
     } else {
-      err = cudaFuncSetAttribute(fused_turn_kernel<A>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 (int)smem);
-      if (err != cudaSuccess) return err;
       int sms = 0, per_sm = 0;
       if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
                                         device)) != cudaSuccess)

@@ -6,31 +6,32 @@
 // {0, 1} legality masks; outputs are the linear-averaged strategies x (R, B),
 // y (C, B) and their bilinear value v (B,), all float32.
 //
-// Bound on the H100: operations.  A game's loop does about
-// 4RC + 12R + 13C + 3 operations per iteration (ops/rmplus.py::operations
+// Bound on the H100: operations.  A game's loop needs about
+// 4RC + 10R + 11C + 3 operations per iteration (ops/rmplus.py::operations
 // counts them) on a constant (R, C) block, so at A = 5 and 128 iterations
-// the learner's 327,680 games are ~9.6 GFLOP against ~60 MB of traffic.
+// the learner's 327,680 games are ~8.7 GFLOP against ~60 MB of traffic.
 // What the card can issue bounds it, so the design counts instructions.
 //
-// Design: one thread per game (or RNAD_RMPLUS_GAMES games, interleaved).
-// The payoff block (R and C padded to the template size N, with zero
-// payoffs and zero legality, which adds only exact +0 terms) and the
-// carries stay in registers for the whole loop, so device memory sees one
-// read of M and the masks and one write of x, y and v, whatever `iters` is.
-// Thread b reads element b of every batch-minor row, so each warp's loads
-// and stores are coalesced.  Every sum runs in index order.  The strategy
-// that normalize(qc, lc) gives at the top of an iteration is the one the
-// previous iteration ended with, so it is carried instead of recomputed;
-// likewise normalize(qr, lr).
+// Design: one thread per game.  The payoff block (R and C padded to the
+// template size N, with zero payoffs and zero legality, which adds only
+// exact +0 terms) and the carries stay in registers for the whole loop, so
+// device memory sees one read of M and the masks and one write of x, y and
+// v, whatever `iters` is.  Thread b reads element b of every batch-minor
+// row, so each warp's loads and stores are coalesced.  Every sum runs in
+// index order.  The strategy that normalize(qc, lc) gives at the top of an
+// iteration is the one the previous iteration ended with, so it is carried
+// instead of recomputed; likewise normalize(qr, lr).
 //
-// The instruction count per game-iteration is cut in steps (RNAD_RMPLUS_STEP;
-// PERF.md has each step's SASS count and time):
-//  1. Exact cuts, which rely on the {0, 1} mask contract (ops/rmplus.py):
-//     a regret on an illegal action starts at +0 and its update adds
-//     (u - v) * 0, so it stays +0; normalize's q * legal is therefore q,
-//     and the regret update is one FMA with the mask (q + d * 1 = q + d
-//     and q + d * 0 = q, both exact).  The uniform strategies are the masks
-//     times 1 / count, computed once.
+// The instruction count per game-iteration was cut in three steps (PERF.md
+// has each step's SASS count and time):
+//  1. Exact cuts where a game's masks hold only 0 and 1, as every caller's
+//     do: a regret on an illegal action starts at +0 and its update adds
+//     (u - v) * 0, so it stays +0, and normalize's q * legal is q.  The
+//     regret update is one FMA with the mask (q + d * 1 = q + d and
+//     q + d * 0 = q, both exact).  The uniform strategies are the masks
+//     times 1 / count, computed once.  A game with any other mask value
+//     takes the same loop with normalize's product by the mask kept
+//     (Binary = false), so every mask gets the plain version's function.
 //  2. One IEEE reciprocal per normalization, then N products, instead of N
 //     divisions (changes rounding: ops/rmplus.py holds it to `agreement`).
 //  3. FMA contraction of the utilities, the values and the running averages
@@ -38,16 +39,6 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
-
-#ifndef RNAD_RMPLUS_STEP
-#define RNAD_RMPLUS_STEP 3
-#endif
-#ifndef RNAD_RMPLUS_GAMES
-#define RNAD_RMPLUS_GAMES 1  // games per thread
-#endif
-#ifndef RNAD_RMPLUS_MIN_BLOCKS
-#define RNAD_RMPLUS_MIN_BLOCKS 1  // resident blocks per SM ptxas must allow
-#endif
 
 namespace {
 
@@ -62,63 +53,64 @@ __device__ __forceinline__ float add(float a, float b) {
 __device__ __forceinline__ float sub(float a, float b) {
   return __fsub_rn(a, b);
 }
-// c + a * b: one FMA from step 3 on, a rounded product and sum before
+// c + a * b, rounded once
 __device__ __forceinline__ float madd(float a, float b, float c) {
-#if RNAD_RMPLUS_STEP >= 3
   return __fmaf_rn(a, b, c);
-#else
-  return add(c, mul(a, b));
-#endif
 }
 
 template <int N>
 struct Game {
-  float m[N][N], lr[N], lc[N];  // payoffs and {0, 1} masks, zero-padded
-  float inv_nr, inv_nc;         // 1 / legal count of each seat
+  float m[N][N], lr[N], lc[N];  // payoffs and masks, zero-padded
+  float inv_nr, inv_nc;         // 1 / max(sum of each seat's mask, 1)
   float qr[N], qc[N], xsum[N], ysum[N], x[N], y[N];
 };
 
 // rmplus_core's normalize: q * legal / max(sum, 1e-30) where the sum is
-// positive, else the uniform strategy legal / count.  q is +0 on illegal
-// actions (step 1), so q * legal is q.
-template <int N>
+// positive, else the uniform strategy legal / count.
+template <int N, bool Binary>
 __device__ __forceinline__ void normalize(const float (&q)[N],
                                           const float (&legal)[N],
                                           float inv_n, float (&out)[N]) {
-  float s = q[0];
+  if (Binary) {
+    // q is +0 on illegal actions (step 1), so q * legal is q.  s > 0:
+    // q * (1/d) + legal * 0; else every q is +0 and the sum is
+    // q * (1/d) = +0 plus legal / count: both exact selections
+    float s = q[0];
 #pragma unroll
-  for (int i = 1; i < N; ++i) s = add(s, q[i]);
-  const float d = fmaxf(s, 1e-30f);
-#if RNAD_RMPLUS_STEP >= 2
-  // s > 0: q * (1/d) + legal * 0; else every q is +0 and the sum is
-  // q * (1/d) = +0 plus legal / count: both exact selections
-  const float inv = __frcp_rn(d);
-  const float c = s > 0.f ? 0.f : inv_n;
+    for (int i = 1; i < N; ++i) s = add(s, q[i]);
+    const float inv = __frcp_rn(fmaxf(s, 1e-30f));
+    const float c = s > 0.f ? 0.f : inv_n;
 #pragma unroll
-  for (int i = 0; i < N; ++i) out[i] = __fmaf_rn(legal[i], c, mul(q[i], inv));
-#else
+    for (int i = 0; i < N; ++i) out[i] = __fmaf_rn(legal[i], c, mul(q[i], inv));
+  } else {
+    float ql[N];
 #pragma unroll
-  for (int i = 0; i < N; ++i)
-    out[i] = s > 0.f ? __fdiv_rn(q[i], d) : mul(legal[i], inv_n);
-#endif
+    for (int i = 0; i < N; ++i) ql[i] = mul(q[i], legal[i]);
+    float s = ql[0];
+#pragma unroll
+    for (int i = 1; i < N; ++i) s = add(s, ql[i]);
+    const float inv = __frcp_rn(fmaxf(s, 1e-30f));
+#pragma unroll
+    for (int i = 0; i < N; ++i)
+      out[i] = s > 0.f ? mul(ql[i], inv) : mul(legal[i], inv_n);
+  }
 }
 
+// Loads game b (b < B); returns whether its masks hold only 0 and 1.
 template <int N>
-__device__ __forceinline__ void load(Game<N>& g, const float* __restrict__ M,
+__device__ __forceinline__ bool load(Game<N>& g, const float* __restrict__ M,
                                      const float* __restrict__ lr,
                                      const float* __restrict__ lc, int64_t B,
                                      int64_t b, int R, int C) {
-  const bool in = b < B;
 #pragma unroll
   for (int r = 0; r < N; ++r) {
-    g.lr[r] = in && r < R ? lr[r * B + b] : 0.f;
+    g.lr[r] = r < R ? lr[r * B + b] : 0.f;
 #pragma unroll
     for (int c = 0; c < N; ++c)
-      g.m[r][c] =
-          in && r < R && c < C ? M[((int64_t)r * C + c) * B + b] : 0.f;
+      g.m[r][c] = r < R && c < C ? M[((int64_t)r * C + c) * B + b] : 0.f;
   }
 #pragma unroll
-  for (int c = 0; c < N; ++c) g.lc[c] = in && c < C ? lc[c * B + b] : 0.f;
+  for (int c = 0; c < N; ++c) g.lc[c] = c < C ? lc[c * B + b] : 0.f;
   float nr = g.lr[0], nc = g.lc[0];
 #pragma unroll
   for (int i = 1; i < N; ++i) {
@@ -127,17 +119,21 @@ __device__ __forceinline__ void load(Game<N>& g, const float* __restrict__ M,
   }
   g.inv_nr = __frcp_rn(fmaxf(nr, 1.f));
   g.inv_nc = __frcp_rn(fmaxf(nc, 1.f));
+  bool binary = true;
   // zero regrets normalize to the uniform strategies
 #pragma unroll
   for (int i = 0; i < N; ++i) {
     g.qr[i] = g.qc[i] = g.xsum[i] = g.ysum[i] = 0.f;
     g.x[i] = mul(g.lr[i], g.inv_nr);
     g.y[i] = mul(g.lc[i], g.inv_nc);
+    binary &= (g.lr[i] == 0.f || g.lr[i] == 1.f) &&
+              (g.lc[i] == 0.f || g.lc[i] == 1.f);
   }
+  return binary;
 }
 
 // One alternating iteration with averaging weight w.
-template <int N>
+template <int N, bool Binary>
 __device__ __forceinline__ void iterate(Game<N>& g, float w) {
   // the row seat answers y
   float u[N];
@@ -154,7 +150,7 @@ __device__ __forceinline__ void iterate(Game<N>& g, float w) {
 #pragma unroll
   for (int r = 0; r < N; ++r)
     g.qr[r] = fmaxf(__fmaf_rn(sub(u[r], v), g.lr[r], g.qr[r]), 0.f);
-  normalize(g.qr, g.lr, g.inv_nr, g.x);
+  normalize<N, Binary>(g.qr, g.lr, g.inv_nr, g.x);
   // the column seat answers the row seat's updated x
 #pragma unroll
   for (int c = 0; c < N; ++c) {
@@ -169,7 +165,7 @@ __device__ __forceinline__ void iterate(Game<N>& g, float w) {
 #pragma unroll
   for (int c = 0; c < N; ++c)
     g.qc[c] = fmaxf(__fmaf_rn(sub(u[c], v), g.lc[c], g.qc[c]), 0.f);
-  normalize(g.qc, g.lc, g.inv_nc, g.y);
+  normalize<N, Binary>(g.qc, g.lc, g.inv_nc, g.y);
 #pragma unroll
   for (int i = 0; i < N; ++i) {  // linear averaging
     g.xsum[i] = madd(w, g.x[i], g.xsum[i]);
@@ -177,14 +173,17 @@ __device__ __forceinline__ void iterate(Game<N>& g, float w) {
   }
 }
 
-template <int N>
-__device__ __forceinline__ void finish(Game<N>& g, float* __restrict__ x_out,
-                                       float* __restrict__ y_out,
-                                       float* __restrict__ v_out, int64_t B,
-                                       int64_t b, int R, int C) {
-  if (b >= B) return;
-  normalize(g.xsum, g.lr, g.inv_nr, g.x);
-  normalize(g.ysum, g.lc, g.inv_nc, g.y);
+// The loop, the averages' normalization and the value, written out.
+template <int N, bool Binary>
+__device__ __forceinline__ void solve(Game<N>& g, int iters,
+                                      float* __restrict__ x_out,
+                                      float* __restrict__ y_out,
+                                      float* __restrict__ v_out, int64_t B,
+                                      int64_t b, int R, int C) {
+#pragma unroll 1
+  for (int it = 0; it < iters; ++it) iterate<N, Binary>(g, (float)(it + 1));
+  normalize<N, Binary>(g.xsum, g.lr, g.inv_nr, g.x);
+  normalize<N, Binary>(g.ysum, g.lc, g.inv_nc, g.y);
   float val = mul(mul(g.x[0], g.m[0][0]), g.y[0]);
 #pragma unroll
   for (int r = 0; r < N; ++r)
@@ -200,37 +199,27 @@ __device__ __forceinline__ void finish(Game<N>& g, float* __restrict__ x_out,
   v_out[b] = val;
 }
 
-// Thread t of block k serves games k * G * 128 + t + j * 128, j < G.
-template <int N, int G>
-__global__ void __launch_bounds__(kThreads, RNAD_RMPLUS_MIN_BLOCKS)
+template <int N>
+__global__ void __launch_bounds__(kThreads)
 rmplus_kernel(const float* __restrict__ M, const float* __restrict__ lr,
               const float* __restrict__ lc, float* __restrict__ x_out,
               float* __restrict__ y_out, float* __restrict__ v_out, int64_t B,
               int R, int C, int iters) {
-  const int64_t b0 = (int64_t)blockIdx.x * kThreads * G + threadIdx.x;
-  if (b0 >= B) return;
-  Game<N> g[G];
-#pragma unroll
-  for (int j = 0; j < G; ++j) load(g[j], M, lr, lc, B, b0 + j * kThreads, R, C);
-#pragma unroll 1
-  for (int it = 0; it < iters; ++it) {
-    const float w = (float)(it + 1);
-#pragma unroll
-    for (int j = 0; j < G; ++j) iterate(g[j], w);
-  }
-#pragma unroll
-  for (int j = 0; j < G; ++j)
-    finish(g[j], x_out, y_out, v_out, B, b0 + j * kThreads, R, C);
+  const int64_t b = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  if (b >= B) return;
+  Game<N> g;
+  if (load(g, M, lr, lc, B, b, R, C))
+    solve<N, true>(g, iters, x_out, y_out, v_out, B, b, R, C);
+  else
+    solve<N, false>(g, iters, x_out, y_out, v_out, B, b, R, C);
 }
 
 template <int N>
 cudaError_t launch(const float* M, const float* lr, const float* lc, float* x,
                    float* y, float* v, int64_t B, int R, int C, int iters,
                    cudaStream_t stream) {
-  constexpr int G = RNAD_RMPLUS_GAMES;
-  const int64_t per_block = (int64_t)kThreads * G;
-  const int64_t blocks = (B + per_block - 1) / per_block;
-  rmplus_kernel<N, G><<<(unsigned)blocks, kThreads, 0, stream>>>(
+  const int64_t blocks = (B + kThreads - 1) / kThreads;
+  rmplus_kernel<N><<<(unsigned)blocks, kThreads, 0, stream>>>(
       M, lr, lc, x, y, v, B, R, C, iters);
   return cudaGetLastError();
 }

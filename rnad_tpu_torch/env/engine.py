@@ -117,9 +117,11 @@ def trajectory_observations(packed: stepping.PackedTables, traj: Trajectory
 def uses_fused_turn(net: nn.Module, mode: str = "auto") -> bool:
     """Resolves ``RNaDConfig.rollout_rows_actor`` as ``rnad_tpu``'s
     ``resolve_rows_actor`` does: "auto" takes kernel K1 exactly where it
-    exists (the depth-1 float32 MLP, the only MLP the port builds) and the
-    generic turn for every other net; "off" takes the generic turn; "on"
-    with another net raises ``make_mlp_rows_actor``'s error."""
+    exists (the depth-1 float32 MLP, the only MLP the port builds, on the
+    card at a width whose weights K1 holds in shared memory, or on the CPU)
+    and the generic turn for every other net; "off" takes the generic turn;
+    "on" with another net raises ``make_mlp_rows_actor``'s error, and on
+    the card at too wide an MLP K1 raises."""
     fusable = isinstance(net, nets.MLP)
     if mode == "off":
         return False
@@ -131,7 +133,10 @@ def uses_fused_turn(net: nn.Module, mode: str = "auto") -> bool:
         return True
     if mode != "auto":
         raise ValueError(f"unknown rollout_rows_actor mode {mode!r}")
-    return fusable
+    if not fusable:
+        return False
+    on_card = next(net.parameters()).device.type == "cuda"
+    return not on_card or fused_turn_lib.fits(net.max_actions, 2 * net.width)
 
 
 def generic_turn(packed: stepping.PackedTables, net: nn.Module,

@@ -1,115 +1,28 @@
-"""K1 and K3 on the card, one design step at a time.
+"""What ptxas and the SASS say of the committed K1 and K3.
 
-    python3 -m rnad_tpu_torch.kernel_bench [--parent DIR] [--out FILE]
+    python3 -m rnad_tpu_torch.kernel_bench
 
-Builds ``csrc/rmplus.cu`` once per design step (``-DRNAD_RMPLUS_STEP``,
-``-DRNAD_RMPLUS_GAMES``, ``-DRNAD_RMPLUS_MIN_BLOCKS``: the variants in
-``RMPLUS_VARIANTS``) and ``csrc/fused_turn.cu`` once per warp layout
-(``-DRNAD_FUSED_TURN_ROW_GROUPS``: ``FUSED_TURN_VARIANTS``), and with
-``--parent`` the same two sources of another checkout (an earlier commit,
-unpacked with ``git archive``), whose C entry points take the same
-arguments.  For each library it prints what ptxas reports (registers,
-spills) and counts the SASS instructions of each loop of the A = 5 / A = 3
-kernel (``cuobjdump -sass``), with their FFMA counts: for K3 the iteration
-loop (one iteration of all the games a thread serves), for K1 every loop,
-the k loop among them.  Then it
-times every version at the paths' shapes, in turns (the first version, the
-others, then all again in reverse order), each launch behind a sleep
-kernel and between CUDA events: K3 on 327,680 and 65,536 random A = 5 games
-with random illegal actions (128 iterations), K1 at 32768 lanes of the demo
-tree with width-256 weights.  Each K3 version is held to the plain version
-by ``solver_device.agreement`` and compared with the first version (equal
-results, or the count of games that differ); each K1 version's policy and
-values must lie within 1e-5 of the plain version's, and two launches of the
-committed K1 must be bitwise equal.  Needs a CUDA card; ``--out`` also
-writes the numbers as JSON.
+Builds ``csrc/fused_turn.cu`` and ``csrc/rmplus.cu`` (``ops/_build.py``),
+prints what ptxas reports for each kernel (registers, spills) and counts
+the SASS instructions of every loop of the kernels at the paths' sizes,
+``fused_turn_kernel<3>`` and ``rmplus_kernel<5>`` (``cuobjdump -sass``),
+with their FFMA counts.  K3 has two iteration loops, one for games whose
+masks hold only 0 and 1 and one for any other mask; K1's k loop is the one
+with the most FFMA.  Needs the CUDA toolkit; the kernels' times are
+``chip_smoke.py``'s.
 """
 
 from __future__ import annotations
 
-import argparse
-import json
 import re
 import shutil
 import subprocess
-import time
-from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
-import torch
+from .ops import _build
 
-from .config import ShapingRule, TreeConfig
-from .env import engine, solver_device
-from .env import tree as tree_lib
-from .models import nets
-from .ops import _build, stepping
-from .ops import fused_turn as fused_turn_lib
-from .ops import rmplus as rmplus_lib
-
-RM_ITERS = 128
-RM_GAMES = (327680, 65536)  # the learner's solve, one rollout turn's
-B_TURN = 32768
-# (label, -D defines) of each K3 design step; "" is the committed default
-RMPLUS_VARIANTS = (
-    ("step 1: exact cuts", ("RNAD_RMPLUS_STEP=1",)),
-    ("step 2: + reciprocal", ("RNAD_RMPLUS_STEP=2",)),
-    ("step 3: + FMA", ("RNAD_RMPLUS_STEP=3",)),
-    ("step 3, <= 80 registers", ("RNAD_RMPLUS_STEP=3",
-                                 "RNAD_RMPLUS_MIN_BLOCKS=6")),
-    ("step 3, <= 64 registers", ("RNAD_RMPLUS_STEP=3",
-                                 "RNAD_RMPLUS_MIN_BLOCKS=8")),
-    ("step 3, 2 games a thread", ("RNAD_RMPLUS_STEP=3",
-                                  "RNAD_RMPLUS_GAMES=2")),
-    ("committed", ()),
-)
-# the same for K1's warp layout (row groups x unit groups of a warp's lanes)
-FUSED_TURN_VARIANTS = (
-    ("1 x 32 lane groups", ("RNAD_FUSED_TURN_ROW_GROUPS=1",)),
-    ("2 x 16 lane groups", ("RNAD_FUSED_TURN_ROW_GROUPS=2",)),
-    ("8 x 4 lane groups", ("RNAD_FUSED_TURN_ROW_GROUPS=8",)),
-    ("committed", ()),
-)
-
-
-def device_ms(fn, iters: int = 20) -> float:
-    """Device time of one ``fn()`` in ms, the mean over ``iters`` calls
-    after a warm-up.  Each call is queued behind a sleep kernel longer than
-    its enqueue, and CUDA events on either side time it on the device, so
-    the host's launch overhead does not show (a kernel's own time, or the
-    busy time of a function of many kernels)."""
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    fn()
-    host_s = time.perf_counter() - t0
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    total = 0.0
-    for _ in range(iters):
-        # ~2 GHz SM clock: sleep twice the enqueue time, plus a millisecond
-        torch.cuda._sleep(int((2 * host_s + 1e-3) * 2e9))
-        start.record()
-        fn()
-        end.record()
-        torch.cuda.synchronize()
-        total += start.elapsed_time(end)
-    return total / iters
-
-
-def ptxas_lines(log: str):
-    """(kernel, report) pairs of ptxas -v's registers and spills lines."""
-    out, entry = [], "?"
-    for line in log.splitlines():
-        if "Compiling entry function" in line:
-            found = re.search(r"\d+([A-Za-z_]+_kernel)(?:ILi(\d+)E)?", line)
-            entry = (f"{found.group(1)}<{found.group(2)}>"
-                     if found and found.group(2) else
-                     found.group(1) if found else "?")
-        elif "registers" in line or "spill" in line:
-            out.append((entry, line.strip()))
-    return out
+KERNELS = (("fused_turn", "fused_turn_kernelILi3E", "fused_turn_kernel<3>"),
+           ("rmplus", "rmplus_kernelILi5E", "rmplus_kernel<5>"))
 
 
 def _cuobjdump() -> str:
@@ -119,7 +32,7 @@ def _cuobjdump() -> str:
 
 def sass_loops(lib_path: Path, mangled_part: str):
     """Loops of the one function whose mangled name holds ``mangled_part``:
-    a list of (instructions, FFMA) per backward branch, innermost first."""
+    a sorted list of (instructions, FFMA), one per backward branch."""
     text = subprocess.run([_cuobjdump(), "-sass", str(lib_path)],
                           capture_output=True, text=True, check=True).stdout
     body, inside = [], False
@@ -144,230 +57,14 @@ def sass_loops(lib_path: Path, mangled_part: str):
     return sorted(set(loops))
 
 
-def _rmplus_call(fn):
-    def call(M, lr, lc, iters):
-        R, C, B = M.shape
-        x = torch.empty((R, B), device=M.device)
-        y = torch.empty((C, B), device=M.device)
-        v = torch.empty((B,), device=M.device)
-        err = fn(M.data_ptr(), lr.data_ptr(), lc.data_ptr(), x.data_ptr(),
-                 y.data_ptr(), v.data_ptr(), B, R, C, iters,
-                 torch.cuda.current_stream().cuda_stream)
-        if err:
-            raise RuntimeError(f"rnad_rmplus: CUDA error {err}")
-        return x, y, v
-    return call
-
-
-def _turn_call(fn):
-    def call(table, w0, b0, w1, b1, idx, g_act, g_ch, A, T):
-        B = idx.shape[0]
-        dev = table.device
-        outs = (torch.empty((B,), dtype=torch.int32, device=dev),
-                torch.empty((2, B, A), device=dev),
-                torch.empty((2, B), dtype=torch.int32, device=dev),
-                torch.empty((B,), device=dev), torch.empty((2, B), device=dev))
-        err = fn(table.data_ptr(), table.shape[0], table.shape[1],
-                 idx.data_ptr(), w0.data_ptr(), b0.data_ptr(), w1.data_ptr(),
-                 b1.data_ptr(), g_act.data_ptr(), g_ch.data_ptr(),
-                 *(t.data_ptr() for t in outs), B, A, T, w0.shape[1],
-                 torch.cuda.current_stream().cuda_stream)
-        if err:
-            raise RuntimeError(f"rnad_fused_turn: CUDA error {err}")
-        return outs
-    return call
-
-
-def random_games(B: int, A: int, gen):
-    """Batch-major random A x A games in [-1, 1) with random illegal rows
-    and columns (action 0 always legal), illegal cells zeroed."""
-    dev = gen.device
-    lr = (torch.rand((B, A), generator=gen, device=dev) > 0.2).float()
-    lc = (torch.rand((B, A), generator=gen, device=dev) > 0.2).float()
-    lr[:, 0] = 1.0
-    lc[:, 0] = 1.0
-    M = torch.rand((B, A, A), generator=gen, device=dev) * 2 - 1
-    return M * lr[:, :, None] * lc[:, None, :], lr, lc
-
-
-def _in_turns(fns, iters=20):
-    """Times each fn twice, in order and then in reverse; mean of both."""
-    times = {k: [] for k in fns}
-    for order in (list(fns), list(fns)[::-1]):
-        for k in order:
-            times[k].append(device_ms(fns[k], iters))
-    return {k: sum(v) / len(v) for k, v in times.items()}, times
-
-
 def main() -> None:
-    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--parent", type=Path, default=None,
-                        help="checkout of an earlier commit to compare with")
-    parser.add_argument("--out", type=Path, default=None,
-                        help="write the numbers as JSON here")
-    args = parser.parse_args()
-    if not torch.cuda.is_available():
-        raise SystemExit("kernel_bench needs a CUDA card")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True, timeout=60, check=True).stdout.strip()
-    print(f"card: {card}", flush=True)
-    dev = torch.device("cuda", 0)
-    result = {"card": card, "rmplus": {}, "fused_turn": {}}
-
-    # -- build every version at once ---------------------------------------
-    builds = [("rmplus", label, d, _build.SRC_DIR)
-              for label, d in RMPLUS_VARIANTS]
-    builds += [("fused_turn", label, d, _build.SRC_DIR)
-               for label, d in FUSED_TURN_VARIANTS]
-    if args.parent:
-        src = args.parent / "rnad_tpu_torch" / "csrc"
-        builds += [("rmplus", "parent", (), src),
-                   ("fused_turn", "parent", (), src)]
-    t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(builds)) as pool:  # one nvcc each, at once
-        list(pool.map(lambda b: _build.build([b[0]], b[2], b[3]), builds))
-    print(f"built {len(builds)} libraries in {time.perf_counter() - t0:.1f} "
-          "s", flush=True)
-
-    rm_fns, turn_fns = {}, {}
-    for name, label, defines, src in builds:
-        path = _build.library_path(name, defines, src)
-        lib = _build.load(name, defines, src)
-        # the kernel at the paths' size: K3 at N = 5, K1 at A = 3 (the
-        # parent's K1 was not a template)
-        part, kernel = (("rmplus_kernelILi5E", "rmplus_kernel<5>")
-                        if name == "rmplus" else
-                        ("fused_turn_kernelILi3E", "fused_turn_kernel<3>"))
-        if name == "fused_turn" and label == "parent":
-            part = kernel = "fused_turn_kernel"
-        loops = sass_loops(path, part)
-        regs = [r for k, r in ptxas_lines(_build.build_logs.get(path.name,
-                                                                ""))
+    _build.build([name for name, _, _ in KERNELS])
+    for name, part, kernel in KERNELS:
+        path = _build.library_path(name)
+        regs = [r for k, r in _build.ptxas_lines(_build.build_log(name))
                 if k == kernel]
-        games = 2 if "RNAD_RMPLUS_GAMES=2" in defines else 1
-        entry = {"defines": list(defines), "ptxas": regs,
-                 "sass_loops": loops, "games_per_thread": games}
-        result[name][label] = entry
-        print(f"{name} [{label}] {' '.join(defines)}: ptxas {regs}; SASS "
-              f"loops (instructions, FFMA) {loops}", flush=True)
-        if name == "rmplus":
-            rm_fns[label] = _rmplus_call(_build.bind(
-                lib, "rnad_rmplus", rmplus_lib.ARGTYPES))
-        else:
-            turn_fns[label] = _turn_call(_build.bind(
-                lib, "rnad_fused_turn", fused_turn_lib.ARGTYPES))
-
-    # -- K3 -----------------------------------------------------------------
-    gen = torch.Generator(device=dev).manual_seed(0)
-    first = "parent" if "parent" in rm_fns else RMPLUS_VARIANTS[0][0]
-    labels = [first] + [k for k in rm_fns if k != first]
-    for n in RM_GAMES:
-        Mz, lr, lc = random_games(n, 5, gen)
-        margs = (Mz.permute(1, 2, 0).contiguous(), lr.t().contiguous(),
-                 lc.t().contiguous(), RM_ITERS)
-        want = rmplus_lib.rmplus_plain(*margs)
-        ref = rm_fns[first](*margs)
-        for label in labels:
-            got = rm_fns[label](*margs)
-            torch.cuda.synchronize()
-            res = solver_device.agreement(
-                Mz, lr, lc, [t.t() for t in got[:2]],
-                [t.t() for t in want[:2]], got[2], want[2])
-            differ = torch.zeros((n,), dtype=torch.bool, device=dev)
-            for g, r in zip(got, ref):
-                differ |= (g != r).reshape(-1, n).any(0)
-            e = result["rmplus"][label].setdefault(str(n), {})
-            e.update(diverged_vs_plain=res.diverged, ok=res.ok,
-                     games_differing_from_first=int(differ.sum()),
-                     max_abs_err=res.max_abs_err)
-            print(f"K3 [{label}] {n} games: vs plain {res.diverged} diverged"
-                  f" (ok {res.ok}), max_abs_err {res.max_abs_err:.3g}; "
-                  f"{int(differ.sum())} games differ from [{first}]",
-                  flush=True)
-            if not res.ok:
-                raise SystemExit(f"K3 [{label}] fails agreement: {res}")
-        ms, runs = _in_turns({k: (lambda f=rm_fns[k]: f(*margs))
-                              for k in labels})
-        ops = rmplus_lib.operations(5, 5, RM_ITERS) * n
-        bound = max(ops / 67e12, rmplus_lib.io_bytes(5, 5, n) / 3.35e12) * 1e3
-        for label in labels:
-            result["rmplus"][label][str(n)].update(ms=ms[label],
-                                                   runs=runs[label],
-                                                   bound_ms=bound)
-            print(f"K3 [{label}] {n} games: {ms[label]:.4f} ms (runs "
-                  + "/".join(f"{r:.4f}" for r in runs[label])
-                  + f"), bound {bound:.4f} ms, {100 * bound / ms[label]:.1f}"
-                  f" % of it | {card}", flush=True)
-
-    # -- K1 -----------------------------------------------------------------
-    cfg = TreeConfig(max_actions=3, max_transitions=2,
-                     transition_threshold=0.3, depth_bound=4,
-                     depth_bound_rule=ShapingRule(-1, -2, 0.5))
-    tree = tree_lib.generate_tree(cfg, seed=0, device=dev)
-    packed = stepping.make_packed_tables(tree)
-    A, T = tree.max_actions, tree.max_transitions
-    net = nets.MLP(A, 256, generator=torch.Generator().manual_seed(1)).to(dev)
-    weights = [w.detach().contiguous() for w in nets.mlp_fused_weights(net)]
-    idx = torch.randint(0, tree.size, (B_TURN,), generator=gen, device=dev,
-                        dtype=torch.int32)
-    g_act, g_ch = engine.turn_noise(B_TURN, A, T, gen, dev)
-    targs = [packed.rows, *weights, idx, g_act, g_ch]
-    want = fused_turn_lib.fused_turn_plain(*targs, A=A, T=T)
-    ref = turn_fns["committed"](*targs, A, T)
-    again = turn_fns["committed"](*targs, A, T)
-    torch.cuda.synchronize()
-    if not all(torch.equal(a, b) for a, b in zip(ref, again)):
-        raise SystemExit("K1: two launches on the same inputs differ")
-    tlabels = ["parent"] if "parent" in turn_fns else []
-    tlabels += [label for label, _ in FUSED_TURN_VARIANTS]
-    for label in tlabels:
-        got = turn_fns[label](*targs, A, T)
-        torch.cuda.synchronize()
-        err = max(float((got[i] - want[i]).abs().max()) for i in (1, 4))
-        flips = int((got[2] != want[2]).any(0).sum())
-        result["fused_turn"][label].update(max_abs_err=err,
-                                           flipped_lanes=flips)
-        print(f"K1 [{label}]: policy/values max_abs_err {err:.3g}, "
-              f"{flips} lanes with a flipped action", flush=True)
-        if not err <= 1e-5:
-            raise SystemExit(f"K1 [{label}] differs from plain by {err}")
-    ms, runs = _in_turns({k: (lambda f=turn_fns[k]: f(*targs, A, T))
-                          for k in tlabels})
-    H, din = weights[0].shape[1], 2 * A * A
-    bound = 2.0 * 2 * B_TURN * (din * H + H * (A + 1)) / 67e12 * 1e3
-    for label in tlabels:
-        result["fused_turn"][label].update(ms=ms[label], runs=runs[label],
-                                           bound_ms=bound)
-        print(f"K1 [{label}] {B_TURN} lanes: {ms[label]:.4f} ms (runs "
-              + "/".join(f"{r:.4f}" for r in runs[label])
-              + f"), bound {bound:.4f} ms, {100 * bound / ms[label]:.1f} % "
-              f"of it | {card}", flush=True)
-
-    # the committed K1 with 1, 2 and 4 tiles of 32 lanes a resident block
-    # (two a SM): the slope is a tile's time, the rest the launch and the
-    # weights' load
-    blocks = 2 * torch.cuda.get_device_properties(dev).multi_processor_count
-    per_tiles = {}
-    for n in (1, 2, 4):
-        B = blocks * fused_turn_lib.TILE_LANES * n
-        ids = torch.randint(0, tree.size, (B,), generator=gen, device=dev,
-                            dtype=torch.int32)
-        ga, gc = engine.turn_noise(B, A, T, gen, dev)
-        per_tiles[n] = device_ms(lambda: fused_turn_lib.fused_turn(
-            packed.rows, *weights, ids, ga, gc, A=A, T=T))
-    tile_ms = (per_tiles[4] - per_tiles[1]) / 3
-    result["fused_turn"]["committed"]["tiles_per_block_ms"] = per_tiles
-    print(f"K1 [committed] at 1/2/4 tiles a block ({blocks} blocks): "
-          + "/".join(f"{per_tiles[n]:.4f}" for n in (1, 2, 4))
-          + f" ms: {tile_ms * 1e3:.2f} us a tile, "
-          f"{(per_tiles[1] - tile_ms) * 1e3:.2f} us besides", flush=True)
-
-    if args.out:
-        args.out.parent.mkdir(parents=True, exist_ok=True)
-        args.out.write_text(json.dumps(result, indent=1))
-        print(f"wrote {args.out}", flush=True)
+        print(f"{kernel}: ptxas {regs}; SASS loops (instructions, FFMA) "
+              f"{sass_loops(path, part)}", flush=True)
 
 
 if __name__ == "__main__":

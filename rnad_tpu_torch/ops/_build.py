@@ -3,9 +3,8 @@
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 for Hopper (``sm_90a``) into its own shared library under
 ``rnad_tpu_torch/_build/`` (git-ignored), then loaded with ``ctypes``.  The
-library's file name carries a hash of its source and of any ``-D`` defines,
-so an edited source is rebuilt at its next use and a stale one is never
-loaded.  Nothing is built when a module is imported: the wrappers call
+library's file name carries a hash of its source, so an edited source is
+rebuilt at its next use and a stale one is never loaded.  Nothing is built when a module is imported: the wrappers call
 :func:`entry` at their first launch, and :func:`build` compiles several
 sources at once (one ``nvcc`` process each, started together).  A failed
 build raises.
@@ -17,6 +16,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -29,8 +29,6 @@ BUILD_DIR = _PKG / "_build"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
-# ptxas resource report of each library built by this process, by file name
-build_logs: Dict[str, str] = {}
 
 
 def _nvcc() -> str:
@@ -45,33 +43,27 @@ def _nvcc() -> str:
     return path
 
 
-def library_path(name: str, defines: Sequence[str] = (),
-                 src_dir: Path = SRC_DIR) -> Path:
-    """Where ``<src_dir>/<name>.cu`` built with ``-D<define>`` each lives."""
-    digest = hashlib.sha256(Path(src_dir, f"{name}.cu").read_bytes())
-    for d in defines:
-        digest.update(b"\0" + d.encode())
+def library_path(name: str) -> Path:
+    """Where the library of ``csrc/<name>.cu`` lives."""
+    digest = hashlib.sha256((SRC_DIR / f"{name}.cu").read_bytes())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
-def build(names: Sequence[str], defines: Sequence[str] = (),
-          src_dir: Path = SRC_DIR) -> Dict[str, float]:
+def build(names: Sequence[str]) -> Dict[str, float]:
     """Compiles every named source whose library is missing, all in
-    parallel, with ``-D<define>`` for each of ``defines``.  Returns the
-    seconds each build took (0.0 if cached); ``build_logs`` keeps what
-    ptxas reported."""
+    parallel.  Returns the seconds each build took (0.0 if cached); what
+    nvcc and ptxas reported is kept beside each library (``build_log``)."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     start = time.perf_counter()
     for name in names:
-        out = library_path(name, defines, src_dir)
+        out = library_path(name)
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         cmd = [_nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
                "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo",
-               *(f"-D{d}" for d in defines),
-               "-o", str(tmp), str(Path(src_dir, f"{name}.cu"))]
+               "-o", str(tmp), str(SRC_DIR / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, out)
@@ -80,7 +72,7 @@ def build(names: Sequence[str], defines: Sequence[str] = (),
     for name, (proc, tmp, out) in procs.items():
         log, _ = proc.communicate()
         seconds[name] = time.perf_counter() - start
-        build_logs[out.name] = log
+        out.with_suffix(".log").write_text(log)
         if proc.returncode != 0:
             failures.append(f"nvcc failed for {name}.cu:\n{log}")
             continue
@@ -90,14 +82,35 @@ def build(names: Sequence[str], defines: Sequence[str] = (),
     return seconds
 
 
-def load(name: str, defines: Sequence[str] = (),
-         src_dir: Path = SRC_DIR) -> ctypes.CDLL:
-    """The loaded library of ``<src_dir>/<name>.cu``, built first if
-    needed."""
-    path = str(library_path(name, defines, src_dir))
+def build_log(name: str) -> str:
+    """What nvcc and ptxas reported when the library of ``csrc/<name>.cu``
+    was built ("" if it has not been)."""
+    path = library_path(name).with_suffix(".log")
+    return path.read_text() if path.exists() else ""
+
+
+def ptxas_lines(log: str):
+    """(kernel, report) pairs of the registers and spills lines that
+    ``ptxas -v`` wrote to a build log, e.g. ("rmplus_kernel<5>", "Used 84
+    registers, ...")."""
+    out, kernel = [], "?"
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            found = re.search(r"\d+([A-Za-z_]+_kernel)(?:ILi(\d+)E)?", line)
+            kernel = (f"{found.group(1)}<{found.group(2)}>"
+                      if found and found.group(2) else
+                      found.group(1) if found else "?")
+        elif "registers" in line or "spill" in line:
+            out.append((kernel, line.strip()))
+    return out
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+    path = str(library_path(name))
     lib = _loaded.get(path)
     if lib is None:
-        build([name], defines, src_dir)
+        build([name])
         lib = ctypes.CDLL(path)
         _loaded[path] = lib
     return lib

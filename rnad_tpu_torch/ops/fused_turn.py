@@ -71,6 +71,31 @@ def fused_turn_plain(table, w0, b0, w1, b1, indices, g_act, g_chance, *,
             values.reshape(2, B))
 
 
+def operations(A: int, H: int) -> int:
+    """Arithmetic operations one (lane, seat) row needs, an FMA counting
+    two: the first layer (din * H) and the second, whose fused W1 is
+    block-diagonal (``nets.mlp_fused_weights``): the policy half's W units
+    feed the A logits and the value half's the value, W * (A + 1) in all.
+    The kernel also multiplies the zeros, as the TPU kernel does; the bound
+    counts only what the function needs.  The epilogue's few dozen
+    operations are left out."""
+    return 2 * (2 * A * A * H + H // 2 * (A + 1))
+
+
+def smem_bytes(A: int, H: int) -> int:
+    """Shared memory the kernel's layout takes at (A, H); builds the
+    library on first use (the card's machine only)."""
+    return _build.entry("fused_turn", "rnad_fused_turn_smem_bytes",
+                        (ctypes.c_int32,) * 2, ctypes.c_size_t)(A, H)
+
+
+def fits(A: int, H: int) -> bool:
+    """Whether the kernel takes hidden width H (2W) at A actions: its
+    weights, zero-padded to 64 units, and a tile's staged inputs fit in
+    one block's shared memory."""
+    return smem_bytes(A, H) <= SMEM_LIMIT_BYTES
+
+
 def _check_args(table, w0, b0, w1, b1, indices, g_act, g_chance, A, T):
     B = indices.shape[0]
     din = 2 * A * A
@@ -118,11 +143,9 @@ def fused_turn(table: torch.Tensor, w0: torch.Tensor, b0: torch.Tensor,
     if table.device.type != "cuda":
         raise ValueError(f"fused_turn runs on cuda or cpu, not {table.device}")
     H = w0.shape[1]
-    need = _build.entry("fused_turn", "rnad_fused_turn_smem_bytes",
-                        (ctypes.c_int32,) * 2, ctypes.c_size_t)(A, H)
-    if need > SMEM_LIMIT_BYTES:
+    if not fits(A, H):
         raise ValueError(f"fused_turn keeps the weights in shared memory: "
-                         f"{need} bytes at A={A}, 2W={H} exceed "
+                         f"{smem_bytes(A, H)} bytes at A={A}, 2W={H} exceed "
                          f"{SMEM_LIMIT_BYTES}")
     fn = _build.entry("fused_turn", "rnad_fused_turn", ARGTYPES)
     S, D = table.shape

@@ -69,16 +69,18 @@ def rmplus_plain(M: torch.Tensor, lr: torch.Tensor, lc: torch.Tensor,
 
 
 def operations(R: int, C: int, iters: int) -> int:
-    """Arithmetic operations of one game's solve, as the kernel does them
-    (a product, a sum, a division, a max or a select counts one).
+    """Arithmetic operations one game's solve needs when its masks hold
+    only 0 and 1, as every caller's do (a product, a sum, a division, a max
+    or a select counts one).  The products by the mask are then exact
+    no-ops, which the kernel skips, so they are not counted.
 
     Per iteration: both seats' utilities (2RC each, and C negations) and
-    values (2R, 2C), the regret updates (4R, 4C), two normalizations
-    (4R + 1, 4C + 1: product, sum, division and select per action, one
-    max), the weight (1) and the two running averages (2R, 2C).  After the
-    loop: two normalizations and the value (3RC)."""
-    per_iter = 4 * R * C + 12 * R + 13 * C + 3
-    return iters * per_iter + 4 * (R + C) + 2 + 3 * R * C
+    values (2R, 2C), the regret updates (3R, 3C: difference, sum, clip),
+    two normalizations (3R + 1, 3C + 1: sum, division and select per
+    action, one max), the weight (1) and the two running averages (2R,
+    2C).  After the loop: two normalizations and the value (3RC)."""
+    per_iter = 4 * R * C + 10 * R + 11 * C + 3
+    return iters * per_iter + 3 * (R + C) + 2 + 3 * R * C
 
 
 def io_bytes(R: int, C: int, B: int) -> int:
@@ -115,13 +117,15 @@ def rmplus(M: torch.Tensor, lr: torch.Tensor, lc: torch.Tensor,
     """Batch-minor RM+: M (R, C, B) with illegal cells zeroed, lr (R, B),
     lc (C, B) -> (x (R, B), y (C, B), v (B,)).
 
-    The masks hold only 0.0 and 1.0, as every caller builds them (the
-    ``amax`` of a 0/1 legality channel).  The kernel relies on it: a regret
-    on an illegal action then stays exactly +0, so it skips the plain
-    version's products by the mask (csrc/rmplus.cu, step 1).  It also takes
-    one reciprocal per normalization and contracts products into FMAs, so
-    its rounding differs from the plain version's; ``solver_device.
-    agreement`` is the criterion the two are held to."""
+    Every caller's masks hold only 0.0 and 1.0 (the ``amax`` of a 0/1
+    legality channel).  For such a game the kernel skips the plain
+    version's products by the mask, which are then exact no-ops (a regret
+    on an illegal action stays +0); a game with any other mask value keeps
+    them, so every mask gets the plain version's function
+    (csrc/rmplus.cu, step 1).  The kernel also takes one reciprocal per
+    normalization and contracts products into FMAs, so its rounding
+    differs from the plain version's; ``solver_device.agreement`` is the
+    criterion the two are held to."""
     _check_args(M, lr, lc, iters)
     if M.device.type == "cpu":
         return rmplus_plain(M, lr, lc, iters)

@@ -102,7 +102,9 @@ TILE = fused_turn_lib.TILE_LANES
     (3, 2, 32, 256), (3, 2, 256, 4099), (4, 3, 64, 1000), (2, 1, 8, 33),
     # the MLP path's shape, and the ragged edges of a block's tile of lanes
     (3, 2, 256, 32768), (3, 2, 256, TILE - 1), (3, 2, 256, TILE),
-    (3, 2, 256, TILE + 1), (8, 8, 16, 2 * TILE + 1)])
+    (3, 2, 256, TILE + 1), (8, 8, 16, 2 * TILE + 1),
+    # the widest K1 holds at A = 8 and a wide one at A = 5
+    (8, 8, 128, 1000), (5, 2, 384, 1000)])
 def test_fused_turn_kernel_vs_plain(dev, A, T, width, B):
     tree = _tree(dev, A=A, T=T)
     args = _turn_args(dev, tree, width, B, seed=A * 100 + width)
@@ -137,6 +139,43 @@ def test_fused_turn_kernel_is_deterministic(dev):
     torch.cuda.synchronize()
     for a, b in zip(first, second):
         assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_fused_turn_kernel_widths_in_any_order(dev):
+    """Wide, then a width no other test takes, then wide again at the same
+    A in one process: the shared-memory attribute belongs to the kernel of
+    that A, and a narrow launch must not leave it too small for a wide
+    one."""
+    tree = _tree(dev)
+    for width in (256, 40, 256):
+        args = _turn_args(dev, tree, width, 1000, seed=width)
+        got = fused_turn_lib.fused_turn(*args, A=3, T=2)
+        want = fused_turn_lib.fused_turn_plain(*args, A=3, T=2)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got[4], want[4], rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_mlp_too_wide_for_k1_takes_the_generic_turn(dev):
+    """"auto" rolls an MLP whose weights K1 cannot hold in shared memory
+    out through the generic turn (K2 and the net's own forward); "on"
+    raises K1's error."""
+    tree = _tree(dev, A=8, T=2)
+    packed = stepping.make_packed_tables(tree)
+    net = nets.MLP(8, 192, generator=torch.Generator().manual_seed(0))
+    net = net.to(dev)
+    assert fused_turn_lib.fits(8, 256) and not fused_turn_lib.fits(8, 384)
+    assert not engine.uses_fused_turn(net, "auto")
+    init = torch.ones((512,), dtype=torch.int32, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    before = fused_turn_lib.fused_turn.launches
+    traj = engine.rollout_from(tree, packed, net, init, generator=gen)
+    assert fused_turn_lib.fused_turn.launches == before
+    assert torch.isfinite(traj.values).all()
+    with pytest.raises(ValueError, match="shared memory"):
+        engine.rollout_from(tree, packed, net, init, generator=gen,
+                            rows_actor="on")
 
 
 @pytest.mark.cuda
@@ -218,6 +257,23 @@ def test_rmplus_kernel_on_observed_tree_games(dev):
     lr, lc = legal.amax(2), legal.amax(1)
     assert obs.shape[0] == 65536
     _check_rmplus(obs[:, 0] * lr[:, :, None] * lc[:, None, :], lr, lc, 128)
+
+
+@pytest.mark.cuda
+def test_rmplus_kernel_takes_any_mask(dev):
+    """Masks with values between 0 and 1 on every third game, so warps mix
+    games of both kinds: the kernel keeps the products by the mask there
+    and agrees with the plain version.  RM+ does not converge under such
+    masks and two float32 orders part on more games the longer it runs,
+    so the check runs 16 iterations
+    (tests/test_torch_rmplus.py::test_plain_handles_masks_other_than_zero_one)."""
+    M, lr, lc = _random_games(dev, 65536, 5, 5, seed=13)
+    gen = torch.Generator(device=dev).manual_seed(14)
+    soft = torch.arange(65536, device=dev) % 3 == 0
+    scale = lambda m: torch.where(
+        soft[:, None], m * (0.25 + 0.75 * torch.rand(m.shape, generator=gen,
+                                                     device=dev)), m)
+    _check_rmplus(M, scale(lr), scale(lc), 16)
 
 
 @pytest.mark.cuda

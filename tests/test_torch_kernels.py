@@ -125,3 +125,14 @@ def test_wrappers_reject_what_the_kernels_do_not_take(turn_inputs):
             torch.zeros((8, 10)), torch.zeros(10),
             torch.zeros(4, dtype=torch.int32), torch.zeros((8, 9)),
             torch.zeros((4, T)), A=9, T=T)
+
+
+@pytest.mark.parametrize("A,W", [(3, 256), (5, 384), (8, 128)])
+def test_fused_turn_operation_count(A, W):
+    """The count K1's bound uses: an FMA (two operations) for each W0 entry
+    and each entry of the fused W1 that is not a block-diagonal zero."""
+    net = torch_nets.MLP(A, W, generator=torch.Generator().manual_seed(0))
+    w0, _, w1, _ = torch_nets.mlp_fused_weights(net)
+    assert fused_turn_lib.operations(A, 2 * W) == 2 * (
+        w0.numel() + int((w1 != 0).sum()))
+    assert fused_turn_lib.operations(3, 512) == 2 * 10240

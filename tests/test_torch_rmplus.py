@@ -224,7 +224,31 @@ def test_masks_are_zero_one_and_illegal_regrets_stay_zero(small_tree,
 
 
 def test_operation_count():
-    """The count the bound uses: 4RC + 12R + 13C + 3 per iteration."""
+    """The count the bound uses: 4RC + 10R + 11C + 3 per iteration, the
+    products by a {0, 1} mask left out."""
     assert rmplus_lib.operations(5, 5, 1) - rmplus_lib.operations(5, 5, 0) \
-        == 228
+        == 208
+    assert rmplus_lib.operations(5, 5, 128) == 128 * 208 + 30 + 2 + 75
     assert rmplus_lib.io_bytes(5, 5, 327680) == 4 * 327680 * 46
+
+
+def test_plain_handles_masks_other_than_zero_one():
+    """``rmplus`` takes any mask: with values between 0 and 1 the products
+    by the mask count, and the plain version computes rnad_tpu's
+    ``rmplus_core`` (kernel K3 keeps those products for such games).  RM+
+    does not converge under such masks, and two float32 orders part on a
+    growing share of games as the iterations go on (4 % at 32), so the
+    check runs 16 iterations."""
+    M, lr, lc = _random_games(9, 400, 5, 5)
+    rng = np.random.default_rng(10)
+    lr = (lr * rng.choice([0.25, 0.5, 1.0], lr.shape)).astype(np.float32)
+    lc = (lc * rng.choice([0.25, 0.5, 1.0], lc.shape)).astype(np.float32)
+    assert ((lr > 0) & (lr < 1)).any() and ((lc > 0) & (lc < 1)).any()
+    Mz = np.ascontiguousarray(M.transpose(1, 2, 0))
+    lrm, lcm = np.ascontiguousarray(lr.T), np.ascontiguousarray(lc.T)
+    want = jax_sd.rmplus_core(jnp.asarray(Mz), jnp.asarray(lrm),
+                              jnp.asarray(lcm), 16)
+    x, y, v = rmplus_lib.rmplus(torch.from_numpy(Mz), torch.from_numpy(lrm),
+                                torch.from_numpy(lcm), 16)
+    wx, wy, wv = (np.asarray(a) for a in want)
+    _assert_agree(M, lr, lc, (x.t(), y.t(), v), (wx.T, wy.T, wv))

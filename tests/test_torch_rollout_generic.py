@@ -98,6 +98,8 @@ def test_route_resolution(small_tree):
     assert not torch_engine.uses_fused_turn(mlp, "off")
     assert not torch_engine.uses_fused_turn(equi, "auto")
     assert not torch_engine.uses_fused_turn(equi, "off")
+    # on the CPU the fused turn is its plain version, at any width
+    assert torch_engine.uses_fused_turn(torch_nets.MLP(8, 512), "auto")
     with pytest.raises(ValueError, match="unknown rollout_rows_actor"):
         torch_engine.uses_fused_turn(mlp, "sometimes")
 
