@@ -36,21 +36,40 @@ Four phases, and any failure exits nonzero:
    one K3 launch per chunk of each chunked NashConv eval.  The same checks
    and throughput as phase 3, the peak device memory, and one step at 256
    lanes on the card against the CPU.
+5. Drive the flagship path through the train CLI, ``rnad_tpu_torch.train.
+   main``: flagship-3 of docs/SCALE.md (``docs/runs/r4-flagship3.params.
+   json``), the bfloat16 solver-primed EquiNet (64 channels, depth 2, 128
+   RM+ iterations) at 32768 lanes on the native generator's 785,768-node
+   A = 5 depth-6 tree, cut to 20 steps and 2 evals (the cuts are printed).
+   Checks the tree's size, depth and hash; per step 7 launches each of K2
+   and K3 and none of K1, and one K3 launch per eval chunk; the step-0
+   NashConv of checkpoint (0, 0) within 3.1e-4 of ``rnad_tpu``'s
+   0.0154796; finite metrics, ``best.ckpt`` and ``metrics.jsonl`` written,
+   ``best.json`` holding the lowest eval; a second ``main`` with the same
+   name resuming at checkpoint (1, 5) and ending on the same weights,
+   bitwise; one bfloat16 step at 256 lanes on the card against the CPU.
+   Holds K2 and K3 against their plain versions at the path's learner
+   shapes and times them; prints updates/s, device-busy ms a step, peak
+   memory, the eval's wall time and the tree's generation time.
 
-It prints a ``{"kernels": [...]}`` line, the card's name and power limit,
-and last ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
-without the rest of the repository beside it, it exits nonzero before
-printing any result.  TF32 is off for matmuls and cuDNN throughout.
+It runs in a temporary working directory (the CLI writes ``saved_trees/``
+and ``saved_runs/`` under it).  It prints a ``{"kernels": [...]}`` line,
+the card's name and power limit, and last ``{"ok": true, "device":
+{...}}``.  Without a CUDA device, or without the rest of the repository
+beside it, it exits nonzero before printing any result.  TF32 is off for
+matmuls and cuDNN throughout.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import logging
 import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -63,6 +82,28 @@ N_REGATHER = 131072
 STEPS = 30
 EQUI_STEPS = 20
 RM_ITERS = 128
+# flagship-3 (docs/runs/r4-flagship3.params.json): its tree, net and R-NaD
+# flags, then the cuts, each (flag, value, flagship-3's value)
+FLAGSHIP_TREE = ["--native-gen", "--max-actions", "5", "--max-transitions",
+                 "2", "--tree-depth", "6", "--transition-threshold", "0.25",
+                 "--stochastic-depth", "--stochastic-prob", "0.55"]
+FLAGSHIP_RUN = ["--net", "EquiNet", "--channels", "64", "--net-depth", "2",
+                "--solver-iters", "128", "--solver-prime", "--compute-dtype",
+                "bfloat16", "--batch-size", "32768", "--eta", "0.5", "--lr",
+                "5e-5", "--gamma-avg", "0.001", "--lr-schedule", "cosine",
+                "--lr-final-fraction", "0.1"]
+FLAGSHIP_CUTS = [("--bounds", ["2"], "10 45"),
+                 ("--delta-m", ["10"], "1500 1800"),
+                 ("--policy-warmup", ["5"], "1500"),
+                 ("--lr-decay-steps", ["15"], "18600"),
+                 ("--checkpoint-mod", ["5"], "1000 (the CLI's default)")]
+FLAGSHIP_NODES, FLAGSHIP_DEPTH = 785768, 6
+FLAGSHIP_HASH = -3582253928252745740
+FLAGSHIP_STEPS = 20
+# rnad_tpu's untrained primed EquiNet of flagship-3 on this tree
+# (joint_policy_from_net + nashconv_root): its heads start at zero, so the
+# policy is the solve's, and only K3's rounding parts the port from it
+STEP0_NASHCONV, STEP0_ATOL = 0.0154796, 3.1e-4
 
 
 def log(msg: str) -> None:
@@ -185,6 +226,8 @@ def main() -> int:
     from rnad_tpu_torch.ops import lookup as lookup_lib
     from rnad_tpu_torch.ops import stepping
 
+    workdir = tempfile.TemporaryDirectory(prefix="chip_smoke_")
+    os.chdir(workdir.name)  # the run stores and the CLI's tree store
     # the EquiNet path: the repo's "big" A = 5 config cut to depth 5, and
     # flagship-2's net (docs/SCALE.md) in float32
     equi_tree_cfg = TreeConfig(max_actions=5, max_transitions=2,
@@ -285,15 +328,16 @@ def main() -> int:
     equi_cfg = RNaDConfig(batch_size=B_MAIN, eta=1.0, lr=5e-5,
                           gamma_averaging=0.001, logit_clip=2.0, bounds=(2,),
                           delta_m=(10,))
-    equi_run = rnad.RNaD(equi_tree, equi_cfg, equi_net_cfg, seed=0,
-                         device="cuda")
+    equi_run = rnad.RNaD(equi_tree, equi_cfg, equi_net_cfg,
+                         directory_name="equinet", seed=0, device="cuda")
     k3 = check_rmplus_phase(equi_run, gen)
 
     # -- phase 3: the main path -------------------------------------------
     cfg = RNaDConfig(batch_size=B_MAIN, eta=0.2, bounds=(3,), delta_m=(10,),
                      lr=1e-3, gamma_averaging=0.01, logit_clip=2.0)
     net_cfg = NetConfig(type="MLP", max_actions=A, width=256)
-    run = rnad.RNaD(tree, cfg, net_cfg, seed=0, device="cuda")
+    run = rnad.RNaD(tree, cfg, net_cfg, directory_name="mlp", seed=0,
+                    device="cuda")
     fused_turn_lib.fused_turn.launches = 0
     lookup_lib.lookup.launches = 0
     t0 = time.perf_counter()
@@ -359,6 +403,10 @@ def main() -> int:
 
     # -- phase 4: the EquiNet path ----------------------------------------
     equi = equinet_phase(equi_run, card)
+    del equi_run
+
+    # -- phase 5: the flagship path through the train CLI -----------------
+    flag = flagship_phase(card, gen)
     by_path = lambda mlp, equinet: {"mlp": mlp, "equinet": equinet}
     kernels = [
         {"name": "fused_turn", "route": "cuda",
@@ -388,12 +436,24 @@ def main() -> int:
          "bound_ms_rollout": k3["bound_ms_rollout"],
          "diverged_games": k3["diverged"], "games": k3["games"],
          "diverged_by_set": k3["diverged_by_set"]},
+        {"name": "lookup (flagship shapes)", "route": "cuda",
+         "source": "rnad_tpu_torch/csrc/lookup.cu",
+         "replaces": "rnad_tpu/ops/pallas_lookup.py:45",
+         "launches": flag["k2"], "launches_by_path": {"flagship": flag["k2"]},
+         **flag["lookup"]},
+        {"name": "rmplus (flagship shapes)", "route": "cuda",
+         "source": "rnad_tpu_torch/csrc/rmplus.cu",
+         "replaces": "rnad_tpu/ops/pallas_rmplus.py:52",
+         "launches": flag["k3"], "launches_by_path": {"flagship": flag["k3"]},
+         **flag["rmplus"]},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
+    os.chdir("/")
+    workdir.cleanup()
     return 0
 
 
@@ -584,7 +644,255 @@ def equinet_phase(run, card):
     return counts
 
 
-def check_equinet_against_cpu(tree, cfg, net_cfg, card="cuda") -> None:
+class _Capture(logging.Handler):
+    """Keeps the messages of one logger (the CLI's own lines)."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.lines = []
+
+    def emit(self, record):
+        self.lines.append(record.getMessage())
+
+
+def _flagship_argv():
+    argv = FLAGSHIP_TREE + FLAGSHIP_RUN + ["--log-mod", "1", "--name",
+                                          "flagship3"]
+    for flag, value, _ in FLAGSHIP_CUTS:
+        argv += [flag, *value]
+    return argv
+
+
+def flagship_phase(card, gen):
+    """The flagship path (phase 5): two runs of the train CLI, the second a
+    resume of the first, and the checks of the module docstring.  Returns
+    the launch counts and the kernels line's entries at its shapes."""
+    import numpy as np
+
+    from rnad_tpu_torch import train
+    from rnad_tpu_torch.env import engine, solver_device
+    from rnad_tpu_torch.learn import rnad
+    from rnad_tpu_torch.models import nets
+    from rnad_tpu_torch.ops import fused_turn as fused_turn_lib
+    from rnad_tpu_torch.ops import lookup as lookup_lib
+    from rnad_tpu_torch.ops import rmplus as rmplus_lib
+
+    argv = _flagship_argv()
+    log("flagship path: python -m rnad_tpu_torch.train " + " ".join(argv))
+    for flag, value, full in FLAGSHIP_CUTS:
+        log(f"  reduced from flagship-3: {flag} {' '.join(value)} "
+            f"(flagship-3: {full})")
+    capture = _Capture()
+    cli_log = logging.getLogger(train.__name__)
+    cli_log.addHandler(capture)
+    cli_log.setLevel(logging.INFO)  # whatever the root logger's level
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    resident = torch.cuda.memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    fused_turn_lib.fused_turn.launches = 0
+    lookup_lib.lookup.launches = 0
+    rmplus_lib.rmplus.launches = 0
+    t0 = time.perf_counter()
+    run = train.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {"k1": fused_turn_lib.fused_turn.launches,
+              "k2": lookup_lib.lookup.launches,
+              "k3": rmplus_lib.rmplus.launches}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    tree, cfg, store = run.tree, run.cfg, run.store
+    gen_line = next(m for m in capture.lines if m.startswith("tree generated"))
+    log(f"  CLI: {gen_line}; "
+        + next(m for m in capture.lines if m.startswith("tree stored"))
+        + "; " + next(m for m in capture.lines if m.startswith("tree:")))
+    if (tree.size, tree.max_depth, tree.hash) != (
+            FLAGSHIP_NODES, FLAGSHIP_DEPTH, FLAGSHIP_HASH):
+        raise AssertionError(f"flagship tree: S={tree.size} max_depth="
+                             f"{tree.max_depth} hash={tree.hash}, want "
+                             f"{FLAGSHIP_NODES}, {FLAGSHIP_DEPTH}, "
+                             f"{FLAGSHIP_HASH}")
+
+    md, A = tree.max_depth, tree.max_actions
+    chunk = min(cfg.nashconv_chunk_nodes,
+                nets.inference_chunk_nodes(run.state.net, A))
+    chunks = math.ceil(tree.size / chunk)
+    steps = run.state.total_steps
+    losses = [m for _, m in run.history if "loss" in m]
+    evals = [m["nashconv"] for _, m in run.history if "nashconv" in m]
+    log(f"flagship path: {steps} train steps + {len(evals)} NashConv evals "
+        f"({chunks} chunks of {chunk} nodes) in {wall:.2f} s with the tree's "
+        f"generation and store; launches K1 {counts['k1']}, K2 "
+        f"{counts['k2']}, K3 {counts['k3']}; peak device memory {peak:.3f} "
+        f"GiB ({resident:.3f} GiB resident from earlier phases)")
+    log(f"  loss first {losses[0]['loss']:.6f} last {losses[-1]['loss']:.6f};"
+        f" NashConv " + ", ".join(f"{v:.6f}" for v in evals))
+    if steps != FLAGSHIP_STEPS or len(losses) != FLAGSHIP_STEPS:
+        raise AssertionError(f"expected {FLAGSHIP_STEPS} flagship steps, ran "
+                             f"{steps}")
+    bad = [(k, v) for m in losses for k, v in m.items()
+           if not math.isfinite(v)]
+    if bad or len(evals) != 2 or not all(math.isfinite(v) for v in evals):
+        raise AssertionError(f"flagship metrics: {bad}, evals {evals}")
+    want = {"k1": 0, "k2": FLAGSHIP_STEPS * (md + 1),
+            "k3": FLAGSHIP_STEPS * (md + 1) + len(evals) * chunks}
+    if counts != want:
+        raise AssertionError(f"flagship launches {counts}, want {want}")
+    best = store.load_best_meta()
+    with open(os.path.join(store.directory, "best.json")) as f:
+        mirror = json.load(f)
+    lines = open(os.path.join(store.directory, "metrics.jsonl")).readlines()
+    if best != mirror or best["nashconv"] != min(evals):
+        raise AssertionError(f"best checkpoint {best} (best.json {mirror}),"
+                             f" evals {evals}")
+    if len(lines) != FLAGSHIP_STEPS + len(evals):
+        raise AssertionError(f"metrics.jsonl has {len(lines)} lines")
+    log(f"  run store: best.ckpt at step {best['step']} (NashConv "
+        f"{best['nashconv']:.6f}), {len(lines)} lines in metrics.jsonl, "
+        f"checkpoints {sorted(os.listdir(os.path.join(store.directory, '0')))}"
+        f" + {sorted(os.listdir(os.path.join(store.directory, '1')))}")
+
+    # the step-0 eval: the EMA target of checkpoint (0, 0), written by
+    # initialize() before the first step
+    step0 = store.load_checkpoint(0, 0, run._fresh_state())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    value = float(rnad.nashconv(tree, step0.net_target, chunk).nashconv())
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    gap = value - STEP0_NASHCONV
+    log(f"  step-0 NashConv {value:.7f} against rnad_tpu's {STEP0_NASHCONV}"
+        f": gap {gap:+.3g} (limit {STEP0_ATOL}); one {tree.size}-node eval "
+        f"({chunks} chunks) {eval_s:.4f} s wall | {card}")
+    if not abs(gap) <= STEP0_ATOL:
+        raise AssertionError(f"step-0 NashConv {value} is more than "
+                             f"{STEP0_ATOL} from {STEP0_NASHCONV}")
+    del step0
+
+    # the resume: checkpoint (1, 5), the last 5 steps again
+    first = [p.detach().clone() for name in ("net", "net_target")
+             for p in getattr(run.state, name).parameters()]
+    first_eval = evals[-1]
+    del run
+    again = train.main(argv)
+    resumed = [p.detach() for name in ("net", "net_target")
+               for p in getattr(again.state, name).parameters()]
+    again_steps = [s for s, m in again.history if "loss" in m]
+    if again_steps != list(range(FLAGSHIP_STEPS - 4, FLAGSHIP_STEPS + 1)):
+        raise AssertionError(f"the resumed run trained steps {again_steps}")
+    bitwise = all(torch.equal(a, b) for a, b in zip(first, resumed))
+    err = max(float((a - b).abs().max()) for a, b in zip(first, resumed))
+    again_eval = again.history[-1][1]["nashconv"]
+    if bitwise:
+        log(f"  resume at checkpoint (1, 5): the last 5 steps again end on "
+            f"the same weights, bitwise; final NashConv {again_eval:.7f} "
+            f"(first run {first_eval:.7f})")
+    else:
+        log(f"  FALLBACK: the resumed weights are not bitwise equal (max_abs_"
+            f"err {err:.3g}); held to check_equinet_against_cpu's 2 lr")
+        if not err <= 2 * cfg.lr:
+            raise AssertionError(f"resume: weights differ by {err}")
+    del first, resumed
+
+    # K2 and K3 at the path's learner shapes, on a rollout of the run
+    state, packed = again.state, again.packed
+    traj = rnad.rollout(state, tree, packed, cfg)
+    ids = traj.indices[0::2].reshape(-1).contiguous()
+    k2 = check_lookup(lookup_lib, packed.rows, ids, "flagship learner")
+    S, D = packed.rows.shape
+    rows = int(torch.unique(ids).numel())
+    k2_bytes = 4.0 * (ids.numel() + rows * D + ids.numel() * D)
+    lookup = {"max_abs_err": k2,
+              "ms": device_ms(lambda: lookup_lib.lookup(packed.rows, ids)),
+              "plain_ms": device_ms(
+                  lambda: lookup_lib.lookup_plain(packed.rows, ids)),
+              "bound_ms": k2_bytes / HBM_BYTES_PER_S * 1e3,
+              "bound_by": "bytes",
+              "library_ms": device_ms(
+                  lambda: torch.index_select(packed.rows, 0, ids)),
+              "rows": ids.numel(), "table": [S, D], "distinct_rows": rows}
+    log(f"K2 lookup flagship learner ({ids.numel()} ids, {rows} distinct, "
+        f"table {S}x{D}): kernel {lookup['ms']:.4f} ms, plain "
+        f"{lookup['plain_ms']:.4f} ms, index_select {lookup['library_ms']:.4f}"
+        f" ms, bound {lookup['bound_ms']:.4f} ms (bytes), "
+        f"{100 * lookup['bound_ms'] / lookup['ms']:.1f} % of it")
+    obs, _ = engine.trajectory_observations(packed, traj)
+    Mz, lr_, lc_ = _games_of(obs.reshape(-1, 2, A, A))
+    args = (Mz.permute(1, 2, 0).contiguous(), lr_.t().contiguous(),
+            lc_.t().contiguous(), RM_ITERS)
+    got = rmplus_lib.rmplus(*args)
+    torch.cuda.synchronize()
+    plain = rmplus_lib.rmplus_plain(*args)
+    # the policy visits few states, so the batch repeats each of its games
+    # thousands of times.  A game is solved alone, so its copies diverge
+    # together: the share of diverged games is taken over distinct games,
+    # the exploitability means and worst game over the batch as the
+    # learner reads it (over the 2,099 distinct games one game parted by
+    # 0.02 moves the mean by 1e-5, agreement's whole margin)
+    B3 = Mz.shape[0]
+    key = torch.cat([Mz.reshape(B3, -1), lr_, lc_], 1)
+    _, inverse = torch.unique(key, dim=0, return_inverse=True)
+    first = torch.full((int(inverse.max()) + 1,), B3, device=key.device)
+    first = first.scatter_reduce(0, inverse, torch.arange(
+        B3, device=key.device), "amin")
+    pick = lambda ts: [t.t()[first] for t in ts]
+    every = solver_device.agreement(Mz, lr_, lc_, [t.t() for t in got[:2]],
+                                    [t.t() for t in plain[:2]], got[2],
+                                    plain[2])
+    res = solver_device.agreement(Mz[first], lr_[first], lc_[first],
+                                  pick(got[:2]), pick(plain[:2]),
+                                  got[2][first], plain[2][first])
+    log(f"K3 rmplus flagship learner: {res.games} distinct games of {B3}: "
+        f"{res.diverged} diverged (on all {B3}: {every.diverged}), mean "
+        f"exploitability {res.mean_expl[0]:.6g} (plain {res.mean_expl[1]:.6g}"
+        f"), on all {every.mean_expl[0]:.6g} (plain {every.mean_expl[1]:.6g})"
+        f", worst {res.max_expl[0]:.6g} (plain {res.max_expl[1]:.6g})")
+    sd = solver_device
+    ok = (res.diverged <= sd.DIVERGED_SHARE * res.games
+          and every.mean_expl[0] <= every.mean_expl[1] + sd.MEAN_EXCESS
+          and every.mean_expl_diverged[0]
+          <= every.mean_expl_diverged[1] + sd.DIVERGED_MEAN_EXCESS
+          and every.max_expl[0] <= every.max_expl[1] + sd.MAX_EXCESS)
+    if not ok:
+        raise AssertionError(f"K3 disagrees with its plain version on the "
+                             f"flagship learner's games: {res}, {every}")
+    ops = rmplus_lib.operations(A, A, RM_ITERS) * B3
+    nbytes = rmplus_lib.io_bytes(A, A, B3)
+    rm = {"max_abs_err": res.max_abs_err,
+          "ms": device_ms(lambda: rmplus_lib.rmplus(*args)),
+          "plain_ms": device_ms(lambda: rmplus_lib.rmplus_plain(*args),
+                                iters=5),
+          "bound_ms": max(ops / F32_FLOPS, nbytes / HBM_BYTES_PER_S) * 1e3,
+          "bound_by": ("operations" if ops / F32_FLOPS
+                       > nbytes / HBM_BYTES_PER_S else "bytes"),
+          "library_ms": None, "games": B3, "distinct_games": res.games,
+          "diverged_games": res.diverged}
+    log(f"K3 rmplus flagship learner ({B3} games, {RM_ITERS} iterations): "
+        f"max_abs_err {res.max_abs_err:.3g} on the agreeing distinct games;"
+        f" kernel {rm['ms']:.4f} ms, plain "
+        f"{rm['plain_ms']:.4f} ms, bound {rm['bound_ms']:.4f} ms "
+        f"({rm['bound_by']}; {ops:.4g} operations), "
+        f"{100 * rm['bound_ms'] / rm['ms']:.1f} % of it")
+    del traj, obs, Mz, lr_, lc_, args, got, plain
+
+    step = lambda: again.train_step(again.state, 1.0)
+    step_runs = sorted(wall_ms(step, iters=5) for _ in range(3))
+    step_dev_ms = device_ms(step, iters=5)
+    log(f"flagship throughput: train {1e3 / step_runs[1]:.6g} updates/s "
+        f"back to back ({step_runs[1]:.4f} ms per step, runs "
+        + "/".join(f"{x:.4f}" for x in step_runs) + f" ms), device busy "
+        f"{step_dev_ms:.4f} ms a step ({100 * (1 - step_dev_ms / step_runs[1]):.1f}"
+        f" % idle); peak memory {peak:.3f} GiB; {tree.size}-node NashConv "
+        f"eval {eval_s:.4f} s wall; tree generation {gen_line} | {card}")
+    check_equinet_against_cpu(tree.to("cpu"), cfg, again.net_config,
+                              atol=2 * cfg.lr)
+    cli_log.removeHandler(capture)
+    return {"k2": counts["k2"], "k3": counts["k3"], "lookup": lookup,
+            "rmplus": rm}
+
+
+def check_equinet_against_cpu(tree, cfg, net_cfg, card="cuda",
+                              atol=1e-4) -> None:
     """One EquiNet train step at 256 lanes on the card (kernels) and on the
     CPU (plain versions) from the same weights and noise.  A lane's episode
     may part from the CPU's only at a near-tie: at the first half-step
@@ -662,10 +970,12 @@ def check_equinet_against_cpu(tree, cfg, net_cfg, card="cuda") -> None:
                                  "whose actions agree")
     pc, pg = out["cpu"][2], out["card"][2]
     err = max(float((a - b).abs().max()) for a, b in zip(pc, pg))
-    if not err <= 1e-4:
-        raise AssertionError(f"EquiNet card vs CPU: weights differ by {err}")
+    if not err <= atol:
+        raise AssertionError(f"EquiNet card vs CPU: weights differ by {err} "
+                             f"> {atol}")
     mc, mg = out["cpu"][1], out["card"][1]
-    log(f"EquiNet card vs CPU: one step at {B} lanes agrees: "
+    log(f"EquiNet ({net_cfg.compute_dtype}) card vs CPU: one step at {B} "
+        f"lanes agrees: "
         f"{int(flipped.sum())} lanes parted, all at near-ties; weights "
         f"max_abs_err {err:.3g}; loss {float(mg['loss']):.6f} (CPU "
         f"{float(mc['loss']):.6f})")

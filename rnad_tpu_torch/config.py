@@ -100,8 +100,8 @@ class ObsTransformConfig:
 
 @dataclasses.dataclass(frozen=True)
 class NetConfig:
-    """Network architecture selection (the port runs the depth-1 f32 MLP
-    and the f32 EquiNet)."""
+    """Network architecture selection (the port runs the depth-1 MLP and
+    the EquiNet, each in float32 or bfloat16)."""
 
     type: str = "MLP"  # "MLP" | "ConvNet" | "EquiNet"
     max_actions: int = 3

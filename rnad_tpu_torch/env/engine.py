@@ -117,19 +117,25 @@ def trajectory_observations(packed: stepping.PackedTables, traj: Trajectory
 def uses_fused_turn(net: nn.Module, mode: str = "auto") -> bool:
     """Resolves ``RNaDConfig.rollout_rows_actor`` as ``rnad_tpu``'s
     ``resolve_rows_actor`` does: "auto" takes kernel K1 exactly where it
-    exists (the depth-1 float32 MLP, the only MLP the port builds, on the
-    card at a width whose weights K1 holds in shared memory, or on the CPU)
-    and the generic turn for every other net; "off" takes the generic turn;
-    "on" with another net raises ``make_mlp_rows_actor``'s error, and on
-    the card at too wide an MLP K1 raises."""
-    fusable = isinstance(net, nets.MLP)
+    exists (the depth-1 float32 MLP, on the card at a width whose weights
+    K1 holds in shared memory, or on the CPU) and the generic turn for
+    every other net; "off" takes the generic turn; "on" with another net
+    (a bfloat16 MLP included: K1 computes in float32) raises
+    ``make_mlp_rows_actor``'s error, and on the card at too wide an MLP K1
+    raises."""
+    fusable = isinstance(net, nets.MLP) and net.dtype == torch.float32
     if mode == "off":
         return False
     if mode == "on":
-        if not fusable:
+        if not isinstance(net, nets.MLP):
             raise ValueError(
                 f"make_mlp_rows_actor requires an MLP net, got "
                 f"{type(net).__name__}; use the generic actor_fn path")
+        if not fusable:
+            raise ValueError(
+                f"make_mlp_rows_actor computes in float32; net dtype "
+                f"{str(net.dtype).split('.')[-1]} would silently diverge "
+                f"from the generic actor path")
         return True
     if mode != "auto":
         raise ValueError(f"unknown rollout_rows_actor mode {mode!r}")

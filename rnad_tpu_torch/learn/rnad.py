@@ -11,13 +11,15 @@ global-norm clip, Adam with the optax formulas (b1=0 by default) and the
 EMA target update.  The frozen passes follow ``fuse_net_passes``: "heads"
 (the MLP: the EMA target's value head and the regularization pair's policy
 heads) or "off" (every other net: each frozen net's whole forward).  The
-``RNaD`` host loop owns the (m, n, alpha) schedule, regularization rotation
-and exact NashConv at update boundaries, chunked on large trees.
+``RNaD`` host loop owns the run's lifecycle (a fresh start or a bit-exact
+resume from the run store), the (m, n, alpha) schedule, regularization
+rotation (``reg_anchor`` "target", "best" or "fixed"), checkpoints, exact
+NashConv at update boundaries (chunked on large trees) with best-checkpoint
+selection, and the metric log (``metrics.jsonl`` and ``RNaD.history``).
 
 The step updates the ``TrainState`` in place (parameters, Adam moments and
-the EMA target) instead of building new tensors.  The run store, checkpoints
-and resume, the replay buffer and the metric logger are not ported yet:
-metrics go to ``logging`` and to ``RNaD.history``.
+the EMA target) instead of building new tensors.  The replay buffer is not
+ported yet.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from __future__ import annotations
 import copy
 import dataclasses
 import logging
+import math
 import time
 from typing import Dict, List, Optional, Tuple
 
@@ -38,6 +41,8 @@ from ..env.tree import GameTree
 from ..metrics import nashconv as nashconv_lib
 from ..models import common, nets
 from ..ops import stepping
+from ..utils.checkpoint import RunStore
+from ..utils.logging import MetricLogger
 from . import vtrace
 
 
@@ -84,6 +89,23 @@ def init_train_state(net: nn.Module, generator: torch.Generator
         generator=generator)
 
 
+def learning_rate(cfg: RNaDConfig, count: int) -> float:
+    """The learning rate of the update whose Adam count before the increment
+    is ``count``.  "cosine" is ``optax.cosine_decay_schedule(lr,
+    lr_decay_steps, alpha=lr_final_fraction)`` in its float32 operation
+    order, the cosine taken in float64 and rounded (within an ulp of
+    XLA's), so it reaches ``lr * lr_final_fraction`` at ``lr_decay_steps``
+    and stays there."""
+    if cfg.lr_schedule == "constant":
+        return cfg.lr
+    f32 = np.float32
+    t = f32(min(count, cfg.lr_decay_steps))
+    x = f32(np.pi) * t / f32(cfg.lr_decay_steps)
+    decay = f32(0.5) * (f32(1) + f32(math.cos(float(x))))
+    alpha = cfg.lr_final_fraction
+    return float(f32(cfg.lr) * (f32(1 - alpha) * decay + f32(alpha)))
+
+
 @torch.no_grad()
 def optimizer_update(cfg: RNaDConfig, params: List[torch.Tensor],
                      grads: List[torch.Tensor], opt: AdamState) -> None:
@@ -92,11 +114,13 @@ def optimizer_update(cfg: RNaDConfig, params: List[torch.Tensor],
     The global norm is the optax per-leaf sum of squares; a norm at or
     above the clip scales by ``clip / norm`` (no epsilon, unlike
     ``clip_grad_norm_``).  Adam is ``mu_hat / (sqrt(nu_hat) + eps)`` with
-    optax's bias correction computed in float32."""
+    optax's bias correction computed in float32, scaled by
+    ``learning_rate`` at the count before this update."""
     g_norm = torch.sqrt(sum((g * g).sum() for g in grads))
     clip = cfg.grad_clip
     grads = [torch.where(g_norm < clip, g, g / g_norm * clip) for g in grads]
     b1, b2 = cfg.b1_adam, cfg.b2_adam
+    lr = learning_rate(cfg, opt.count)
     opt.count += 1
     # host scalars holding the float32 values optax computes on device
     corr1 = float(np.float32(1) - np.float32(b1) ** np.int32(opt.count))
@@ -106,7 +130,7 @@ def optimizer_update(cfg: RNaDConfig, params: List[torch.Tensor],
         nu.copy_((1 - b2) * (g * g) + b2 * nu)
         mu_hat = mu / corr1
         nu_hat = nu / corr2
-        p.add_((-cfg.lr) * (mu_hat / (torch.sqrt(nu_hat) + cfg.epsilon_adam)))
+        p.add_((-lr) * (mu_hat / (torch.sqrt(nu_hat) + cfg.epsilon_adam)))
 
 
 @torch.no_grad()
@@ -343,12 +367,9 @@ def check_supported(cfg: RNaDConfig, net_config: NetConfig) -> None:
         "obs_transform": cfg.obs_transform.kind != "none",
         "frozen_net_dtype": cfg.frozen_net_dtype != "float32",
         "rollout_actor_dtype": cfg.rollout_actor_dtype != "float32",
-        "compute_dtype": net_config.compute_dtype != "float32",
         "n_batches_per_buffer": cfg.n_batches_per_buffer != 1,
         "buffer_mod": cfg.buffer_mod != 1,
         "vtrace_mode": cfg.vtrace_mode == "associative",
-        "reg_anchor": cfg.reg_anchor == "best",
-        "lr_schedule": cfg.lr_schedule != "constant",
     }
     for field, unsupported in missing.items():
         if unsupported:
@@ -357,23 +378,35 @@ def check_supported(cfg: RNaDConfig, net_config: NetConfig) -> None:
                 "yet")
     if cfg.vtrace_mode not in ("scan", "auto"):
         raise ValueError(f"unknown vtrace_mode {cfg.vtrace_mode!r}")
-    if cfg.reg_anchor not in ("target", "fixed"):
-        raise ValueError(f"unknown reg_anchor {cfg.reg_anchor!r}")
+    if cfg.reg_anchor not in ("target", "best", "fixed"):
+        raise ValueError(f"unknown reg_anchor {cfg.reg_anchor!r}; "
+                         "expected 'target', 'best' or 'fixed'")
     if cfg.fuse_net_passes not in ("auto", "heads", "off", "frozen", "all"):
         raise ValueError(f"unknown fuse_net_passes {cfg.fuse_net_passes!r}")
+    if cfg.lr_schedule not in ("constant", "cosine"):
+        raise ValueError(f"unknown lr_schedule {cfg.lr_schedule!r}")
+    if cfg.lr_schedule == "cosine" and cfg.lr_decay_steps <= 0:
+        raise ValueError("lr_schedule='cosine' needs lr_decay_steps > 0")
 
 
 class RNaD:
-    """Host-side experiment loop: two-timescale schedule, regularization
-    rotation and NashConv cadence (``rnad_tpu``'s ``RNaD`` without the run
-    store).  Runs on ``device`` ("cuda" unless the caller asks for "cpu").
+    """Host-side experiment loop: fresh-or-resume lifecycle, two-timescale
+    schedule, checkpointing, NashConv cadence and best-checkpoint selection
+    (``rnad_tpu``'s ``RNaD``).  The run lives in
+    ``<runs_root>/<directory_name>`` (``saved_runs/`` under the working
+    directory by default, named by the clock if unnamed); a second ``RNaD``
+    on the same directory resumes it.  Runs on ``device`` ("cuda" unless
+    the caller asks for "cpu").
 
     TF32 is switched off for matmuls and cuDNN, so every float32 product is
     a float32 product, as on the reference path."""
 
     def __init__(self, tree: GameTree, cfg: RNaDConfig = RNaDConfig(),
-                 net_config: Optional[NetConfig] = None, seed: int = 0,
-                 device="cuda"):
+                 net_config: Optional[NetConfig] = None,
+                 directory_name: Optional[str] = None,
+                 runs_root: Optional[str] = None, seed: int = 0,
+                 use_same_init_net_as: Optional[str] = None,
+                 use_wandb: bool = False, device="cuda"):
         if net_config is None:
             net_config = NetConfig(type="MLP", max_actions=tree.max_actions,
                                    width=256)
@@ -389,29 +422,90 @@ class RNaD:
         self.cfg = cfg
         self.net_config = net_config
         self.seed = seed
+        if directory_name is None:
+            directory_name = str(int(time.time()))
+        self.store = RunStore(directory_name, runs_root)
+        self.runs_root = runs_root
+        self.use_same_init_net_as = use_same_init_net_as
+        self.use_wandb = use_wandb
+        self.logger: Optional[MetricLogger] = None
         self.train_step = make_train_step(self.tree, self.packed, cfg)
         self.m = 0
         self.n = 0
         self.state: Optional[TrainState] = None
         self.history: List[Tuple[int, Dict[str, float]]] = []
 
-    def initialize(self) -> None:
-        if self.state is not None:
-            return
+    # -- lifecycle ---------------------------------------------------------
+
+    def _fresh_state(self, init_net: Optional[nn.Module] = None
+                     ) -> TrainState:
+        """The seed's initial state on the run's device, all four nets a
+        copy of ``init_net``'s weights where given."""
         net = nets.build_net(self.net_config,
                              torch.Generator().manual_seed(self.seed))
-        # the rollout route and the frozen passes raise here, not mid-step
-        engine.uses_fused_turn(net, self.cfg.rollout_rows_actor)
-        resolve_fuse_mode(net, self.cfg)
+        if init_net is not None:
+            net.load_state_dict(init_net.state_dict())
         generator = torch.Generator(device=self.device)
         generator.manual_seed(self.seed + 1)
-        self.state = init_train_state(net.to(self.device), generator)
-        self.m, self.n = 0, 0
+        return init_train_state(net.to(self.device), generator)
+
+    def initialize(self) -> None:
+        """Starts the run fresh (writes ``params.json`` and checkpoint
+        (0, 0)) or resumes it from its latest checkpoint; the rollout route
+        and the frozen passes raise before the store is touched."""
+        if self.state is not None:
+            return
+        state = self._fresh_state()
+        engine.uses_fused_turn(state.net, self.cfg.rollout_rows_actor)
+        resolve_fuse_mode(state.net, self.cfg)
+        resumed = False
+        if not self.store.exists() or self.store.latest() is None:
+            logging.info("initializing R-NaD run %s", self.store.name)
+            self.store.save_params({
+                "rnad": self.cfg.to_json(),
+                "net": self.net_config.to_json(),
+                "tree_hash": self.tree.hash,
+                "seed": self.seed,
+                "directory_name": self.store.name,
+            })
+            if self.use_same_init_net_as:
+                other = RunStore(self.use_same_init_net_as, self.runs_root)
+                loaded = other.load_checkpoint(0, 0, self._fresh_state())
+                state = self._fresh_state(loaded.net)
+                logging.info("loaded init net from run %s",
+                             self.use_same_init_net_as)
+            self.state = state
+            self.m, self.n = 0, 0
+            self.save_checkpoint()
+        else:
+            params = self.store.load_params()
+            if int(params["tree_hash"]) != int(self.tree.hash):
+                raise AssertionError(
+                    "resume tree hash mismatch: run was trained on a "
+                    "different tree")
+            self.m, self.n = self.store.latest()
+            self.state = self.store.load_checkpoint(self.m, self.n, state)
+            resumed = True
+            logging.info("resumed run %s at m=%d n=%d", self.store.name,
+                         self.m, self.n)
+        if self.logger is None:
+            self.logger = MetricLogger(
+                directory=self.store.directory, use_wandb=self.use_wandb,
+                run_name=self.store.name,
+                config={"rnad": self.cfg.to_json(),
+                        "net": self.net_config.to_json()},
+                resume=resumed)
+
+    def save_checkpoint(self) -> None:
+        self.store.save_checkpoint(self.m, self.n, self.state)
 
     def _log(self, metrics: Dict[str, float], step: int) -> None:
         self.history.append((step, metrics))
+        self.logger.log(metrics, step)
         logging.info("step %d: %s", step, " ".join(
             f"{k}={v:.6g}" for k, v in sorted(metrics.items())))
+
+    # -- schedule ----------------------------------------------------------
 
     def _get_update_info(self) -> Tuple[bool, int]:
         """(may_resume, delta_m) from the cumulative m-bounds."""
@@ -433,20 +527,74 @@ class RNaD:
             logging.info("depth:%d nashconv:%f", depth, val)
         return float(result.nashconv())
 
-    def final_eval(self) -> float:
-        """One exact eval of the current EMA target, logged."""
-        value = self.nashconv()
-        self._log({"nashconv": value}, self.state.total_steps)
-        return value
+    # -- main loop ---------------------------------------------------------
+
+    def _seed_best_bar(self) -> None:
+        """Resume-safe best-checkpoint bar: a restarted run keeps improving
+        on the stored best instead of overwriting it with a worse early
+        eval."""
+        if hasattr(self, "_best_nashconv"):
+            return
+        meta = self.store.load_best_meta()
+        self._best_nashconv = (float(meta["nashconv"]) if meta
+                               else float("inf"))
+
+    def _maybe_save_best(self, value: float, step: int) -> None:
+        self._seed_best_bar()
+        self._last_nashconv = value
+        if value < self._best_nashconv:
+            self._best_nashconv = value
+            # the target moves in place: keep this eval's weights
+            self._best_target = _frozen_copy(self.state.net_target)
+            self.store.save_best(self.state, {"nashconv": value,
+                                              "step": step,
+                                              "m": self.m, "n": self.n})
+            logging.info("new best nashconv %.6f at step %d", value, step)
 
     def _rotate_for_schedule(self) -> None:
+        """Update-boundary regularization rotation, honoring
+        ``cfg.reg_anchor``: "target" is the reference rotation; "best"
+        anchors pi_reg to the best checkpoint's target whenever the
+        boundary eval came out worse than the best; "fixed" never rotates
+        (the reg nets stay the init nets)."""
         if self.cfg.reg_anchor == "fixed":
-            return  # stationary anchor: the reg nets stay the init nets
-        rotate_regularization_nets(self.state)
+            return
+        if (self.cfg.reg_anchor == "best"
+                and getattr(self, "_best_target", None) is not None
+                and getattr(self, "_last_nashconv", float("inf"))
+                > self._best_nashconv):
+            logging.info(
+                "reg_anchor=best: eval %.6f worse than best %.6f; "
+                "anchoring pi_reg to the best checkpoint's target",
+                self._last_nashconv, self._best_nashconv)
+            self.state.net_reg_ = self.state.net_reg
+            self.state.net_reg = self._best_target
+        else:
+            rotate_regularization_nets(self.state)
 
-    def run(self, max_updates: int = 10**6, expl_mod: int = 1,
-            log_mod: int = 20) -> None:
+    def final_eval(self) -> float:
+        """One exact eval of the current EMA target, logged and folded into
+        best-checkpoint selection (the loop evaluates only at update
+        boundaries, before training the update)."""
+        value = self.nashconv()
+        step = self.state.total_steps
+        self._log({"nashconv": value}, step)
+        self._maybe_save_best(value, step)
+        return value
+
+    def run(self, max_updates: int = 10**6, checkpoint_mod: int = 1000,
+            expl_mod: int = 1, log_mod: int = 20) -> None:
+        """Trains up to ``max_updates`` update periods: a checkpoint before
+        each step with ``n % checkpoint_mod == 0``, an eval at each update
+        boundary (every ``expl_mod``-th; 0 turns them off) and a metric
+        line every ``log_mod`` steps."""
         self.initialize()
+        self._seed_best_bar()
+        if (self.cfg.reg_anchor == "best"
+                and not hasattr(self, "_best_target")):
+            loaded = self.store.load_best(self._fresh_state())
+            if loaded is not None:  # resume-safe anchor
+                self._best_target = _frozen_copy(loaded[0].net_target)
         last_time = time.perf_counter()
         last_steps = self.state.total_steps
         for _ in range(max_updates):
@@ -456,10 +604,14 @@ class RNaD:
             logging.info("m: %d, delta_m: %d", self.m, delta_m)
             if (expl_mod > 0 and self.m % expl_mod == 0 and self.n == 0
                     and self.m != 0):
-                self._log({"nashconv": self.nashconv()},
-                          self.state.total_steps)
+                value = self.nashconv()
+                step = self.state.total_steps
+                self._log({"nashconv": value}, step)
+                self._maybe_save_best(value, step)
             while self.n < delta_m:
                 alpha = alpha_schedule(self.n, delta_m)
+                if self.n % checkpoint_mod == 0:
+                    self.save_checkpoint()
                 _, metrics = self.train_step(self.state, alpha)
                 if self.n % log_mod == 0:
                     row = {k: float(v) for k, v in metrics.items()}

@@ -7,7 +7,13 @@ logits) and ``value_fc0 -> relu -> value_fc1`` (one value).  The EquiNet
 is a tower of row/column-exchangeable layers over the (A, A) cells, with
 optional RM+ solver features (kernel K3 on the card) that can prime its
 heads.  Every net's ``forward(obs, solver_feats=None)`` takes (N, C, A, A)
-observations and returns (logits (N, A), values (N,)).
+observations and returns float32 (logits (N, A), values (N,)).
+
+``compute_dtype`` follows flax's ``dtype``: the parameters stay float32 (the
+optimizer's master copy) and each layer casts its input, kernel and bias to
+the compute dtype and computes in it (a bfloat16 product, then a bfloat16
+bias add, as flax's Dense does); the outputs leave as float32.  The
+EquiNet's RM+ solver features, and so kernel K3, stay float32.
 
 Weights cross between the packages through the carrier below: a flax Dense
 kernel is (in, out) and a torch Linear weight is (out, in), so the carrier
@@ -30,6 +36,15 @@ from ..config import NetConfig
 from ..env import solver_device
 
 _LAYERS = ("policy_fc0", "policy_fc1", "value_fc0", "value_fc1")
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _dense(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype
+           ) -> torch.Tensor:
+    """``layer(x)`` computed in ``dtype`` from float32 parameters."""
+    if dtype == torch.float32:
+        return layer(x)
+    return x.to(dtype) @ layer.weight.to(dtype).t() + layer.bias.to(dtype)
 
 
 class MLP(nn.Module):
@@ -37,11 +52,13 @@ class MLP(nn.Module):
 
     def __init__(self, max_actions: int, width: int = 256,
                  in_channels: int = 2,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         A = max_actions
         self.max_actions = A
         self.width = width
+        self.dtype = dtype
         din = in_channels * A * A
         self.policy_fc0 = nn.Linear(din, width)
         self.policy_fc1 = nn.Linear(width, A)
@@ -60,9 +77,8 @@ class MLP(nn.Module):
         ``solver_feats`` is the EquiNet's; the MLP takes none."""
         del solver_feats
         x = obs.reshape(obs.shape[0], -1)
-        logits = self.policy_fc1(torch.relu(self.policy_fc0(x)))
-        value = self.value_fc1(torch.relu(self.value_fc0(x)))
-        return logits, value[:, 0]
+        logits = mlp_head_eval(self, x, "policy")
+        return logits, mlp_head_eval(self, x, "value")
 
 
 # ---------------------------------------------------------------------------
@@ -108,8 +124,10 @@ class _ExchangeableDense(nn.Module):
     does (``torch.max(dim=...)`` would give it all to one index)."""
 
     def __init__(self, in_channels: int, features: int,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         bound = 1.0 / (6 * in_channels) ** 0.5
         self.kernel = nn.Parameter(torch.empty(6 * in_channels, features))
         self.bias = nn.Parameter(torch.empty(features))
@@ -119,14 +137,16 @@ class _ExchangeableDense(nn.Module):
 
     def forward(self, h: torch.Tensor) -> torch.Tensor:
         cin = h.shape[-1]
-        blk = lambda i: self.kernel[i * cin:(i + 1) * cin]
+        kernel = self.kernel.to(self.dtype)
+        h = h.to(self.dtype)
+        blk = lambda i: kernel[i * cin:(i + 1) * cin]
         out = h @ blk(0)
         out = out + h.mean(dim=2, keepdim=True) @ blk(1)
         out = out + h.mean(dim=1, keepdim=True) @ blk(2)
         out = out + h.mean(dim=(1, 2), keepdim=True) @ blk(3)
         out = out + torch.amax(h, dim=2, keepdim=True) @ blk(4)
         out = out + torch.amax(h, dim=1, keepdim=True) @ blk(5)
-        return out + self.bias
+        return out + self.bias.to(self.dtype)
 
 
 class EquiNet(nn.Module):
@@ -147,9 +167,11 @@ class EquiNet(nn.Module):
     def __init__(self, max_actions: int, channels: int = 128,
                  depth: int = 4, solver_iters: int = 0,
                  solver_prime: bool = False, in_channels: int = 2,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.max_actions = max_actions
+        self.dtype = dtype
         self.channels = channels
         self.depth = depth
         self.solver_iters = solver_iters
@@ -158,7 +180,7 @@ class EquiNet(nn.Module):
         cin = c0
         for i in range(depth):
             setattr(self, f"ex{i}", _ExchangeableDense(cin, channels,
-                                                       generator))
+                                                       generator, dtype))
             cin = channels
         fan = cin + c0
         self.policy = nn.Linear(fan, 1)
@@ -187,13 +209,14 @@ class EquiNet(nn.Module):
             feats, log_x, v_rm = (solver_feats if solver_feats is not None
                                   else _solver_features(x, self.solver_iters))
             x = torch.cat([x, feats], dim=-1)
+        x = x.to(self.dtype)
         x0 = x  # input skip to the heads
         for i in range(self.depth):
             x = torch.relu(getattr(self, f"ex{i}")(x))
         row_feat = torch.cat([x.mean(dim=2), x0.mean(dim=2)], dim=-1)
         glob = torch.cat([x.mean(dim=(1, 2)), x0.mean(dim=(1, 2))], dim=-1)
-        logits = self.policy(row_feat)[..., 0]
-        value = self.value(glob)[:, 0]
+        logits = _dense(self.policy, row_feat, self.dtype)[..., 0].float()
+        value = _dense(self.value, glob, self.dtype)[:, 0].float()
         if self.primed:
             logits = logits + self.policy_prime_gate * log_x
             value = value + self.value_prime_gate * v_rm
@@ -212,14 +235,16 @@ def equinet_solver_features(net: EquiNet, obs_flat: torch.Tensor
 
 def build_net(config: NetConfig,
               generator: Optional[torch.Generator] = None) -> nn.Module:
-    if config.compute_dtype != "float32":
+    dtype = DTYPES.get(config.compute_dtype)
+    if dtype is None:
         raise NotImplementedError(
-            f"NetConfig.compute_dtype: the port computes in float32, got "
-            f"{config.compute_dtype!r}")
+            f"NetConfig.compute_dtype: the port computes in "
+            f"{' or '.join(DTYPES)}, got {config.compute_dtype!r}")
     if config.type == "EquiNet":
         return EquiNet(config.max_actions, channels=config.channels,
                        depth=config.depth, solver_iters=config.solver_iters,
-                       solver_prime=config.solver_prime, generator=generator)
+                       solver_prime=config.solver_prime, generator=generator,
+                       dtype=dtype)
     if config.type != "MLP":
         raise NotImplementedError(
             f"NetConfig.type: the port runs the MLP and the EquiNet, got "
@@ -228,7 +253,8 @@ def build_net(config: NetConfig,
         raise NotImplementedError(
             f"NetConfig.depth: the port runs depth-1 MLPs only, got "
             f"{config.depth}")
-    return MLP(config.max_actions, config.width, generator=generator)
+    return MLP(config.max_actions, config.width, generator=generator,
+               dtype=dtype)
 
 
 def inference_chunk_nodes(net: nn.Module, max_actions: int,
@@ -236,10 +262,10 @@ def inference_chunk_nodes(net: nn.Module, max_actions: int,
                           cap: int = 200_000) -> int:
     """Largest whole-tree inference chunk (in nodes) whose peak activations
     fit ``budget_bytes``: the dominant per-row terms of the family's
-    forward, times two seats per node and 2x slack, clamped to
-    [1024, cap] (``rnad_tpu``'s formula and budget)."""
+    forward in the net's compute dtype, times two seats per node and 2x
+    slack, clamped to [1024, cap] (``rnad_tpu``'s formula and budget)."""
     A = max_actions
-    esz = 4  # float32
+    esz = net.dtype.itemsize
     if isinstance(net, EquiNet):
         cin = 2 + (6 if net.solver_iters else 0)
         width = max(6 * net.channels, 6 * cin)
@@ -306,9 +332,11 @@ def mlp_head_eval(net: MLP, obs_flat: torch.Tensor,
     """One head's forward: ``logits (N, A)`` for ``head="policy"`` or
     ``values (N,)`` for ``head="value"``.  The heads share nothing, so a
     consumer of one head skips the other's matmuls (the learner's frozen
-    passes need only the target's value and the reg nets' policies)."""
+    passes need only the target's value and the reg nets' policies).
+    Computed in the net's dtype; float32 out."""
     x = obs_flat.reshape(obs_flat.shape[0], -1)
     fc0 = getattr(net, f"{head}_fc0")
     fc1 = getattr(net, f"{head}_fc1")
-    out = fc1(torch.relu(fc0(x)))
+    out = _dense(fc1, torch.relu(_dense(fc0, x, net.dtype)), net.dtype)
+    out = out.float()
     return out[:, 0] if head == "value" else out

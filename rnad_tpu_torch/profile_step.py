@@ -1,12 +1,15 @@
 """Where a train step's time goes on the card.
 
-    python3 -m rnad_tpu_torch.profile_step [--net mlp|equinet]
+    python3 -m rnad_tpu_torch.profile_step [--net mlp|equinet|flagship]
 
 ``--net mlp`` (the default) builds the demo tree (eta_sweep's config, seed
 0) and the MLP path's ``RNaD`` trainer (32768 lanes, MLP width 256).
 ``--net equinet`` builds the EquiNet path of ``chip_smoke.py``: the A = 5
 tree (65440 nodes, seed 0) and the solver-primed EquiNet (64 channels,
-depth 2, 128 RM+ iterations, float32) at 32768 lanes.  It warms up, then
+depth 2, 128 RM+ iterations, float32) at 32768 lanes.  ``--net flagship``
+builds flagship-3's path (``docs/runs/r4-flagship3.params.json``): the
+native generator's 785,768-node A = 5 depth-6 tree and the same EquiNet in
+bfloat16, with flagship-3's R-NaD settings, at 32768 lanes.  It warms up, then
 times one fused train step split into its phases with CUDA events
 (rollout, regather and solver features, learner and frozen passes with the
 loss, backward, clip + Adam + EMA), each phase's events recorded after a
@@ -19,6 +22,7 @@ from __future__ import annotations
 
 import argparse
 import subprocess
+import tempfile
 import time
 
 import torch
@@ -29,6 +33,9 @@ from .learn import rnad
 
 BATCH_SIZE = 32768
 TABLE_ROWS = 20  # kernels and operators listed from the trace
+FLAGSHIP_TREE = TreeConfig(max_actions=5, max_transitions=2,
+                           transition_threshold=0.25, depth_bound=6,
+                           depth_bound_rule=ShapingRule(-1, -2, 0.55))
 CONFIGS = {
     "mlp": (TreeConfig(max_actions=3, max_transitions=2,
                        transition_threshold=0.3, depth_bound=4,
@@ -45,6 +52,14 @@ CONFIGS = {
                           depth=2, solver_iters=128, solver_prime=True),
                 RNaDConfig(batch_size=BATCH_SIZE, eta=1.0, lr=5e-5,
                            gamma_averaging=0.001, logit_clip=2.0)),
+    "flagship": (FLAGSHIP_TREE,
+                 NetConfig(type="EquiNet", max_actions=5, channels=64,
+                           depth=2, solver_iters=128, solver_prime=True,
+                           compute_dtype="bfloat16"),
+                 RNaDConfig(batch_size=BATCH_SIZE, eta=0.5, lr=5e-5,
+                            gamma_averaging=0.001, lr_schedule="cosine",
+                            lr_decay_steps=18600, lr_final_fraction=0.1,
+                            policy_warmup_steps=1500)),
 }
 
 
@@ -108,8 +123,12 @@ def main() -> None:
                            "--format=csv,noheader"], capture_output=True,
                           text=True, timeout=60, check=True).stdout.strip()
     tree_cfg, net_cfg, cfg = CONFIGS[args.net]
-    tree = tree_lib.generate_tree(tree_cfg, seed=0, device="cuda")
-    run = rnad.RNaD(tree, cfg, net_cfg)
+    gen = (tree_lib.generate_tree_native if args.net == "flagship"
+           else tree_lib.generate_tree)
+    tree = gen(tree_cfg, seed=0, device="cuda")
+    runs = tempfile.TemporaryDirectory(prefix="profile_step_")
+    run = rnad.RNaD(tree, cfg, net_cfg, directory_name=args.net,
+                    runs_root=runs.name)
     run.initialize()
     for _ in range(3):
         run.train_step(run.state, 1.0)

@@ -382,11 +382,11 @@ def test_equinet_train_step_card_vs_cpu(dev):
 
 
 @pytest.mark.cuda
-def test_equinet_rnad_runs_on_the_card(dev):
+def test_equinet_rnad_runs_on_the_card(dev, tmp_path):
     tree = _tree("cpu")
     cfg = RNaDConfig(batch_size=1024, bounds=(2,), delta_m=(3,), lr=1e-3,
                      nashconv_chunk_nodes=40)
-    run = rnad.RNaD(tree, cfg, EQUI)
+    run = rnad.RNaD(tree, cfg, EQUI, runs_root=str(tmp_path))
     k = (fused_turn_lib.fused_turn.launches, lookup_lib.lookup.launches,
          rmplus_lib.rmplus.launches)
     run.run(log_mod=1)
@@ -402,10 +402,11 @@ def test_equinet_rnad_runs_on_the_card(dev):
 
 
 @pytest.mark.cuda
-def test_rnad_runs_on_the_card(dev):
+def test_rnad_runs_on_the_card(dev, tmp_path):
     tree = _tree("cpu")
     cfg = RNaDConfig(batch_size=1024, bounds=(2,), delta_m=(3,), lr=1e-3)
-    run = rnad.RNaD(tree, cfg, NetConfig(max_actions=3, width=64))
+    run = rnad.RNaD(tree, cfg, NetConfig(max_actions=3, width=64),
+                    runs_root=str(tmp_path))
     assert run.device.type == "cuda"
     k1, k2 = fused_turn_lib.fused_turn.launches, lookup_lib.lookup.launches
     run.run(log_mod=1)
@@ -418,3 +419,66 @@ def test_rnad_runs_on_the_card(dev):
     small = dataclasses.replace(cfg, batch_size=64)
     traj = rnad.rollout(run.state, run.tree, run.packed, small)
     assert traj.indices.is_cuda and engine.episode_returns(traj).abs().max() <= 1
+
+
+@pytest.mark.cuda
+def test_bf16_equinet_train_step_card_vs_cpu(dev):
+    """One bfloat16 EquiNet train step at 256 lanes on the card and on the
+    CPU from the same weights and noise: at most 2 % of the episodes part
+    (near-ties), the others equal, new weights within 2 lr."""
+    tree = _tree("cpu", depth=4)
+    net_cfg = dataclasses.replace(EQUI, compute_dtype="bfloat16")
+    cfg = RNaDConfig(batch_size=256, eta=0.5, lr=5e-5, logit_clip=2.0,
+                     lr_schedule="cosine", lr_decay_steps=15,
+                     lr_final_fraction=0.1)
+    gen = torch.Generator().manual_seed(3)
+    noise = [engine.turn_noise(256, 3, 2, gen, "cpu")
+             for _ in range(tree.max_depth)]
+    out = {}
+    for device in ("cpu", dev):
+        dtree = tree.to(device)
+        packed = stepping.make_packed_tables(dtree)
+        net = nets.build_net(net_cfg, torch.Generator().manual_seed(4))
+        state = rnad.init_train_state(net.to(device),
+                                      torch.Generator(device=device))
+        traj = rnad.rollout(state, dtree, packed, cfg, noise)
+        metrics = rnad.learn_step(state, packed, traj, 0.5, cfg)
+        assert torch.isfinite(metrics["loss"]).all()
+        out[str(device)] = (traj, [p.detach().cpu()
+                                   for p in state.net.parameters()])
+    (tc, pc), (tg, pg) = out["cpu"], out[str(dev)]
+    parted = (tc.actions != tg.actions.cpu()).any(0)
+    assert parted.float().mean() <= 0.02
+    for f in ("indices", "actions", "rewards"):
+        assert torch.equal(getattr(tc, f)[:, ~parted],
+                           getattr(tg, f).cpu()[:, ~parted]), f
+    for a, b in zip(pc, pg):
+        torch.testing.assert_close(b, a, rtol=0, atol=2 * cfg.lr)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("net_cfg", [
+    NetConfig(max_actions=3, width=64),
+    dataclasses.replace(EQUI, compute_dtype="bfloat16")])
+def test_resume_on_the_card_is_bit_exact(dev, tmp_path, net_cfg):
+    """A run resumed from checkpoint (0, 2) on the card ends on the weights
+    and generator state of the run that went straight through."""
+    tree = _tree("cpu")
+    cfg = RNaDConfig(batch_size=1024, bounds=(2,), delta_m=(3,), lr=1e-3,
+                     nashconv_chunk_nodes=40)
+    make = lambda name: rnad.RNaD(tree, cfg, net_cfg, directory_name=name,
+                                  runs_root=str(tmp_path))
+    straight = make("straight")
+    straight.run(checkpoint_mod=1)
+    cut = make("cut")
+    cut.run(max_updates=1, checkpoint_mod=1)  # 3 steps; latest is (0, 2)
+    assert cut.store.latest() == (0, 2)
+    resumed = make("cut")
+    resumed.run(checkpoint_mod=1)
+    assert resumed.state.total_steps == straight.state.total_steps == 6
+    for name in ("net", "net_target", "net_reg", "net_reg_"):
+        for p, q in zip(getattr(resumed.state, name).parameters(),
+                        getattr(straight.state, name).parameters()):
+            assert torch.equal(p, q), name
+    assert torch.equal(resumed.state.generator.get_state(),
+                       straight.state.generator.get_state())

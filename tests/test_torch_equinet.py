@@ -240,6 +240,12 @@ def test_init_distribution():
          solver_iters=16),
     dict(type="MLP", max_actions=5, width=256),
     dict(type="MLP", max_actions=3, width=4096),
+    # bfloat16: flagship-3's net (20,971-node chunks), a wide EquiNet, an MLP
+    dict(type="EquiNet", max_actions=5, channels=64, depth=2,
+         solver_iters=128, solver_prime=True, compute_dtype="bfloat16"),
+    dict(type="EquiNet", max_actions=5, channels=128, depth=4,
+         compute_dtype="bfloat16"),
+    dict(type="MLP", max_actions=3, width=4096, compute_dtype="bfloat16"),
 ])
 def test_inference_chunk_nodes_matches(cfg):
     want = jax_nets.inference_chunk_nodes(jax_nets.build_net(NetConfig(**cfg)),

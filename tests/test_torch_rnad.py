@@ -114,12 +114,12 @@ def test_rotation_copies_the_target(small_tree):
         assert torch.equal(p, q)
 
 
-def test_rnad_loop_schedule_and_eval(small_tree):
+def test_rnad_loop_schedule_and_eval(small_tree, tmp_path):
     tree = torch_tree(small_tree)
     cfg = torch_config.RNaDConfig(batch_size=64, bounds=(2,), delta_m=(3,),
                                   lr=1e-3, gamma_averaging=0.01)
     run = torch_rnad.RNaD(tree, cfg, torch_config.NetConfig(
-        max_actions=A, width=WIDTH), device="cpu")
+        max_actions=A, width=WIDTH), runs_root=str(tmp_path), device="cpu")
     run.run(log_mod=1)
     value = run.final_eval()
     assert run.state.total_steps == 6
@@ -137,8 +137,6 @@ def test_rnad_loop_schedule_and_eval(small_tree):
     ("n_batches_per_buffer", 4),
     ("buffer_mod", 2),
     ("vtrace_mode", "associative"),
-    ("reg_anchor", "best"),
-    ("lr_schedule", "cosine"),
 ])
 def test_unported_fields_raise(small_tree, field, value):
     tree = torch_tree(small_tree)

@@ -181,15 +181,17 @@ def test_fuse_mode_resolution():
     assert resolve(mlp, "off") == "off"
 
 
-def test_trainer_rejects_before_the_first_step(small_tree):
+def test_trainer_rejects_before_the_first_step(small_tree, tmp_path):
     tree = torch_tree(small_tree)
     for field, value in (("fuse_net_passes", "heads"),
                          ("rollout_rows_actor", "on")):
         run = torch_rnad.RNaD(
             tree, torch_config.RNaDConfig(batch_size=8, **{field: value}),
-            torch_config.NetConfig(**_net_kw(4, True)), device="cpu")
+            torch_config.NetConfig(**_net_kw(4, True)), directory_name=field,
+            runs_root=str(tmp_path), device="cpu")
         with pytest.raises(ValueError):
             run.initialize()
+        assert not run.store.exists()  # raised before touching the store
 
 
 def test_mlp_off_mode_equals_heads(small_tree):
@@ -239,13 +241,13 @@ def test_chunked_joint_policy(small_tree, chunk, jax_solves):
     assert abs(float(chunked.nashconv()) - float(ref.nashconv())) < 1e-4
 
 
-def test_rnad_equinet_loop_evaluates_in_chunks(small_tree):
+def test_rnad_equinet_loop_evaluates_in_chunks(small_tree, tmp_path):
     tree = torch_tree(small_tree)
     cfg = torch_config.RNaDConfig(batch_size=32, bounds=(2,), delta_m=(2,),
                                   lr=1e-3, nashconv_chunk_nodes=50)
     run = torch_rnad.RNaD(tree, cfg,
                           torch_config.NetConfig(**_net_kw(8, True)),
-                          device="cpu")
+                          runs_root=str(tmp_path), device="cpu")
     run.run(log_mod=1)
     value = run.final_eval()
     assert run.state.total_steps == 4
