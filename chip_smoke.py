@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Four phases, and any failure exits nonzero:
+Seven phases, and any failure exits nonzero:
 
 1. Build the three CUDA kernels from ``rnad_tpu_torch/csrc`` (one nvcc
    each, started together) and print the build time and ptxas's registers
@@ -51,6 +51,28 @@ Four phases, and any failure exits nonzero:
    Holds K2 and K3 against their plain versions at the path's learner
    shapes and times them; prints updates/s, device-busy ms a step, peak
    memory, the eval's wall time and the tree's generation time.
+6. Drive the buffered (off-policy) path through the train CLI:
+   r5-offpol-32k of docs/CONVERGENCE.md (``docs/runs/r5-offpol-32k.params.
+   json``), a width-256 MLP at 32768 lanes on phase 5's tree (reloaded
+   from its tree store) with ``--n-batches-per-buffer 4 --buffer-mod 2``,
+   cut to 20 learner steps and 2 evals (``--delta-m 10``; printed).  Checks
+   a rollout exactly on the steps rnad_tpu's rule gives (0, 2, ..., 18),
+   the buffer filling to 4 slots, per rollout 6 K1 launches and per
+   learner step one K2 launch, finite metrics and mean |return| <= 1; holds
+   K1 at (A = 5, W = 256, 32768 lanes) and K2 at one collated batch's
+   196,608 rows against their plain versions and times them against their
+   bounds; times learner updates/s; one sampled learner step on the card
+   against the CPU (same slots and lanes).
+7. Drive the noisy-lift ConvNet path through the train CLI: r5-noisy-conv
+   (``--demo --obs-lift 8 --obs-noise-sigma 0.15 --net ConvNet --channels
+   16 --net-depth 2``, 512 lanes) cut to 200 steps and 2 evals
+   (``--max-updates 2``), checkpoints every 50 steps.  Checks the demo
+   tree's hash, no K1 launch and one K2 launch a rollout turn (the learner
+   reads the stored lifted observations), stored observations of shape
+   (T, B, 9, 3, 3) whose channel 1 is the regathered legal matrix, a resume
+   at checkpoint (1, 50) ending on the straight run's weights and BatchNorm
+   statistics bitwise (cuDNN deterministic), and one ConvNet step and one
+   noisy-MLP step on the card against the CPU; times updates/s.
 
 It runs in a temporary working directory (the CLI writes ``saved_trees/``
 and ``saved_runs/`` under it).  It prints a ``{"kernels": [...]}`` line,
@@ -104,6 +126,22 @@ FLAGSHIP_STEPS = 20
 # (joint_policy_from_net + nashconv_root): its heads start at zero, so the
 # policy is the solve's, and only K3's rounding parts the port from it
 STEP0_NASHCONV, STEP0_ATOL = 0.0154796, 3.1e-4
+# r5-offpol-32k (docs/runs/r5-offpol-32k.params.json) on flagship-3's tree,
+# reloaded from phase 5's tree store, then its cuts
+OFFPOL_RUN = ["--load-tree", "flagship3", "--batch-size", "32768", "--eta",
+              "0.2", "--lr", "5e-4", "--gamma-avg", "0.001", "--bounds", "2",
+              "--n-batches-per-buffer", "4", "--buffer-mod", "2"]
+OFFPOL_CUTS = [("--delta-m", ["10"], "300")]
+OFFPOL_STEPS, OFFPOL_SLOTS, OFFPOL_MOD = 20, 4, 2
+# r5-noisy-conv (docs/runs/r5-noisy-conv.params.json): the demo tree of the
+# CLI's defaults, the lift and the ConvNet; its cut is --max-updates 2.  The
+# tree's hash is rnad_tpu's numpy-path hash of it (tests/test_torch_tree.py);
+# the run's params.json holds -3732021709909792432, the hash of the same
+# tree solved by rnad_tpu's native solver, whose float64 values differ in
+# their last bits
+NOISY_RUN = ["--demo", "--obs-lift", "8", "--obs-noise-sigma", "0.15",
+             "--net", "ConvNet", "--channels", "16", "--net-depth", "2"]
+NOISY_NODES, NOISY_HASH, NOISY_STEPS = 1648, 2168787413126214997, 200
 
 
 def log(msg: str) -> None:
@@ -308,15 +346,8 @@ def main() -> int:
 
     # bounds: the larger of bytes over HBM rate and FLOPs over f32 peak
     H = weights[0].shape[1]
-    din = 2 * A * A
-    k1_flops = 2.0 * B_MAIN * fused_turn_lib.operations(A, H)
-    k1_bytes = 4.0 * (B_MAIN + S * D + din * H + H + H * (A + 1) + A + 1
-                      + 2 * B_MAIN * A + B_MAIN * T  # noise
-                      + B_MAIN + 2 * B_MAIN * A + 2 * B_MAIN + B_MAIN
-                      + 2 * B_MAIN)  # outputs
-    k1_bound = max(k1_flops / F32_FLOPS, k1_bytes / HBM_BYTES_PER_S) * 1e3
-    k1_by = ("operations" if k1_flops / F32_FLOPS > k1_bytes / HBM_BYTES_PER_S
-             else "bytes")
+    k1_bound, k1_by, k1_flops, k1_bytes = k1_bound_of(
+        fused_turn_lib, A, H, B_MAIN, T, D, S)
     unique_rows = int(torch.unique(ids).numel())
     k2_bytes = 4.0 * (N_REGATHER + unique_rows * D + N_REGATHER * D)
     k2_bound = k2_bytes / HBM_BYTES_PER_S * 1e3
@@ -407,28 +438,41 @@ def main() -> int:
 
     # -- phase 5: the flagship path through the train CLI -----------------
     flag = flagship_phase(card, gen)
-    by_path = lambda mlp, equinet: {"mlp": mlp, "equinet": equinet}
+
+    # -- phase 6: the buffered path on the flagship's tree ----------------
+    offpol = offpol_phase(card, gen)
+
+    # -- phase 7: the noisy-lift ConvNet path -----------------------------
+    noisy = noisy_phase(card)
+    k1_by_path = {"mlp": k1_launches, "equinet": equi["k1"], "flagship": 0,
+                  "offpol": offpol["k1"], "noisy": 0}
+    k2_by_path = {"mlp": k2_launches, "equinet": equi["k2"],
+                  "flagship": flag["k2"], "offpol": offpol["k2"],
+                  "noisy": noisy["k2"]}
+    k3_by_path = {"mlp": 0, "equinet": equi["k3"], "flagship": flag["k3"],
+                  "offpol": 0, "noisy": 0}
     kernels = [
         {"name": "fused_turn", "route": "cuda",
          "source": "rnad_tpu_torch/csrc/fused_turn.cu",
          "replaces": "rnad_tpu/ops/pallas_turn.py:79",
-         "launches": k1_launches + equi["k1"],
-         "launches_by_path": by_path(k1_launches, equi["k1"]),
+         "launches": sum(k1_by_path.values()),
+         "launches_by_path": k1_by_path,
          "max_abs_err": k1_err, "ms": k1_ms,
          "plain_ms": k1_plain_ms, "bound_ms": k1_bound, "bound_by": k1_by,
          "library_ms": None, "near_ties": near_ties},
         {"name": "lookup", "route": "cuda",
          "source": "rnad_tpu_torch/csrc/lookup.cu",
          "replaces": "rnad_tpu/ops/pallas_lookup.py:45",
-         "launches": k2_launches + equi["k2"],
-         "launches_by_path": by_path(k2_launches, equi["k2"]),
+         "launches": sum(k2_by_path.values()),
+         "launches_by_path": k2_by_path,
          "max_abs_err": k2_err, "ms": k2_ms,
          "plain_ms": k2_plain_ms, "bound_ms": k2_bound, "bound_by": "bytes",
          "library_ms": k2_lib_ms},
         {"name": "rmplus", "route": "cuda",
          "source": "rnad_tpu_torch/csrc/rmplus.cu",
          "replaces": "rnad_tpu/ops/pallas_rmplus.py:52",
-         "launches": equi["k3"], "launches_by_path": by_path(0, equi["k3"]),
+         "launches": sum(k3_by_path.values()),
+         "launches_by_path": k3_by_path,
          "max_abs_err": k3["max_abs_err"], "ms": k3["ms"],
          "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
          "bound_by": k3["bound_by"], "library_ms": None,
@@ -446,6 +490,21 @@ def main() -> int:
          "replaces": "rnad_tpu/ops/pallas_rmplus.py:52",
          "launches": flag["k3"], "launches_by_path": {"flagship": flag["k3"]},
          **flag["rmplus"]},
+        {"name": "fused_turn (offpol shapes)", "route": "cuda",
+         "source": "rnad_tpu_torch/csrc/fused_turn.cu",
+         "replaces": "rnad_tpu/ops/pallas_turn.py:79",
+         "launches": offpol["k1"], "launches_by_path": {
+             "offpol": offpol["k1"]}, **offpol["fused_turn"]},
+        {"name": "lookup (offpol shapes)", "route": "cuda",
+         "source": "rnad_tpu_torch/csrc/lookup.cu",
+         "replaces": "rnad_tpu/ops/pallas_lookup.py:45",
+         "launches": offpol["k2"], "launches_by_path": {
+             "offpol": offpol["k2"]}, **offpol["lookup"]},
+        {"name": "lookup (noisy shapes)", "route": "cuda",
+         "source": "rnad_tpu_torch/csrc/lookup.cu",
+         "replaces": "rnad_tpu/ops/pallas_lookup.py:45",
+         "launches": noisy["k2"], "launches_by_path": {"noisy": noisy["k2"]},
+         **noisy["lookup"]},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
@@ -667,8 +726,6 @@ def flagship_phase(card, gen):
     """The flagship path (phase 5): two runs of the train CLI, the second a
     resume of the first, and the checks of the module docstring.  Returns
     the launch counts and the kernels line's entries at its shapes."""
-    import numpy as np
-
     from rnad_tpu_torch import train
     from rnad_tpu_torch.env import engine, solver_device
     from rnad_tpu_torch.learn import rnad
@@ -798,24 +855,7 @@ def flagship_phase(card, gen):
     state, packed = again.state, again.packed
     traj = rnad.rollout(state, tree, packed, cfg)
     ids = traj.indices[0::2].reshape(-1).contiguous()
-    k2 = check_lookup(lookup_lib, packed.rows, ids, "flagship learner")
-    S, D = packed.rows.shape
-    rows = int(torch.unique(ids).numel())
-    k2_bytes = 4.0 * (ids.numel() + rows * D + ids.numel() * D)
-    lookup = {"max_abs_err": k2,
-              "ms": device_ms(lambda: lookup_lib.lookup(packed.rows, ids)),
-              "plain_ms": device_ms(
-                  lambda: lookup_lib.lookup_plain(packed.rows, ids)),
-              "bound_ms": k2_bytes / HBM_BYTES_PER_S * 1e3,
-              "bound_by": "bytes",
-              "library_ms": device_ms(
-                  lambda: torch.index_select(packed.rows, 0, ids)),
-              "rows": ids.numel(), "table": [S, D], "distinct_rows": rows}
-    log(f"K2 lookup flagship learner ({ids.numel()} ids, {rows} distinct, "
-        f"table {S}x{D}): kernel {lookup['ms']:.4f} ms, plain "
-        f"{lookup['plain_ms']:.4f} ms, index_select {lookup['library_ms']:.4f}"
-        f" ms, bound {lookup['bound_ms']:.4f} ms (bytes), "
-        f"{100 * lookup['bound_ms'] / lookup['ms']:.1f} % of it")
+    lookup = lookup_entry(lookup_lib, packed.rows, ids, "flagship learner")
     obs, _ = engine.trajectory_observations(packed, traj)
     Mz, lr_, lc_ = _games_of(obs.reshape(-1, 2, A, A))
     args = (Mz.permute(1, 2, 0).contiguous(), lr_.t().contiguous(),
@@ -889,6 +929,427 @@ def flagship_phase(card, gen):
     cli_log.removeHandler(capture)
     return {"k2": counts["k2"], "k3": counts["k3"], "lookup": lookup,
             "rmplus": rm}
+
+
+def k1_bound_of(fused_turn_lib, A, H, B, T, D, rows):
+    """(ms, by, flops, bytes) of K1's bound: the larger of its operations
+    over the f32 peak and its bytes over the HBM rate, the bytes counting
+    each of the ``rows`` distinct packed rows of D floats it reads once."""
+    din = 2 * A * A
+    flops = 2.0 * B * fused_turn_lib.operations(A, H)
+    nbytes = 4.0 * (B + rows * D + din * H + H + H * (A + 1) + A + 1
+                    + 2 * B * A + B * T  # noise
+                    + B + 2 * B * A + 2 * B + B + 2 * B)  # outputs
+    by = ("operations" if flops / F32_FLOPS > nbytes / HBM_BYTES_PER_S
+          else "bytes")
+    return (max(flops / F32_FLOPS, nbytes / HBM_BYTES_PER_S) * 1e3, by,
+            flops, nbytes)
+
+
+def lookup_entry(lookup_lib, table, ids, label):
+    """K2 against its plain version on ``ids`` of ``table``, timed with its
+    plain version, ``torch.index_select`` and its byte bound (each id, each
+    distinct row and each output row once)."""
+    err = check_lookup(lookup_lib, table, ids, label)
+    S, D = table.shape
+    rows = int(torch.unique(ids).numel())
+    nbytes = 4.0 * (ids.numel() + rows * D + ids.numel() * D)
+    out = {"max_abs_err": err,
+           "ms": device_ms(lambda: lookup_lib.lookup(table, ids)),
+           "plain_ms": device_ms(lambda: lookup_lib.lookup_plain(table, ids)),
+           "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+           "library_ms": device_ms(lambda: torch.index_select(table, 0, ids)),
+           "rows": ids.numel(), "table": [S, D], "distinct_rows": rows}
+    log(f"K2 lookup {label} ({ids.numel()} ids, {rows} distinct, table "
+        f"{S}x{D}): kernel {out['ms']:.4f} ms, plain {out['plain_ms']:.4f} "
+        f"ms, index_select {out['library_ms']:.4f} ms, bound "
+        f"{out['bound_ms']:.4f} ms (bytes), "
+        f"{100 * out['bound_ms'] / out['ms']:.1f} % of it")
+    return out
+
+
+class _Recorder:
+    """Notes each rollout of the buffered step and each buffer plan (the
+    step count, the slots held) by wrapping ``learn/rnad.py::rollout`` and
+    ``TrajectoryBuffer.plan``; ``close`` restores them."""
+
+    def __init__(self):
+        from rnad_tpu_torch.learn import buffer as buffer_lib
+        from rnad_tpu_torch.learn import rnad
+
+        self.rollouts, self.fills = [], []
+        self._saved = (rnad.rollout, buffer_lib.TrajectoryBuffer.plan)
+        rollout, plan = self._saved
+
+        def record_rollout(state, *args, **kwargs):
+            self.rollouts.append(state.total_steps)
+            return rollout(state, *args, **kwargs)
+
+        def record_plan(buf, *args, **kwargs):
+            self.fills.append(len(buf))
+            return plan(buf, *args, **kwargs)
+
+        rnad.rollout = record_rollout
+        buffer_lib.TrajectoryBuffer.plan = record_plan
+
+    def close(self):
+        from rnad_tpu_torch.learn import buffer as buffer_lib
+        from rnad_tpu_torch.learn import rnad
+
+        rnad.rollout, buffer_lib.TrajectoryBuffer.plan = self._saved
+
+
+def offpol_phase(card, gen):
+    """The buffered path (phase 6): r5-offpol-32k through the train CLI on
+    phase 5's tree.  Returns the launch counts and the kernels line's
+    entries at its shapes."""
+    import numpy as np
+
+    from rnad_tpu_torch import train
+    from rnad_tpu_torch.env import engine
+    from rnad_tpu_torch.learn import buffer as buffer_lib
+    from rnad_tpu_torch.learn import rnad
+    from rnad_tpu_torch.models import nets
+    from rnad_tpu_torch.ops import fused_turn as fused_turn_lib
+    from rnad_tpu_torch.ops import lookup as lookup_lib
+    from rnad_tpu_torch.ops import rmplus as rmplus_lib
+
+    argv = OFFPOL_RUN + ["--log-mod", "1", "--name", "offpol32k"]
+    for flag, value, _ in OFFPOL_CUTS:
+        argv += [flag, *value]
+    log("offpol path: python -m rnad_tpu_torch.train " + " ".join(argv))
+    for flag, value, full in OFFPOL_CUTS:
+        log(f"  reduced from r5-offpol-32k: {flag} {' '.join(value)} "
+            f"(r5-offpol-32k: {full})")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    fused_turn_lib.fused_turn.launches = 0
+    lookup_lib.lookup.launches = 0
+    rmplus_lib.rmplus.launches = 0
+    recorder = _Recorder()
+    t0 = time.perf_counter()
+    try:
+        run = train.main(argv)
+        torch.cuda.synchronize()
+    finally:
+        recorder.close()
+    wall = time.perf_counter() - t0
+    counts = {"k1": fused_turn_lib.fused_turn.launches,
+              "k2": lookup_lib.lookup.launches,
+              "k3": rmplus_lib.rmplus.launches}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    tree, cfg = run.tree, run.cfg
+    md = tree.max_depth
+    steps = run.state.total_steps
+    losses = [m for _, m in run.history if "loss" in m]
+    evals = [m["nashconv"] for _, m in run.history if "nashconv" in m]
+    log(f"offpol path: {steps} learner steps, {len(recorder.rollouts)} "
+        f"rollouts (at steps {recorder.rollouts}), buffer held "
+        f"{recorder.fills} slots, {len(evals)} NashConv evals in {wall:.2f} s"
+        f" with the tree's load; launches K1 {counts['k1']}, K2 "
+        f"{counts['k2']}, K3 {counts['k3']}; peak device memory {peak:.3f} "
+        f"GiB")
+    log(f"  loss first {losses[0]['loss']:.6f} last {losses[-1]['loss']:.6f};"
+        f" NashConv " + ", ".join(f"{v:.6f}" for v in evals))
+    if (tree.size, md, tree.hash) != (FLAGSHIP_NODES, FLAGSHIP_DEPTH,
+                                      FLAGSHIP_HASH):
+        raise AssertionError(f"offpol tree: S={tree.size} hash={tree.hash}")
+    if steps != OFFPOL_STEPS or len(losses) != OFFPOL_STEPS:
+        raise AssertionError(f"expected {OFFPOL_STEPS} offpol steps, ran "
+                             f"{steps}")
+    # rnad_tpu's rule: a rollout when the buffer is empty or the step count
+    # is a multiple of buffer_mod; at most n_batches_per_buffer slots
+    want_rollouts = list(range(0, OFFPOL_STEPS, OFFPOL_MOD))
+    want_fills = [min(OFFPOL_SLOTS, s // OFFPOL_MOD + 1)
+                  for s in range(OFFPOL_STEPS)]
+    if recorder.rollouts != want_rollouts or recorder.fills != want_fills:
+        raise AssertionError(f"offpol buffer: rollouts {recorder.rollouts}, "
+                             f"fills {recorder.fills}")
+    bad = [(k, v) for m in losses for k, v in m.items()
+           if not math.isfinite(v)]
+    if bad or len(evals) != 2 or not all(math.isfinite(v) for v in evals):
+        raise AssertionError(f"offpol metrics: {bad}, evals {evals}")
+    want = {"k1": md * len(want_rollouts), "k2": OFFPOL_STEPS, "k3": 0}
+    if counts != want:
+        raise AssertionError(f"offpol launches {counts}, want {want}")
+
+    # K1 at the path's shape, on the run's weights and the lanes of one
+    # rollout turn; K2 at one collated batch's regather
+    state, packed = run.state, run.packed
+    A, T = tree.max_actions, tree.max_transitions
+    traj = rnad.rollout(state, tree, packed, cfg)
+    mean_abs = float(engine.episode_returns(traj).abs().mean())
+    if not mean_abs <= 1.0:
+        raise AssertionError(f"offpol rollout: mean |return| {mean_abs}")
+    log(f"checks: mean |episode return| {mean_abs:.4f}")
+    B = cfg.batch_size
+    weights = [w.detach().contiguous()
+               for w in nets.mlp_fused_weights(state.net)]
+    idx = traj.indices[4].contiguous()  # the third turn's lanes
+    g_act, g_ch = engine.turn_noise(B, A, T, gen, traj.indices.device)
+    turn_args = [packed.rows, *weights, idx, g_act, g_ch]
+    k1_err, near = check_fused_turn(fused_turn_lib, turn_args, A, T)
+    D = packed.rows.shape[1]
+    H = weights[0].shape[1]
+    rows = int(torch.unique(idx).numel())
+    bound, by, flops, nbytes = k1_bound_of(fused_turn_lib, A, H, B, T, D,
+                                           rows)
+    k1 = {"max_abs_err": k1_err,
+          "ms": device_ms(lambda: fused_turn_lib.fused_turn(*turn_args, A=A,
+                                                             T=T)),
+          "plain_ms": device_ms(lambda: fused_turn_lib.fused_turn_plain(
+              *turn_args, A=A, T=T)),
+          "bound_ms": bound, "bound_by": by, "library_ms": None,
+          "near_ties": near, "lanes": B, "width": H // 2, "A": A}
+    log(f"K1 fused_turn offpol (A={A}, W={H // 2}, {B} lanes, {rows} distinct"
+        f" rows): kernel {k1['ms']:.4f} ms, plain {k1['plain_ms']:.4f} ms, "
+        f"bound {bound:.4f} ms ({by}; {flops:.4g} FLOP, "
+        f"{fused_turn_lib.operations(A, H)} a (lane, seat) row; {nbytes:.4g}"
+        f" B), {100 * bound / k1['ms']:.1f} % of it")
+    buf = buffer_lib.TrajectoryBuffer(OFFPOL_SLOTS)
+    for _ in range(OFFPOL_SLOTS):
+        buf.append(rnad.rollout(state, tree, packed, cfg))
+    slots, lanes = buf.plan(B, np.random.default_rng(0))
+    batch = buffer_lib.collate_slots(slots, lanes)
+    ids = batch.indices[0::2].reshape(-1).contiguous()
+    k2 = lookup_entry(lookup_lib, packed.rows, ids, "offpol collated batch")
+    del buf, slots, lanes, batch, traj, turn_args
+
+    held = buffer_lib.TrajectoryBuffer(OFFPOL_SLOTS)
+    for _ in range(OFFPOL_SLOTS):
+        held.append(rnad.rollout(state, tree, packed, cfg))
+    step = lambda: run._buffered_step(held, 1.0)
+    step_runs = sorted(wall_ms(step, iters=10) for _ in range(3))
+    step_dev_ms = device_ms(step, iters=10)
+    log(f"offpol throughput: {1e3 / step_runs[1]:.6g} learner updates/s back "
+        f"to back, a rollout every {cfg.buffer_mod} ({step_runs[1]:.4f} ms a "
+        f"step, runs " + "/".join(f"{x:.4f}" for x in step_runs)
+        + f" ms), device busy {step_dev_ms:.4f} ms a step "
+        f"({100 * (1 - step_dev_ms / step_runs[1]):.1f} % idle); peak memory "
+        f"{peak:.3f} GiB | {card}")
+    del held
+    check_buffered_against_cpu(tree.to("cpu"), cfg, run.net_config)
+    return {"k1": counts["k1"], "k2": counts["k2"], "fused_turn": k1,
+            "lookup": k2}
+
+
+def check_buffered_against_cpu(tree, cfg, net_cfg) -> None:
+    """One sampled learner step at 256 lanes a slot on the card (kernels)
+    and on the CPU (plain versions): three rollouts from the same weights
+    and noise (equal episodes), the same slots and lanes, then the learner
+    step on the collated batch: losses within rtol 1e-4, new weights within
+    1e-4 (check_against_cpu's tolerances)."""
+    import numpy as np
+
+    from rnad_tpu_torch.env import engine
+    from rnad_tpu_torch.learn import buffer as buffer_lib
+    from rnad_tpu_torch.learn import rnad
+    from rnad_tpu_torch.models import nets
+    from rnad_tpu_torch.ops import stepping
+
+    B = 256
+    small = dataclasses.replace(cfg, batch_size=B)
+    A, T, md = tree.max_actions, tree.max_transitions, tree.max_depth
+    gen = torch.Generator().manual_seed(3)
+    noise = [[engine.turn_noise(B, A, T, gen, "cpu") for _ in range(md)]
+             for _ in range(3)]
+    out = {}
+    for device in ("cpu", "cuda"):
+        dtree = tree.to(device)
+        packed = stepping.make_packed_tables(dtree)
+        net = nets.build_net(net_cfg, torch.Generator().manual_seed(4))
+        state = rnad.init_train_state(net.to(device),
+                                      torch.Generator(device=device))
+        buf = buffer_lib.TrajectoryBuffer(OFFPOL_SLOTS)
+        for slot_noise in noise:
+            buf.append(rnad.rollout(state, dtree, packed, small, slot_noise))
+        slots, lanes = buf.plan(B, np.random.default_rng(7))
+        metrics = rnad.learn_step(state, packed,
+                                  buffer_lib.collate_slots(slots, lanes), 0.5,
+                                  small)
+        out[device] = (slots, metrics, [p.detach().cpu()
+                                        for p in state.net.parameters()])
+    (sc, mc, pc), (sg, mg, pg) = out["cpu"], out["cuda"]
+    for a, b in zip(sc, sg, strict=True):
+        for f in ("indices", "actions", "rewards"):
+            if not torch.equal(getattr(a, f), getattr(b, f).cpu()):
+                raise AssertionError(f"offpol card vs CPU: slot {f} differ")
+    for k in ("loss", "loss_v", "loss_nerd"):
+        a, b = float(mc[k]), float(mg[k])
+        if abs(a - b) > 1e-4 * max(abs(a), 1e-6):
+            raise AssertionError(f"offpol card vs CPU: {k} {b} vs {a}")
+    err = max(float((a - b).abs().max()) for a, b in zip(pc, pg))
+    if not err <= 1e-4:
+        raise AssertionError(f"offpol card vs CPU: weights differ by {err}")
+    log(f"offpol card vs CPU: one sampled learner step over 3 slots of {B} "
+        f"lanes agrees (episodes equal, same lanes, weights max_abs_err "
+        f"{err:.3g}; loss {float(mg['loss']):.6f}, CPU "
+        f"{float(mc['loss']):.6f})")
+
+
+def noisy_phase(card):
+    """The noisy-lift ConvNet path (phase 7): r5-noisy-conv through the
+    train CLI, a resume from its run store, stored observations, and one
+    ConvNet and one noisy-MLP step on the card against the CPU.  Returns the
+    launch counts and K2's kernels-line entry at the path's shape."""
+    from rnad_tpu_torch import train
+    from rnad_tpu_torch.env import engine
+    from rnad_tpu_torch.learn import rnad
+    from rnad_tpu_torch.ops import fused_turn as fused_turn_lib
+    from rnad_tpu_torch.ops import lookup as lookup_lib
+    from rnad_tpu_torch.ops import rmplus as rmplus_lib
+
+    argv = NOISY_RUN + ["--log-mod", "20", "--name", "noisyconv",
+                        "--checkpoint-mod", "50"]
+    cut = argv + ["--max-updates", "2"]
+    log("noisy path: python -m rnad_tpu_torch.train " + " ".join(cut))
+    log("  reduced from r5-noisy-conv: --max-updates 2 (r5-noisy-conv: 64, "
+        "the --demo schedule); --checkpoint-mod 50 (1000, the CLI's "
+        "default), so that a resume has a checkpoint")
+    fused_turn_lib.fused_turn.launches = 0
+    lookup_lib.lookup.launches = 0
+    rmplus_lib.rmplus.launches = 0
+    t0 = time.perf_counter()
+    run = train.main(cut)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {"k1": fused_turn_lib.fused_turn.launches,
+              "k2": lookup_lib.lookup.launches,
+              "k3": rmplus_lib.rmplus.launches}
+    tree, cfg = run.tree, run.cfg
+    md, A = tree.max_depth, tree.max_actions
+    steps = run.state.total_steps
+    losses = [m for _, m in run.history if "loss" in m]
+    evals = [m["nashconv"] for _, m in run.history if "nashconv" in m]
+    log(f"noisy path: tree S={tree.size} max_depth={md} hash={tree.hash}; "
+        f"{steps} train steps + {len(evals)} NashConv evals in {wall:.2f} s "
+        f"with the tree's generation; launches K1 {counts['k1']}, K2 "
+        f"{counts['k2']}, K3 {counts['k3']}")
+    log(f"  loss first {losses[0]['loss']:.6f} last {losses[-1]['loss']:.6f};"
+        f" NashConv " + ", ".join(f"{v:.6f}" for v in evals))
+    if (tree.size, tree.hash) != (NOISY_NODES, NOISY_HASH):
+        raise AssertionError(f"noisy tree: S={tree.size} hash={tree.hash}, "
+                             f"want {NOISY_NODES}, {NOISY_HASH}")
+    if steps != NOISY_STEPS:
+        raise AssertionError(f"expected {NOISY_STEPS} noisy steps, ran "
+                             f"{steps}")
+    bad = [(k, v) for m in losses for k, v in m.items()
+           if not math.isfinite(v)]
+    if bad or len(evals) != 2 or not all(math.isfinite(v) for v in evals):
+        raise AssertionError(f"noisy metrics: {bad}, evals {evals}")
+    want = {"k1": 0, "k2": NOISY_STEPS * md, "k3": 0}
+    if counts != want:
+        raise AssertionError(f"noisy launches {counts}, want {want}")
+    first = {name: [t.detach().clone() for t in
+                    getattr(run.state, name).state_dict().values()]
+             for name in ("net", "net_target")}
+
+    # stored observations: the lift's, with the legal matrix at channel 1
+    tf = run.obs_transform
+    traj = rnad.rollout(run.state, tree, run.packed, cfg, obs_transform=tf)
+    B = cfg.batch_size
+    C = tf.channels + 1
+    raw, _ = engine.trajectory_observations(
+        run.packed, dataclasses.replace(traj, obs=None))
+    if (tuple(traj.obs.shape) != (2 * md, B, C, A, A)
+            or not torch.equal(traj.obs[:, :, 1], raw[:, :, 1])):
+        raise AssertionError(f"stored obs {tuple(traj.obs.shape)}, or its "
+                             "channel 1 is not the legal matrix")
+    mean_abs = float(engine.episode_returns(traj).abs().mean())
+    if not mean_abs <= 1.0:
+        raise AssertionError(f"noisy rollout: mean |return| {mean_abs}")
+    log(f"checks: stored obs {tuple(traj.obs.shape)}, channel 1 equal to the "
+        f"regathered legal matrix; mean |episode return| {mean_abs:.4f}")
+    ids = traj.indices[2].contiguous()  # the second turn's lanes
+    k2 = lookup_entry(lookup_lib, run.packed.rows, ids, "noisy turn")
+
+    # the resume: checkpoint (1, 50), the last 50 steps again
+    first_eval = evals[-1]
+    del run, traj, raw
+    again = train.main(argv + ["--max-updates", "1"])
+    again_steps = [s for s, m in again.history if "loss" in m]
+    if again_steps[0] != 161 or again.state.total_steps != NOISY_STEPS:
+        raise AssertionError(f"the resumed run logged steps {again_steps}, "
+                             f"ended at {again.state.total_steps}")
+    for name, tensors in first.items():
+        resumed = getattr(again.state, name).state_dict().values()
+        if not all(torch.equal(a, b) for a, b in zip(tensors, resumed)):
+            err = max(float((a - b).abs().max())
+                      for a, b in zip(tensors, resumed))
+            raise AssertionError(f"noisy resume: {name} weights or BatchNorm "
+                                 f"statistics not bitwise equal ({err:.3g})")
+    log(f"  resume at checkpoint (1, 50): the last 50 steps again end on the "
+        f"same weights and BatchNorm statistics, bitwise; final NashConv "
+        f"{again.history[-1][1]['nashconv']:.7f} (first run "
+        f"{first_eval:.7f})")
+    # no device_ms here: a step launches more kernels than the launch queue
+    # holds, so no sleep hides the host (profile_step.py has the trace)
+    step = lambda: again.train_step(again.state, 1.0)
+    step_runs = sorted(wall_ms(step, iters=20) for _ in range(3))
+    log(f"noisy-conv throughput: train {1e3 / step_runs[1]:.6g} updates/s "
+        f"back to back ({step_runs[1]:.4f} ms per step, runs "
+        + "/".join(f"{x:.4f}" for x in step_runs) + f" ms) | {card}")
+    cpu_tree = tree.to("cpu")
+    check_lift_against_cpu(cpu_tree, cfg, again.net_config)
+    check_lift_against_cpu(cpu_tree, cfg, dataclasses.replace(
+        again.net_config, type="MLP", depth=1))  # one noisy-MLP step
+    return {"k2": counts["k2"], "lookup": k2}
+
+
+def check_lift_against_cpu(tree, cfg, net_cfg) -> None:
+    """One train step under the lift at the config's lanes on the card and
+    on the CPU from the same weights and noise (the lift's eps included):
+    equal episodes, stored observations within 1e-5, losses within rtol
+    1e-4, new weights and BatchNorm statistics within 1e-4."""
+    from rnad_tpu_torch.env import engine
+    from rnad_tpu_torch.learn import rnad
+    from rnad_tpu_torch.models import nets
+    from rnad_tpu_torch.ops import obs_transform as obs_transform_lib
+    from rnad_tpu_torch.ops import stepping
+
+    B = cfg.batch_size
+    A, T, md = tree.max_actions, tree.max_transitions, tree.max_depth
+    gen = torch.Generator().manual_seed(3)
+    channels = cfg.obs_transform.channels
+    noise = [engine.turn_noise(B, A, T, gen, "cpu", channels)
+             for _ in range(md)]
+    out = {}
+    for device in ("cpu", "cuda"):
+        dtree = tree.to(device)
+        packed = stepping.make_packed_tables(dtree)
+        tf = rnad.resolve_obs_transform(net_cfg, dtree, cfg)
+        net = nets.build_net(net_cfg, torch.Generator().manual_seed(4),
+                             obs_transform_lib.out_channels(cfg.obs_transform))
+        state = rnad.init_train_state(net.to(device),
+                                      torch.Generator(device=device))
+        traj = rnad.rollout(state, dtree, packed, cfg, noise, tf)
+        metrics = rnad.learn_step(state, packed, traj, 0.5, cfg)
+        out[device] = (traj, metrics, [t.detach().cpu() for name in
+                                       ("net", "net_target") for t in
+                                       getattr(state, name).state_dict()
+                                       .values()])
+    (tc, mc, pc), (tg, mg, pg) = out["cpu"], out["cuda"]
+    for f in ("indices", "actions", "rewards"):
+        if not torch.equal(getattr(tc, f), getattr(tg, f).cpu()):
+            raise AssertionError(f"{net_cfg.type} lift card vs CPU: "
+                                 f"trajectory {f} differ")
+    obs_err = float((tc.obs - tg.obs.cpu()).abs().max())
+    if not obs_err <= 1e-5:
+        raise AssertionError(f"lift card vs CPU: stored obs differ by "
+                             f"{obs_err}")
+    for k in ("loss", "loss_v", "loss_nerd"):
+        a, b = float(mc[k]), float(mg[k])
+        if abs(a - b) > 1e-4 * max(abs(a), 1e-6):
+            raise AssertionError(f"lift card vs CPU: {k} {b} vs {a}")
+    err = max(float((a - b).abs().max()) for a, b in zip(pc, pg))
+    if not err <= 1e-4:
+        raise AssertionError(f"{net_cfg.type} lift card vs CPU: weights or "
+                             f"statistics differ by {err}")
+    log(f"{net_cfg.type} lift card vs CPU: one step at {B} lanes agrees "
+        f"(episodes equal, stored obs max_abs_err {obs_err:.3g}, weights and"
+        f" statistics of the learner and the target max_abs_err {err:.3g}; "
+        f"loss {float(mg['loss']):.6f}, CPU {float(mc['loss']):.6f})")
 
 
 def check_equinet_against_cpu(tree, cfg, net_cfg, card="cuda",

@@ -81,14 +81,17 @@ class TreeConfig:
 
 @dataclasses.dataclass(frozen=True)
 class ObsTransformConfig:
-    """Noisy high-dimensional observation transform (not ported yet: only
-    ``kind="none"`` runs)."""
+    """Noisy high-dimensional observation transform
+    (``ops/obs_transform.py``).  ``kind="lift"``: each half-step
+    observation becomes ``channels`` seeded, mixed, biased views of the
+    payoff and legal matrices plus fresh Gaussian noise of std ``sigma``;
+    the raw legal matrix rides along at channel 1."""
 
     kind: str = "none"  # "none" | "lift"
-    channels: int = 8
-    sigma: float = 0.1
-    bias_scale: float = 1.0
-    seed: int = 0
+    channels: int = 8  # lifted channels (net input channels = this + 1)
+    sigma: float = 0.1  # per-half-step Gaussian noise std
+    bias_scale: float = 1.0  # scale of the fixed random spatial bias field
+    seed: int = 0  # the transform's own parameter seed
 
     def to_json(self) -> dict:
         return dataclasses.asdict(self)
@@ -101,7 +104,7 @@ class ObsTransformConfig:
 @dataclasses.dataclass(frozen=True)
 class NetConfig:
     """Network architecture selection (the port runs the depth-1 MLP and
-    the EquiNet, each in float32 or bfloat16)."""
+    the EquiNet, each in float32 or bfloat16, and the float32 ConvNet)."""
 
     type: str = "MLP"  # "MLP" | "ConvNet" | "EquiNet"
     max_actions: int = 3
@@ -160,8 +163,10 @@ class RNaDConfig:
     # does on the other pairs.
     fuse_net_passes: str = "auto"
     detailed_metrics: bool = True
-    # Both settings give bit-identical updates in rnad_tpu; the port's
-    # rollout never stores observations and the learner regathers them.
+    # Both settings give bit-identical updates on raw observations in
+    # rnad_tpu; the port's rollout stores observations only under an
+    # obs_transform (which requires True) and otherwise the learner
+    # regathers them.
     store_rollout_obs: bool = True
     rollout_rows_actor: str = "auto"
     rollout_actor_dtype: str = "float32"

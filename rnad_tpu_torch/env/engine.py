@@ -8,11 +8,14 @@ reward 0) means no masking mid-rollout; validity is ``indices != 0``.
 Both turns take the same noise and, given equal logits, play the same
 episodes.
 
-A ``Trajectory`` stores only state indices, the mover's behavior policy,
-sampled action ids, rewards and value estimates.  Observations are pure
+A ``Trajectory`` stores state indices, the mover's behavior policy,
+sampled action ids, rewards and value estimates.  Raw observations are pure
 functions of the state index, so the learner regathers them from the packed
 table (``trajectory_observations``, kernel K2 on the card), as ``rnad_tpu``
-does with ``store_rollout_obs=False``.
+does with ``store_rollout_obs=False``.  Under an observation transform
+(``ops/obs_transform.py``) the rollout also stores each half-step's lifted,
+noisy observation (``Trajectory.obs``): the noise is no function of the
+state, and the learner must read the bits the actor saw.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ from torch import nn
 from ..models import common, nets
 from ..ops import fused_turn as fused_turn_lib
 from ..ops import stepping
+from ..ops.obs_transform import ObsTransform
 from .tree import GameTree
 
 _TINY = torch.finfo(torch.float32).tiny
@@ -45,6 +49,10 @@ class Trajectory:
     actions: torch.Tensor  # (T, B) int32, sampled action ids
     rewards: torch.Tensor  # (T, B) f32, row-player reward (zero-sum)
     values: torch.Tensor  # (T, B) f32, actor value estimates (mover's POV)
+    # (T, B, C + 1, A, A) the mover's lifted observation, stored under an
+    # observation transform only; channel 1 is the legal matrix, so the
+    # mover's mask is obs[..., 1, :, 0]
+    obs: Optional[torch.Tensor] = None
 
     @property
     def num_half_steps(self) -> int:
@@ -84,21 +92,30 @@ def gumbel(shape, generator: Optional[torch.Generator],
 
 
 def turn_noise(batch_size: int, A: int, T: int,
-               generator: Optional[torch.Generator], device
-               ) -> Tuple[torch.Tensor, torch.Tensor]:
+               generator: Optional[torch.Generator], device,
+               channels: Optional[int] = None) -> Tuple[torch.Tensor, ...]:
     """One turn's noise: ``g_act`` (2B, A), then ``g_chance`` drawn as
     (T, B) and transposed to (B, T), the shapes and order of the TPU
-    kernel (``rollout_fused``)."""
+    kernel (``rollout_fused``).  With ``channels`` (an observation
+    transform's lifted channel count) the unit Gaussian ``eps`` (2B,
+    channels, A, A) of both seats' lifts follows."""
     g_act = gumbel((2 * batch_size, A), generator, device)
     g_ch = gumbel((T, batch_size), generator, device).t().contiguous()
-    return g_act, g_ch
+    if channels is None:
+        return g_act, g_ch
+    eps = torch.randn((2 * batch_size, channels, A, A), generator=generator,
+                      device=device, dtype=torch.float32)
+    return g_act, g_ch, eps
 
 
 def trajectory_observations(packed: stepping.PackedTables, traj: Trajectory
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Re-derives per-half-step observations (T, B, 2, A, A) and mover
-    legal masks (T, B, A) with one lookup of the (T/2)*B turn states; even
+    """Per-half-step observations (T, B, C, A, A) and mover legal masks
+    (T, B, A): the stored ones where the trajectory holds them, else
+    re-derived (C = 2) with one lookup of the (T/2)*B turn states; even
     half-steps get the row seat's view, odd ones the col seat's."""
+    if traj.obs is not None:
+        return traj.obs, traj.obs[..., 1, :, 0].float()
     T, B = traj.indices.shape
     n_turns = T // 2
     rows = stepping.lookup(packed, traj.indices[0::2].reshape(-1))
@@ -114,17 +131,28 @@ def trajectory_observations(packed: stepping.PackedTables, traj: Trajectory
     return pair(row_obs, col_obs), pair(row_mask, col_mask)
 
 
-def uses_fused_turn(net: nn.Module, mode: str = "auto") -> bool:
+def uses_fused_turn(net: nn.Module, mode: str = "auto",
+                    transform: bool = False) -> bool:
     """Resolves ``RNaDConfig.rollout_rows_actor`` as ``rnad_tpu``'s
     ``resolve_rows_actor`` does: "auto" takes kernel K1 exactly where it
-    exists (the depth-1 float32 MLP, on the card at a width whose weights
-    K1 holds in shared memory, or on the CPU) and the generic turn for
-    every other net; "off" takes the generic turn; "on" with another net
-    (a bfloat16 MLP included: K1 computes in float32) raises
-    ``make_mlp_rows_actor``'s error, and on the card at too wide an MLP K1
-    raises."""
+    exists (the depth-1 float32 MLP on raw observations, on the card at a
+    width whose weights K1 holds in shared memory, or on the CPU) and the
+    generic turn for every other net or under an observation
+    ``transform``; "off" takes the generic turn; "on" with another net (a
+    bfloat16 MLP included: K1 computes in float32) raises
+    ``make_mlp_rows_actor``'s error, under a transform rnad_tpu's error,
+    and on the card at too wide an MLP K1 raises."""
     fusable = isinstance(net, nets.MLP) and net.dtype == torch.float32
     if mode == "off":
+        return False
+    if transform:
+        # K1 reads raw packed rows, bypassing the observation path the
+        # transform lives on
+        if mode == "on":
+            raise ValueError(
+                "rollout_rows_actor='on' is incompatible with an active "
+                "obs_transform (the seat-fused packing bypasses the "
+                "observation path); use 'auto' or 'off'")
         return False
     if mode == "on":
         if not isinstance(net, nets.MLP):
@@ -147,17 +175,24 @@ def uses_fused_turn(net: nn.Module, mode: str = "auto") -> bool:
 
 def generic_turn(packed: stepping.PackedTables, net: nn.Module,
                  indices: torch.Tensor, g_act: torch.Tensor,
-                 g_chance: torch.Tensor):
+                 g_chance: torch.Tensor,
+                 obs_transform: Optional[ObsTransform] = None,
+                 eps: Optional[torch.Tensor] = None):
     """One turn for any net (``rnad_tpu``'s generic turn): the lanes'
     packed rows (K2), both seats' observations as one (2B, 2, A, A) batch
-    through ``net`` (for a solver EquiNet, one K3 launch), the masked
-    policy, Gumbel-max actions ``argmax(masked logits + g_act)`` and the
-    transition with ``g_chance``.  Returns what ``fused_turn`` returns."""
+    (lifted with the noise ``eps`` under ``obs_transform``) through ``net``
+    (for a solver EquiNet, one K3 launch), the masked policy, Gumbel-max
+    actions ``argmax(masked logits + g_act)`` and the transition with
+    ``g_chance``.  Returns what ``fused_turn`` returns, then the (2B, C, A,
+    A) observations the net saw."""
     A = packed.max_actions
     B = indices.shape[0]
     rows = stepping.lookup(packed, indices)
     row_obs, col_obs = stepping.slice_observations(packed, rows)
-    logits, values = net(torch.cat([row_obs, col_obs], dim=0))
+    obs = torch.cat([row_obs, col_obs], dim=0)
+    if obs_transform is not None:
+        obs = obs_transform.apply(obs, eps)
+    logits, values = net(obs)
     row_mask, col_mask = stepping.slice_action_masks(packed, rows)
     legal = torch.cat([row_mask, col_mask], dim=0)  # (2B, A)
     policy = common.masked_policy(logits, legal).reshape(2, B, A)
@@ -166,7 +201,7 @@ def generic_turn(packed: stepping.PackedTables, net: nn.Module,
     new_idx, rewards = stepping.select_transition(
         packed, rows, actions[:B], actions[B:], g_chance)
     return (new_idx, policy, actions.reshape(2, B), rewards,
-            values.reshape(2, B))
+            values.reshape(2, B), obs)
 
 
 @torch.no_grad()
@@ -176,43 +211,53 @@ def rollout_from(tree: GameTree, packed: stepping.PackedTables,
                  noise: Optional[Sequence[Tuple[torch.Tensor,
                                                 torch.Tensor]]] = None,
                  generator: Optional[torch.Generator] = None,
-                 rows_actor: str = "auto") -> Trajectory:
+                 rows_actor: str = "auto",
+                 obs_transform: Optional[ObsTransform] = None,
+                 obs_dtype: torch.dtype = torch.float32) -> Trajectory:
     """Plays ``num_turns`` turns (default ``tree.max_depth``) from the
     per-lane states ``init_indices`` (B,) under ``net``'s policy, each turn
     through kernel K1 or the generic turn as ``uses_fused_turn`` resolves
-    ``rows_actor``.
+    ``rows_actor``.  A ConvNet acts on its BatchNorm running averages.
 
-    ``noise`` gives each turn's ``(g_act (2B, A), g_chance (B, T))``; if it
-    is None they are drawn from ``generator`` on the tree's device."""
+    ``noise`` gives each turn's ``(g_act (2B, A), g_chance (B, T))``, and
+    under ``obs_transform`` also the lift's ``eps`` (2B, C, A, A); if it is
+    None they are drawn from ``generator`` on the tree's device
+    (``turn_noise``).  Under ``obs_transform`` the trajectory stores the
+    lifted observations the net saw, in ``obs_dtype``."""
     if num_turns is None:
         num_turns = tree.max_depth
     A, T = packed.max_actions, packed.max_transitions
     B = init_indices.shape[0]
     device = packed.rows.device
-    if uses_fused_turn(net, rows_actor):
+    channels = None if obs_transform is None else obs_transform.channels
+    if uses_fused_turn(net, rows_actor, obs_transform is not None):
         weights = [w.detach().contiguous()
                    for w in nets.mlp_fused_weights(net)]
         turn = lambda idx, g_act, g_ch: fused_turn_lib.fused_turn(
-            packed.rows, *weights, idx, g_act, g_ch, A=A, T=T)
+            packed.rows, *weights, idx, g_act, g_ch, A=A, T=T) + (None,)
     else:
-        turn = lambda idx, g_act, g_ch: generic_turn(packed, net, idx, g_act,
-                                                     g_ch)
+        turn = lambda idx, g_act, g_ch, eps=None: generic_turn(
+            packed, net, idx, g_act, g_ch, obs_transform, eps)
     indices = init_indices.to(device=device, dtype=torch.int32).contiguous()
     recs = []
     for t in range(num_turns):
         if noise is None:
-            g_act, g_ch = turn_noise(B, A, T, generator, device)
+            step_noise = turn_noise(B, A, T, generator, device, channels)
         else:
-            g_act, g_ch = (g.to(device=device, dtype=torch.float32)
-                           .contiguous() for g in noise[t])
-        new_idx, policy, actions, rewards, values = turn(indices, g_act, g_ch)
+            step_noise = [g.to(device=device, dtype=torch.float32)
+                          .contiguous() for g in noise[t]]
+        new_idx, policy, actions, rewards, values, obs = turn(indices,
+                                                              *step_noise)
         recs.append((torch.stack([indices, indices]), policy, actions,
                      torch.stack([torch.zeros_like(rewards), rewards]),
-                     values))
+                     values,
+                     None if obs_transform is None else
+                     obs.to(obs_dtype).reshape((2, B) + obs.shape[1:])))
         indices = new_idx
     cat = lambda i: torch.cat([r[i] for r in recs], 0)
     return Trajectory(indices=cat(0), policy=cat(1), actions=cat(2),
-                      rewards=cat(3), values=cat(4))
+                      rewards=cat(3), values=cat(4),
+                      obs=None if obs_transform is None else cat(5))
 
 
 def episode_returns(traj: Trajectory) -> torch.Tensor:

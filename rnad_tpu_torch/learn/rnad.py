@@ -1,14 +1,16 @@
-"""R-NaD trainer: the fused on-policy train step and the host schedule loop.
+"""R-NaD trainer: the fused on-policy train step, the buffered (off-policy)
+step and the host schedule loop.
 
 Counterpart of ``rnad_tpu/learn/rnad.py``.  One train step runs, in order:
-the rollout (per turn, one fused-turn kernel launch for the MLP, or the
-generic turn: a packed-row lookup, the net forward and, for a solver
-EquiNet, one RM+ kernel launch), the learner's forward with autograd on the
-regathered observations (one packed-row lookup, and one RM+ solve shared by
-all four passes), the frozen passes, the alpha-interpolated reward
-transform and two-player v-trace, the NeuRD and critic losses, the optax
-global-norm clip, Adam with the optax formulas (b1=0 by default) and the
-EMA target update.  The frozen passes follow ``fuse_net_passes``: "heads"
+the rollout (per turn, one fused-turn kernel launch for the MLP on raw
+observations, or the generic turn: a packed-row lookup, the observation
+lift where configured, the net forward and, for a solver EquiNet, one RM+
+kernel launch), the learner's forward with autograd on the regathered
+observations (one packed-row lookup, and one RM+ solve shared by all four
+passes) or on the stored lifted ones, the frozen passes, the
+alpha-interpolated reward transform and two-player v-trace, the NeuRD and
+critic losses, the optax global-norm clip, Adam with the optax formulas
+(b1=0 by default) and the EMA target update.  The frozen passes follow ``fuse_net_passes``: "heads"
 (the MLP: the EMA target's value head and the regularization pair's policy
 heads) or "off" (every other net: each frozen net's whole forward).  The
 ``RNaD`` host loop owns the run's lifecycle (a fresh start or a bit-exact
@@ -17,9 +19,20 @@ rotation (``reg_anchor`` "target", "best" or "fixed"), checkpoints, exact
 NashConv at update boundaries (chunked on large trees) with best-checkpoint
 selection, and the metric log (``metrics.jsonl`` and ``RNaD.history``).
 
+A ConvNet's learner pass runs its BatchNorm in train mode over the valid
+half-steps and moves the running averages; the rollout actor, the frozen
+passes and NashConv read running averages (the mode is an argument of each
+forward, so no module state carries from one phase into the next).  The EMA
+target averages the BatchNorm statistics with the weights; Adam sees the
+weights only.
+
+With ``n_batches_per_buffer`` or ``buffer_mod`` above 1, ``RNaD.run`` keeps
+a replay buffer (``learn/buffer.py``): a fresh rollout when the buffer is
+empty or the step count is a multiple of ``buffer_mod``, then one learner
+step on lanes sampled across the buffered batches.
+
 The step updates the ``TrainState`` in place (parameters, Adam moments and
-the EMA target) instead of building new tensors.  The replay buffer is not
-ported yet.
+the EMA target) instead of building new tensors.
 """
 
 from __future__ import annotations
@@ -40,9 +53,11 @@ from ..env import engine
 from ..env.tree import GameTree
 from ..metrics import nashconv as nashconv_lib
 from ..models import common, nets
+from ..ops import obs_transform as obs_transform_lib
 from ..ops import stepping
 from ..utils.checkpoint import RunStore
 from ..utils.logging import MetricLogger
+from . import buffer as buffer_lib
 from . import vtrace
 
 
@@ -136,9 +151,13 @@ def optimizer_update(cfg: RNaDConfig, params: List[torch.Tensor],
 @torch.no_grad()
 def ema_update(gamma: float, net: nn.Module, net_target: nn.Module
                ) -> None:
-    """target <- gamma * learner + (1 - gamma) * target, in place."""
+    """target <- gamma * learner + (1 - gamma) * target, in place, over the
+    weights and the floating buffers (BatchNorm statistics) alike."""
     for p, t in zip(net.parameters(), net_target.parameters()):
         t.copy_(gamma * p + (1.0 - gamma) * t)
+    for b, t in zip(net.buffers(), net_target.buffers()):
+        if t.is_floating_point():
+            t.copy_(gamma * b + (1.0 - gamma) * t)
 
 
 def neurd_scale_for(cfg: RNaDConfig, total_steps: int) -> float:
@@ -179,10 +198,10 @@ def resolve_fuse_mode(net: nn.Module, cfg: RNaDConfig) -> str:
 
 @dataclasses.dataclass
 class LearnerInputs:
-    """What the learner's net passes read: the regathered observations
-    (T * B, 2, A, A), the movers' legal masks (T, B, A) and, for a solver
-    EquiNet, its solver features (one K3 launch), shared by all four
-    passes."""
+    """What the learner's net passes read: the regathered or stored
+    observations (T * B, C, A, A), the movers' legal masks (T, B, A) and,
+    for a solver EquiNet, its solver features (one K3 launch), shared by
+    all four passes."""
 
     obs_flat: torch.Tensor
     masks: torch.Tensor
@@ -191,8 +210,8 @@ class LearnerInputs:
 
 def learner_inputs(state: TrainState, packed: stepping.PackedTables,
                    traj: engine.Trajectory) -> LearnerInputs:
-    """One K2 regather of the trajectory's observations and, for an EquiNet
-    with solver features, one solve over them."""
+    """The trajectory's observations (its stored ones, or one K2 regather)
+    and, for an EquiNet with solver features, one solve over them."""
     observations, masks = engine.trajectory_observations(packed, traj)
     T, B = traj.rewards.shape
     obs_flat = observations.reshape((T * B,) + observations.shape[2:])
@@ -221,7 +240,9 @@ def learn_loss(state: TrainState, packed: stepping.PackedTables,
     alpha_f32 = np.float32(alpha)
     alpha, one_minus_alpha = float(alpha_f32), float(np.float32(1) - alpha_f32)
 
-    logits, v_raw = state.net(obs_flat, inputs.solver_feats)
+    logits, v_raw = nets.forward_train(state.net, obs_flat,
+                                       valid.reshape(T * B),
+                                       inputs.solver_feats)
     logits = logits.reshape(T, B, A)
     v = v_raw.reshape(T, B)[..., None]
     pi = common.masked_policy(logits, masks)
@@ -295,14 +316,51 @@ def learn_loss(state: TrainState, packed: stepping.PackedTables,
     return loss, metrics
 
 
+def obs_storage_dtype(net: nn.Module, cfg: RNaDConfig) -> torch.dtype:
+    """Stored-observation dtype: the net's compute dtype promoted with
+    ``frozen_net_dtype``, so every learner-side consumer sees the bits it
+    would from float32 observations."""
+    return torch.promote_types(net.dtype, nets.DTYPES[cfg.frozen_net_dtype])
+
+
+def resolve_obs_transform(net_config: NetConfig, tree: GameTree,
+                          cfg: RNaDConfig
+                          ) -> Optional[obs_transform_lib.ObsTransform]:
+    """The observation transform of ``cfg`` on the tree's device, or None;
+    raises ``rnad_tpu``'s errors where it cannot compose: with
+    ``store_rollout_obs=False`` (the noise cannot be re-derived from state
+    indices) and with a solver EquiNet (its features read the raw payoff
+    matrix the lift hides)."""
+    tf = obs_transform_lib.make_obs_transform(cfg.obs_transform,
+                                              tree.max_actions)
+    if tf is None:
+        return None
+    if not cfg.store_rollout_obs:
+        raise ValueError(
+            "obs_transform requires store_rollout_obs=True: per-half-step "
+            "noise cannot be re-derived from state indices in regather "
+            "mode, so the learner must consume the stored actor bits")
+    if net_config.type == "EquiNet" and net_config.solver_iters:
+        raise ValueError(
+            "obs_transform hides the raw payoff matrix, but EquiNet with "
+            "solver_iters > 0 computes RM+ solver features from it; use "
+            "solver_iters=0 or another net family")
+    return tf.to(tree.device)
+
+
 def rollout(state: TrainState, tree: GameTree, packed: stepping.PackedTables,
-            cfg: RNaDConfig, noise=None) -> engine.Trajectory:
-    """The training rollout: ``batch_size`` episodes from the root."""
+            cfg: RNaDConfig, noise=None,
+            obs_transform: Optional[obs_transform_lib.ObsTransform] = None
+            ) -> engine.Trajectory:
+    """The training rollout: ``batch_size`` episodes from the root, storing
+    the lifted observations under ``obs_transform``."""
     init = torch.ones((cfg.batch_size,), dtype=torch.int32,
                       device=packed.rows.device)
     return engine.rollout_from(tree, packed, state.net, init, tree.max_depth,
                                noise=noise, generator=state.generator,
-                               rows_actor=cfg.rollout_rows_actor)
+                               rows_actor=cfg.rollout_rows_actor,
+                               obs_transform=obs_transform,
+                               obs_dtype=obs_storage_dtype(state.net, cfg))
 
 
 def learn_step(state: TrainState, packed: stepping.PackedTables,
@@ -321,14 +379,16 @@ def learn_step(state: TrainState, packed: stepping.PackedTables,
 
 
 def make_train_step(tree: GameTree, packed: stepping.PackedTables,
-                    cfg: RNaDConfig):
+                    cfg: RNaDConfig,
+                    obs_transform: Optional[obs_transform_lib.ObsTransform]
+                    = None):
     """The fused on-policy step ``train_step(state, alpha, noise=None)``:
     rollout, learn, optimize and EMA; returns (state, metrics).  ``noise``
-    gives each turn's (g_act, g_chance); None draws from
-    ``state.generator``."""
+    gives each turn's (g_act, g_chance), and the lift's eps under
+    ``obs_transform``; None draws from ``state.generator``."""
 
     def train_step(state: TrainState, alpha: float, noise=None):
-        traj = rollout(state, tree, packed, cfg, noise)
+        traj = rollout(state, tree, packed, cfg, noise, obs_transform)
         return state, learn_step(state, packed, traj, alpha, cfg)
 
     return train_step
@@ -348,11 +408,14 @@ def alpha_schedule(n: int, delta_m: int) -> float:
 
 
 def nashconv(tree: GameTree, net: nn.Module,
-             chunk_nodes: Optional[int] = None
+             chunk_nodes: Optional[int] = None,
+             obs_transform: Optional[obs_transform_lib.ObsTransform] = None
              ) -> nashconv_lib.NashConvResult:
     """Exact best-response values of ``net``'s joint policy: one
     whole-tree pass, or chunked inference of ``chunk_nodes`` nodes a chunk
-    where the tree has more (``rnad_tpu``'s ``nashconv_fn``)."""
+    where the tree has more (``rnad_tpu``'s ``nashconv_fn``).  Under
+    ``obs_transform`` the net sees each node's noise-free lift."""
+    net = nashconv_lib.lifted(net, obs_transform)
     if chunk_nodes is not None and tree.size > chunk_nodes:
         joint = nashconv_lib.joint_policy_from_net(tree, net, chunk_nodes)
         return nashconv_lib.nashconv_root(tree, joint)
@@ -364,11 +427,8 @@ def check_supported(cfg: RNaDConfig, net_config: NetConfig) -> None:
     """Raises ``NotImplementedError`` naming each config field the port
     does not implement yet, and ``ValueError`` on unknown modes."""
     missing = {
-        "obs_transform": cfg.obs_transform.kind != "none",
         "frozen_net_dtype": cfg.frozen_net_dtype != "float32",
         "rollout_actor_dtype": cfg.rollout_actor_dtype != "float32",
-        "n_batches_per_buffer": cfg.n_batches_per_buffer != 1,
-        "buffer_mod": cfg.buffer_mod != 1,
         "vtrace_mode": cfg.vtrace_mode == "associative",
     }
     for field, unsupported in missing.items():
@@ -399,7 +459,14 @@ class RNaD:
     the caller asks for "cpu").
 
     TF32 is switched off for matmuls and cuDNN, so every float32 product is
-    a float32 product, as on the reference path."""
+    a float32 product, as on the reference path, and cuDNN runs its
+    deterministic algorithms (a ConvNet's resume is bitwise).
+
+    A buffered run keeps its replay buffer and its lane sampler
+    (``np.random.default_rng(seed + 1)``) in memory only, as ``rnad_tpu``
+    does: neither package checkpoints them, so a resumed buffered run
+    starts with an empty buffer and a re-seeded sampler, and is not the
+    straight run."""
 
     def __init__(self, tree: GameTree, cfg: RNaDConfig = RNaDConfig(),
                  net_config: Optional[NetConfig] = None,
@@ -416,9 +483,12 @@ class RNaD:
                              f"tree max_actions {tree.max_actions}")
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
         self.device = torch.device(device)
         self.tree = tree.to(self.device)
         self.packed = stepping.make_packed_tables(self.tree)
+        self.obs_transform = resolve_obs_transform(net_config, self.tree, cfg)
         self.cfg = cfg
         self.net_config = net_config
         self.seed = seed
@@ -429,11 +499,13 @@ class RNaD:
         self.use_same_init_net_as = use_same_init_net_as
         self.use_wandb = use_wandb
         self.logger: Optional[MetricLogger] = None
-        self.train_step = make_train_step(self.tree, self.packed, cfg)
+        self.train_step = make_train_step(self.tree, self.packed, cfg,
+                                          self.obs_transform)
         self.m = 0
         self.n = 0
         self.state: Optional[TrainState] = None
         self.history: List[Tuple[int, Dict[str, float]]] = []
+        self._np_rng = np.random.default_rng(seed + 1)
 
     # -- lifecycle ---------------------------------------------------------
 
@@ -442,7 +514,9 @@ class RNaD:
         """The seed's initial state on the run's device, all four nets a
         copy of ``init_net``'s weights where given."""
         net = nets.build_net(self.net_config,
-                             torch.Generator().manual_seed(self.seed))
+                             torch.Generator().manual_seed(self.seed),
+                             obs_transform_lib.out_channels(
+                                 self.cfg.obs_transform))
         if init_net is not None:
             net.load_state_dict(init_net.state_dict())
         generator = torch.Generator(device=self.device)
@@ -456,7 +530,8 @@ class RNaD:
         if self.state is not None:
             return
         state = self._fresh_state()
-        engine.uses_fused_turn(state.net, self.cfg.rollout_rows_actor)
+        engine.uses_fused_turn(state.net, self.cfg.rollout_rows_actor,
+                               self.obs_transform is not None)
         resolve_fuse_mode(state.net, self.cfg)
         resumed = False
         if not self.store.exists() or self.store.latest() is None:
@@ -521,7 +596,7 @@ class RNaD:
         net = self.state.net_target
         chunk = min(self.cfg.nashconv_chunk_nodes,
                     nets.inference_chunk_nodes(net, self.tree.max_actions))
-        result = nashconv(self.tree, net, chunk)
+        result = nashconv(self.tree, net, chunk, self.obs_transform)
         for depth, val in nashconv_lib.mean_nashconv_by_depth(
                 self.tree, result).items():
             logging.info("depth:%d nashconv:%f", depth, val)
@@ -582,19 +657,36 @@ class RNaD:
         self._maybe_save_best(value, step)
         return value
 
+    def _buffered_step(self, buffer: buffer_lib.TrajectoryBuffer,
+                       alpha: float) -> Dict[str, torch.Tensor]:
+        """One buffered learner step: a fresh rollout into ``buffer`` when it
+        is empty (a resume at a step count off the ``buffer_mod`` grid) or
+        the step count is a multiple of ``buffer_mod``, then ``learn_step``
+        on the lanes the buffer samples (``learn_jit.sampled``)."""
+        cfg = self.cfg
+        if len(buffer) == 0 or self.state.total_steps % cfg.buffer_mod == 0:
+            buffer.append(rollout(self.state, self.tree, self.packed, cfg,
+                                  obs_transform=self.obs_transform))
+        traj = buffer.sample(cfg.batch_size, self._np_rng)
+        return learn_step(self.state, self.packed, traj, alpha, cfg)
+
     def run(self, max_updates: int = 10**6, checkpoint_mod: int = 1000,
             expl_mod: int = 1, log_mod: int = 20) -> None:
         """Trains up to ``max_updates`` update periods: a checkpoint before
         each step with ``n % checkpoint_mod == 0``, an eval at each update
         boundary (every ``expl_mod``-th; 0 turns them off) and a metric
-        line every ``log_mod`` steps."""
+        line every ``log_mod`` steps.  A buffered config runs the buffered
+        step (module docstring) with a buffer that starts empty."""
         self.initialize()
+        cfg = self.cfg
         self._seed_best_bar()
         if (self.cfg.reg_anchor == "best"
                 and not hasattr(self, "_best_target")):
             loaded = self.store.load_best(self._fresh_state())
             if loaded is not None:  # resume-safe anchor
                 self._best_target = _frozen_copy(loaded[0].net_target)
+        on_policy = cfg.n_batches_per_buffer == 1 and cfg.buffer_mod == 1
+        buffer = buffer_lib.TrajectoryBuffer(cfg.n_batches_per_buffer)
         last_time = time.perf_counter()
         last_steps = self.state.total_steps
         for _ in range(max_updates):
@@ -602,6 +694,7 @@ class RNaD:
             if not may_resume:
                 return
             logging.info("m: %d, delta_m: %d", self.m, delta_m)
+            buffer.max_size = cfg.n_batches_per_buffer
             if (expl_mod > 0 and self.m % expl_mod == 0 and self.n == 0
                     and self.m != 0):
                 value = self.nashconv()
@@ -612,14 +705,17 @@ class RNaD:
                 alpha = alpha_schedule(self.n, delta_m)
                 if self.n % checkpoint_mod == 0:
                     self.save_checkpoint()
-                _, metrics = self.train_step(self.state, alpha)
+                if on_policy:
+                    _, metrics = self.train_step(self.state, alpha)
+                else:
+                    metrics = self._buffered_step(buffer, alpha)
                 if self.n % log_mod == 0:
                     row = {k: float(v) for k, v in metrics.items()}
                     now = time.perf_counter()
                     steps = self.state.total_steps - last_steps
                     sps = steps / max(now - last_time, 1e-9)
                     row["steps_per_s"] = sps
-                    row["env_steps_per_s"] = (sps * self.cfg.batch_size * 2
+                    row["env_steps_per_s"] = (sps * cfg.batch_size * 2
                                               * self.tree.max_depth)
                     last_time, last_steps = now, self.state.total_steps
                     self._log(row, self.state.total_steps)

@@ -9,7 +9,8 @@ generator's stored solution is.
 
 A net's joint policy comes from one whole-tree pass
 (``joint_policy_all_nodes``) or, on large trees, from chunked inference
-(``joint_policy_from_net``) that feeds the same backward induction.
+(``joint_policy_from_net``) that feeds the same backward induction; under
+an observation transform the net is wrapped by ``lifted``.
 
 Child values reach their parent cells by a scatter of the S node values:
 every internal node has exactly one parent cell (tree property).  Only the
@@ -123,6 +124,16 @@ def _joint_policy(net, ev: torch.Tensor, lg: torch.Tensor) -> torch.Tensor:
     p = common.masked_policy(logits, obs[:, 1, :, 0])
     n = ev.shape[0]
     return torch.cat([p[:n], p[n:]], dim=-1)
+
+
+def lifted(net, obs_transform=None):
+    """``net`` as the policy functions below call it, behind the noise-free
+    lift of ``obs_transform`` (``ops/obs_transform.py``) where one is given:
+    exact evaluation scores the policy the net induces on the mean
+    observation.  Legality is still read from the raw observation."""
+    if obs_transform is None:
+        return net
+    return lambda obs: net(obs_transform.apply(obs, None))
 
 
 @torch.no_grad()

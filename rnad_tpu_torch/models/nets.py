@@ -1,13 +1,17 @@
-"""Policy/value nets: the depth-1 two-head MLP and the EquiNet.
+"""Policy/value nets: the depth-1 two-head MLP, the EquiNet and the ConvNet.
 
-Counterpart of ``rnad_tpu/models/nets.py`` for two families.  The MLP (the
+Counterpart of ``rnad_tpu/models/nets.py``.  The MLP (the
 reference architecture) feeds the flattened (2, A, A) observation to two
 separate one-hidden-layer heads, ``policy_fc0 -> relu -> policy_fc1`` (A
 logits) and ``value_fc0 -> relu -> value_fc1`` (one value).  The EquiNet
 is a tower of row/column-exchangeable layers over the (A, A) cells, with
 optional RM+ solver features (kernel K3 on the card) that can prime its
-heads.  Every net's ``forward(obs, solver_feats=None)`` takes (N, C, A, A)
-observations and returns float32 (logits (N, A), values (N,)).
+heads.  The ConvNet is a tower of row + column convolutions (cuDNN) with
+masked BatchNorm.  Every net's ``forward(obs, solver_feats=None)`` takes
+(N, C, A, A) observations (C = 2 raw, or the lift's channel count) and
+returns float32 (logits (N, A), values (N,)); a ConvNet's plain forward
+reads its BatchNorm running averages, and ``forward_train`` is the
+learner's pass.
 
 ``compute_dtype`` follows flax's ``dtype``: the parameters stay float32 (the
 optimizer's master copy) and each layer casts its input, kernel and bias to
@@ -18,10 +22,12 @@ EquiNet's RM+ solver features, and so kernel K3, stay float32.
 Weights cross between the packages through the carrier below: a flax Dense
 kernel is (in, out) and a torch Linear weight is (out, in), so the carrier
 transposes; the EquiNet's exchangeable kernels keep flax's channels-last
-layout and cross as they are.  Initialization is torch's own Linear
-default, U(-1/sqrt(fan_in), 1/sqrt(fan_in)) for weight and bias, which is
-the distribution ``rnad_tpu``'s ``torch_linear_kernel_init`` reproduces;
-draws come from an explicit generator.
+layout and cross as they are; a ConvNet crosses with its BatchNorm
+statistics through ``convnet_from_flax``.  Initialization is torch's own
+Linear (and Conv2d) default, U(-1/sqrt(fan_in), 1/sqrt(fan_in)) for weight
+and bias, which is the distribution ``rnad_tpu``'s
+``torch_linear_kernel_init`` reproduces; draws come from an explicit
+generator.
 """
 
 from __future__ import annotations
@@ -223,6 +229,172 @@ class EquiNet(nn.Module):
         return logits, value
 
 
+# ---------------------------------------------------------------------------
+# ConvNet: the CrossConv tower with masked BatchNorm
+# ---------------------------------------------------------------------------
+
+
+def _uniform_(t: torch.Tensor, fan_in: int,
+              generator: Optional[torch.Generator]) -> None:
+    bound = 1.0 / fan_in ** 0.5
+    t.uniform_(-bound, bound, generator=generator)
+
+
+class CrossConv(nn.Module):
+    """Row + column structured convolution over (N, C, A, A): a (1, 2A-1)
+    row conv and a (2A-1, 1) column conv, each over A-1 zero padding, summed,
+    so every output cell sees its whole row and column.  torch's Conv2d
+    initialization (U(+-1/sqrt(fan_in)) for kernel and bias)."""
+
+    def __init__(self, max_actions: int, in_channels: int, features: int,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        A = max_actions
+        self.pad = A - 1
+        self.row_conv = nn.Conv2d(in_channels, features, (1, 2 * A - 1))
+        self.col_conv = nn.Conv2d(in_channels, features, (2 * A - 1, 1))
+        fan_in = in_channels * (2 * A - 1)
+        with torch.no_grad():
+            for conv in (self.row_conv, self.col_conv):
+                _uniform_(conv.weight, fan_in, generator)
+                _uniform_(conv.bias, fan_in, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        F = nn.functional
+        r = F.conv2d(x, self.row_conv.weight, self.row_conv.bias,
+                     padding=(0, self.pad))
+        c = F.conv2d(x, self.col_conv.weight, self.col_conv.bias,
+                     padding=(self.pad, 0))
+        return r + c
+
+
+class MaskedBatchNorm(nn.Module):
+    """BatchNorm over (N, C, H, W) whose batch statistics may leave out
+    masked samples (``rnad_tpu``'s ``MaskedBatchNorm``).
+
+    Train mode normalizes by the batch's two-pass population statistics,
+    weighted by a per-sample 0/1 ``mask`` over N * H * W cells with
+    ``denom = max(sum(mask) * H * W, 1)``, and moves the running averages
+    in place with flax's convention ``ra = 0.99 ra + 0.01 batch`` (outside
+    autograd).  Eval mode normalizes by the running averages.  The mode is
+    an argument of each call, never the module's ``training`` flag."""
+
+    momentum = 0.99
+    epsilon = 1e-5
+
+    def __init__(self, features: int):
+        super().__init__()
+        self.scale = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("mean", torch.zeros(features))
+        self.register_buffer("var", torch.ones(features))
+
+    def forward(self, x: torch.Tensor, train: bool = False,
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        view = lambda v: v.reshape(1, -1, 1, 1)
+        x = x.float()
+        if not train:
+            mean, var = self.mean, self.var
+        else:
+            axes = (0, 2, 3)
+            if mask is None:
+                mean = x.mean(dim=axes)
+                var = ((x - view(mean)) ** 2).mean(dim=axes)
+            else:
+                w = mask.float().reshape(-1, 1, 1, 1)
+                per_sample = float(x.shape[2] * x.shape[3])
+                denom = torch.clamp(w.sum() * per_sample, min=1.0)
+                mean = (x * w).sum(dim=axes) / denom
+                var = (((x - view(mean)) ** 2) * w).sum(dim=axes) / denom
+            with torch.no_grad():
+                m = self.momentum
+                self.mean.copy_(m * self.mean + (1.0 - m) * mean)
+                self.var.copy_(m * self.var + (1.0 - m) * var)
+        y = (x - view(mean)) * torch.rsqrt(view(var) + self.epsilon)
+        return y * view(self.scale) + view(self.bias)
+
+
+class ConvResBlock(nn.Module):
+    """x + [CrossConv, ReLU, BN] twice (the BN only with ``batch_norm``)."""
+
+    def __init__(self, max_actions: int, channels: int,
+                 batch_norm: bool = False,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.batch_norm = batch_norm
+        self.conv0 = CrossConv(max_actions, channels, channels, generator)
+        self.conv1 = CrossConv(max_actions, channels, channels, generator)
+        if batch_norm:
+            self.bn0 = MaskedBatchNorm(channels)
+            self.bn1 = MaskedBatchNorm(channels)
+
+    def forward(self, x: torch.Tensor, train: bool = False,
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        h = x
+        for i in range(2):
+            h = torch.relu(getattr(self, f"conv{i}")(h))
+            if self.batch_norm:
+                h = getattr(self, f"bn{i}")(h, train, mask)
+        return x + h
+
+
+class ConvNet(nn.Module):
+    """AlphaZero-style tower (``rnad_tpu``'s ConvNet): a ``pre`` CrossConv
+    to ``channels``, ``depth`` residual blocks, and linear ``policy`` (A
+    logits) and ``value`` heads over the (A, A, C) flattening in flax's
+    channels-last order.  float32 only.
+
+    ``forward(obs, solver_feats=None, train=False, mask=None)``: train mode
+    normalizes by the batch's statistics (leaving out samples whose ``mask``
+    is 0) and moves the BatchNorm running averages; eval mode, the default,
+    reads them."""
+
+    def __init__(self, max_actions: int, channels: int = 16, depth: int = 1,
+                 batch_norm: bool = True, in_channels: int = 2,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        A = max_actions
+        self.max_actions = A
+        self.channels = channels
+        self.depth = depth
+        self.dtype = torch.float32
+        self.pre = CrossConv(A, in_channels, channels, generator)
+        for i in range(depth):
+            setattr(self, f"block{i}", ConvResBlock(A, channels, batch_norm,
+                                                    generator))
+        fan = channels * A * A
+        self.policy = nn.Linear(fan, A)
+        self.value = nn.Linear(fan, 1)
+        with torch.no_grad():
+            for head in (self.policy, self.value):
+                _uniform_(head.weight, fan, generator)
+                _uniform_(head.bias, fan, generator)
+
+    def forward(self, obs: torch.Tensor, solver_feats=None,
+                train: bool = False, mask: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(N, C, A, A) observations -> (logits (N, A), values (N,))."""
+        del solver_feats
+        if mask is not None:
+            mask = mask.reshape(-1)
+        x = self.pre(obs.float())
+        for i in range(self.depth):
+            x = getattr(self, f"block{i}")(x, train, mask)
+        flat = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)  # flax's NHWC
+        return self.policy(flat), self.value(flat)[:, 0]
+
+
+def forward_train(net: nn.Module, obs: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None,
+                  solver_feats=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The learner's pass (``rnad_tpu``'s ``apply_train``): a ConvNet in
+    train mode with the per-sample ``mask`` (its BatchNorm running averages
+    move); any other net as its plain forward."""
+    if isinstance(net, ConvNet):
+        return net(obs, train=True, mask=mask)
+    return net(obs, solver_feats)
+
+
 def equinet_solver_features(net: EquiNet, obs_flat: torch.Tensor
                             ) -> _SolverFeats:
     """The solver features of ``net`` (solver_iters > 0) for the
@@ -234,7 +406,10 @@ def equinet_solver_features(net: EquiNet, obs_flat: torch.Tensor
 
 
 def build_net(config: NetConfig,
-              generator: Optional[torch.Generator] = None) -> nn.Module:
+              generator: Optional[torch.Generator] = None,
+              in_channels: int = 2) -> nn.Module:
+    """The net of ``config`` for observations of ``in_channels`` channels
+    (2 raw, or ``obs_transform.out_channels`` under a lift)."""
     dtype = DTYPES.get(config.compute_dtype)
     if dtype is None:
         raise NotImplementedError(
@@ -243,18 +418,25 @@ def build_net(config: NetConfig,
     if config.type == "EquiNet":
         return EquiNet(config.max_actions, channels=config.channels,
                        depth=config.depth, solver_iters=config.solver_iters,
-                       solver_prime=config.solver_prime, generator=generator,
+                       solver_prime=config.solver_prime,
+                       in_channels=in_channels, generator=generator,
                        dtype=dtype)
+    if config.type == "ConvNet":
+        if dtype != torch.float32:
+            raise NotImplementedError(
+                f"NetConfig.compute_dtype: the port's ConvNet computes in "
+                f"float32, got {config.compute_dtype!r}")
+        return ConvNet(config.max_actions, channels=config.channels,
+                       depth=config.depth, batch_norm=config.batch_norm,
+                       in_channels=in_channels, generator=generator)
     if config.type != "MLP":
-        raise NotImplementedError(
-            f"NetConfig.type: the port runs the MLP and the EquiNet, got "
-            f"{config.type!r}")
+        raise ValueError(f"unknown net type: {config.type}")
     if config.depth != 1:
         raise NotImplementedError(
             f"NetConfig.depth: the port runs depth-1 MLPs only, got "
             f"{config.depth}")
-    return MLP(config.max_actions, config.width, generator=generator,
-               dtype=dtype)
+    return MLP(config.max_actions, config.width, in_channels=in_channels,
+               generator=generator, dtype=dtype)
 
 
 def inference_chunk_nodes(net: nn.Module, max_actions: int,
@@ -270,6 +452,8 @@ def inference_chunk_nodes(net: nn.Module, max_actions: int,
         cin = 2 + (6 if net.solver_iters else 0)
         width = max(6 * net.channels, 6 * cin)
         per_row = A * A * (width * esz + net.channels * 4)
+    elif isinstance(net, ConvNet):
+        per_row = A * A * (2 * A - 1) * net.channels * esz  # im2col rows
     else:  # the MLP
         per_row = (2 * A * A + 2 * net.width) * esz
     per_node = 2 * per_row * 2
@@ -310,6 +494,54 @@ def params_to_flax(module: nn.Module) -> Dict[str, Dict[str, np.ndarray]]:
             out.setdefault(name, {})["kernel"] = a.T.copy()
         else:
             out.setdefault(name, {})[leaf] = a
+    return out
+
+
+def convnet_from_flax(variables: Dict) -> Dict[str, torch.Tensor]:
+    """A flax ConvNet's ``{"params": ..., "batch_stats": ...}`` -> a
+    state_dict for :class:`ConvNet`.  Conv kernels go from flax's HWIO to
+    torch's OIHW; Dense kernels (in, out) are transposed (the flattening
+    is flax's NHWC order on both sides); BatchNorm ``scale``/``bias`` and
+    the ``mean``/``var`` statistics keep their names."""
+    state = {}
+
+    def walk(tree, prefix):
+        for name, leaf in tree.items():
+            key = f"{prefix}{name}"
+            if isinstance(leaf, dict):
+                walk(leaf, key + ".")
+                continue
+            a = np.array(leaf)
+            if name == "kernel" and a.ndim == 4:
+                state[f"{prefix}weight"] = torch.as_tensor(
+                    a.transpose(3, 2, 0, 1).copy())
+            elif name == "kernel":
+                state[f"{prefix}weight"] = torch.as_tensor(a.T.copy())
+            else:
+                state[key] = torch.as_tensor(a)
+
+    walk(variables["params"], "")
+    walk(variables.get("batch_stats", {}), "")
+    return state
+
+
+def convnet_to_flax(module: "ConvNet") -> Dict:
+    """:class:`ConvNet` -> flax-layout ``{"params", "batch_stats"}`` of
+    numpy arrays (the inverse of :func:`convnet_from_flax`)."""
+    out: Dict = {"params": {}, "batch_stats": {}}
+    for key, t in module.state_dict().items():
+        *path, leaf = key.split(".")
+        a = t.detach().cpu().numpy().copy()
+        coll = "batch_stats" if leaf in ("mean", "var") else "params"
+        if leaf == "weight":
+            leaf = "kernel"
+            a = a.transpose(2, 3, 1, 0).copy() if a.ndim == 4 else a.T.copy()
+        node = out[coll]
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = a
+    if not out["batch_stats"]:
+        del out["batch_stats"]
     return out
 
 

@@ -1,6 +1,7 @@
 """Where a train step's time goes on the card.
 
-    python3 -m rnad_tpu_torch.profile_step [--net mlp|equinet|flagship]
+    python3 -m rnad_tpu_torch.profile_step \
+        [--net mlp|equinet|flagship|offpol|convnet]
 
 ``--net mlp`` (the default) builds the demo tree (eta_sweep's config, seed
 0) and the MLP path's ``RNaD`` trainer (32768 lanes, MLP width 256).
@@ -9,11 +10,19 @@ tree (65440 nodes, seed 0) and the solver-primed EquiNet (64 channels,
 depth 2, 128 RM+ iterations, float32) at 32768 lanes.  ``--net flagship``
 builds flagship-3's path (``docs/runs/r4-flagship3.params.json``): the
 native generator's 785,768-node A = 5 depth-6 tree and the same EquiNet in
-bfloat16, with flagship-3's R-NaD settings, at 32768 lanes.  It warms up, then
-times one fused train step split into its phases with CUDA events
-(rollout, regather and solver features, learner and frozen passes with the
-loss, backward, clip + Adam + EMA), each phase's events recorded after a
-sleep kernel that hides the host's enqueue time.  Then it traces a few
+bfloat16, with flagship-3's R-NaD settings, at 32768 lanes.  ``--net
+offpol`` builds r5-offpol-32k (``docs/runs/r5-offpol-32k.params.json``): the
+same tree, a width-256 MLP at 32768 lanes and the replay buffer (4 slots, a
+rollout every 2 learner steps).  ``--net convnet`` builds r5-noisy-conv
+(``docs/runs/r5-noisy-conv.params.json``): the train CLI's default tree
+(A = 3, depth 4, seed 0), the noisy lift (8 channels, sigma 0.15) and the
+ConvNet 16x2 with BatchNorm at 512 lanes.  It warms up, then times one
+train step split into its phases with CUDA events (rollout, for the
+buffered step its sampling and collate, regather and solver features,
+learner and frozen passes with the loss, backward, clip + Adam + EMA), each
+phase's events recorded after its own sleep kernel that hides the host's
+enqueue time; the buffered step rolls out on every second step, so its rollout
+phase is the mean over steps with and without one.  Then it traces a few
 steps with ``torch.profiler`` and prints the device time by kernel.  Needs
 a CUDA card; prints the card's name and power limit beside the numbers.
 """
@@ -27,8 +36,10 @@ import time
 
 import torch
 
-from .config import NetConfig, RNaDConfig, ShapingRule, TreeConfig
+from .config import (NetConfig, ObsTransformConfig, RNaDConfig, ShapingRule,
+                     TreeConfig)
 from .env import tree as tree_lib
+from .learn import buffer as buffer_lib
 from .learn import rnad
 
 BATCH_SIZE = 32768
@@ -60,16 +71,44 @@ CONFIGS = {
                             gamma_averaging=0.001, lr_schedule="cosine",
                             lr_decay_steps=18600, lr_final_fraction=0.1,
                             policy_warmup_steps=1500)),
+    "offpol": (FLAGSHIP_TREE,
+               NetConfig(type="MLP", max_actions=5, width=256),
+               RNaDConfig(batch_size=BATCH_SIZE, eta=0.2, lr=5e-4,
+                          gamma_averaging=0.001, n_batches_per_buffer=4,
+                          buffer_mod=2)),
+    "convnet": (TreeConfig(max_actions=3, max_transitions=2,
+                           transition_threshold=0.3, depth_bound=4),
+                NetConfig(type="ConvNet", max_actions=3, channels=16,
+                          depth=2),
+                RNaDConfig(batch_size=512, eta=0.2, lr=1e-3,
+                           gamma_averaging=0.01, logit_clip=2.0,
+                           obs_transform=ObsTransformConfig(
+                               kind="lift", channels=8, sigma=0.15))),
 }
+NATIVE = ("flagship", "offpol")  # trees of the native generator
 
 
-def _phases(run: rnad.RNaD, alpha: float):
-    """One train step as (name, thunk) phases, in train_step's order."""
+def _buffered(run: rnad.RNaD) -> bool:
+    return run.cfg.n_batches_per_buffer > 1 or run.cfg.buffer_mod > 1
+
+
+def _phases(run: rnad.RNaD, alpha: float, buffer=None):
+    """One train step as (name, thunk) phases, in train_step's order; with
+    a ``buffer``, the buffered step's (``RNaD._buffered_step``)."""
     state, cfg = run.state, run.cfg
     box = {}
 
     def roll():
-        box["traj"] = rnad.rollout(state, run.tree, run.packed, cfg)
+        traj = rnad.rollout(state, run.tree, run.packed, cfg,
+                            obs_transform=run.obs_transform)
+        box["traj"] = traj
+
+    def roll_if_due():
+        if state.total_steps % cfg.buffer_mod == 0:
+            buffer.append(rnad.rollout(state, run.tree, run.packed, cfg))
+
+    def collate():
+        box["traj"] = buffer.sample(cfg.batch_size, run._np_rng)
 
     def inputs():
         box["inputs"] = rnad.learner_inputs(state, run.packed, box["traj"])
@@ -88,28 +127,33 @@ def _phases(run: rnad.RNaD, alpha: float):
         rnad.ema_update(cfg.gamma_averaging, state.net, state.net_target)
         state.total_steps += 1
 
-    return [("rollout", roll),
+    first = ([("rollout", roll)] if buffer is None else
+             [("rollout (every buffer_mod-th step)", roll_if_due),
+              ("sample + collate", collate)])
+    return first + [
             ("regather (K2), EquiNet solve (K3)", inputs),
             ("learner + frozen passes, v-trace, loss", loss),
             ("backward", backward), ("clip + Adam + EMA", update)]
 
 
-def phase_ms(run: rnad.RNaD, iters: int = 10):
+def phase_ms(run: rnad.RNaD, iters: int = 10, buffer=None):
     """Device ms of each phase, mean over ``iters`` steps."""
-    names = [n for n, _ in _phases(run, 1.0)]
+    names = [n for n, _ in _phases(run, 1.0, buffer)]
     total = {n: 0.0 for n in names}
     for _ in range(iters):
-        torch.cuda.synchronize()
-        torch.cuda._sleep(200_000_000)  # ~0.1 s: covers the host's enqueue
-        events = [torch.cuda.Event(enable_timing=True)]
-        events[0].record()
-        for _, fn in _phases(run, 1.0):
+        # a sleep before each phase: the launch queue holds about a
+        # thousand kernels, fewer than a whole step of the small nets
+        # launches, so one sleep per step would not hide the host
+        for name, fn in _phases(run, 1.0, buffer):
+            torch.cuda.synchronize()
+            torch.cuda._sleep(200_000_000)  # ~0.1 s: covers the enqueue
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
             fn()
-            events.append(torch.cuda.Event(enable_timing=True))
-            events[-1].record()
-        torch.cuda.synchronize()
-        for n, a, b in zip(names, events, events[1:]):
-            total[n] += a.elapsed_time(b) / iters
+            end.record()
+            torch.cuda.synchronize()
+            total[name] += start.elapsed_time(end) / iters
     return total
 
 
@@ -123,22 +167,30 @@ def main() -> None:
                            "--format=csv,noheader"], capture_output=True,
                           text=True, timeout=60, check=True).stdout.strip()
     tree_cfg, net_cfg, cfg = CONFIGS[args.net]
-    gen = (tree_lib.generate_tree_native if args.net == "flagship"
+    gen = (tree_lib.generate_tree_native if args.net in NATIVE
            else tree_lib.generate_tree)
     tree = gen(tree_cfg, seed=0, device="cuda")
     runs = tempfile.TemporaryDirectory(prefix="profile_step_")
     run = rnad.RNaD(tree, cfg, net_cfg, directory_name=args.net,
                     runs_root=runs.name)
     run.initialize()
-    for _ in range(3):
-        run.train_step(run.state, 1.0)
+    buffer = None
+    if _buffered(run):
+        buffer = buffer_lib.TrajectoryBuffer(cfg.n_batches_per_buffer)
+        train_step = lambda: run._buffered_step(buffer, 1.0)
+    else:
+        train_step = lambda: run.train_step(run.state, 1.0)
+    for _ in range(2 * cfg.n_batches_per_buffer * cfg.buffer_mod):
+        train_step()  # warm-up; fills the buffer
     torch.cuda.synchronize()
 
-    phases = phase_ms(run)
+    phases = phase_ms(run, buffer=buffer)
     step = sum(phases.values())
-    print(f"train step at B={BATCH_SIZE}, {net_cfg}: {step:.4f} ms device "
-          f"time; peak memory {torch.cuda.max_memory_allocated() / 2**30:.3f}"
-          f" GiB | {card}")
+    print(f"train step at B={cfg.batch_size}, {net_cfg}, obs_transform "
+          f"{cfg.obs_transform.kind}, buffer {cfg.n_batches_per_buffer} "
+          f"slots / mod {cfg.buffer_mod}: {step:.4f} ms device time; peak "
+          f"memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB | "
+          f"{card}")
     for name, ms in phases.items():
         print(f"  {name:40s} {ms:9.4f} ms  {100 * ms / step:5.1f} %")
     start = torch.cuda.Event(enable_timing=True)
@@ -147,7 +199,7 @@ def main() -> None:
     for _ in range(3):  # the host-bound time spreads: median of 3 runs
         start.record()
         for _ in range(10):
-            run.train_step(run.state, 1.0)
+            train_step()
         end.record()
         torch.cuda.synchronize()
         runs.append(start.elapsed_time(end) / 10)
@@ -159,11 +211,11 @@ def main() -> None:
 
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    steps = 5
+    steps = 6  # a whole number of buffer_mod periods
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
-            run.train_step(run.state, 1.0)
+            train_step()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) / steps * 1e3
     rows = prof.key_averages()

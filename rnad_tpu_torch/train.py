@@ -20,6 +20,18 @@ Examples:
       --lr-decay-steps 18600 --lr-final-fraction 0.1 --gamma-avg 0.001 \\
       --policy-warmup 1500 --bounds 10 45 --delta-m 1500 1800 \\
       --name flagship3                                  # flagship-3
+  python -m rnad_tpu_torch.train --native-gen --max-actions 5 \\
+      --tree-depth 6 --transition-threshold 0.25 --stochastic-depth \\
+      --stochastic-prob 0.55 --batch-size 32768 --lr 5e-4 --bounds 2 \\
+      --delta-m 300 --n-batches-per-buffer 4 --buffer-mod 2 \\
+      --name r5-offpol-32k                              # buffered MLP
+  python -m rnad_tpu_torch.train --demo --obs-lift 8 --obs-noise-sigma \\
+      0.15 --net ConvNet --channels 16 --net-depth 2 \\
+      --name r5-noisy-conv                              # noisy lift
+
+The lift's fixed (mix, bias) pair is drawn from ``--obs-lift-seed`` by the
+port's own generator, so it differs from ``examples/train.py``'s for the
+same seed (``ops/obs_transform.py``).
 """
 
 from __future__ import annotations
@@ -29,7 +41,8 @@ import logging
 import time
 from typing import Optional, Sequence
 
-from .config import NetConfig, RNaDConfig, ShapingRule, TreeConfig
+from .config import (NetConfig, ObsTransformConfig, RNaDConfig, ShapingRule,
+                     TreeConfig)
 from .env import tree as tree_lib
 from .learn import rnad as rnad_lib
 from .utils import checkpoint
@@ -145,12 +158,10 @@ def _check_unported(args: argparse.Namespace) -> None:
         "--coordinator": args.coordinator is not None,
         "--num-processes": args.num_processes is not None,
         "--process-id": args.process_id is not None,
-        "--obs-lift": args.obs_lift is not None,
-        "--n-batches-per-buffer": args.n_batches_per_buffer > 1,
-        "--buffer-mod": args.buffer_mod > 1,
         "--frozen-dtype": args.frozen_dtype == "bfloat16",
-        "--net": args.net == "ConvNet",
         "--net-depth": args.net == "MLP" and args.net_depth > 1,
+        "--compute-dtype": (args.net == "ConvNet"
+                            and args.compute_dtype == "bfloat16"),
         "--vtrace-mode": args.vtrace_mode == "associative",
     }
     for flag, unsupported in unported.items():
@@ -202,6 +213,11 @@ def main(argv: Optional[Sequence[str]] = None) -> rnad_lib.RNaD:
                      buffer_mod=args.buffer_mod)
     if args.fuse_net_passes is not None:
         buffer_kw["fuse_net_passes"] = args.fuse_net_passes
+    if args.obs_lift is not None:
+        buffer_kw["obs_transform"] = ObsTransformConfig(
+            kind="lift", channels=args.obs_lift,
+            sigma=args.obs_noise_sigma, bias_scale=args.obs_lift_bias,
+            seed=args.obs_lift_seed)
     if args.demo:
         cfg = RNaDConfig(batch_size=512, eta=args.eta, bounds=(64,),
                          delta_m=(100,), lr=1e-3, gamma_averaging=0.01,

@@ -482,3 +482,136 @@ def test_resume_on_the_card_is_bit_exact(dev, tmp_path, net_cfg):
             assert torch.equal(p, q), name
     assert torch.equal(resumed.state.generator.get_state(),
                        straight.state.generator.get_state())
+
+
+BUFFERED = dict(n_batches_per_buffer=4, buffer_mod=2)
+LIFT = dict(kind="lift", channels=8, sigma=0.15)
+CONV = NetConfig(type="ConvNet", max_actions=3, channels=16, depth=2)
+
+
+@pytest.mark.cuda
+def test_buffered_learner_step_card_vs_cpu(dev):
+    """Three rollouts through K1 on the card and the plain versions on the
+    CPU from the same weights and noise (equal episodes), the same slots and
+    lanes, then one learner step on the collated batch (one K2 launch):
+    losses within rtol 1e-5, new weights within 1e-5."""
+    import numpy as np
+
+    from rnad_tpu_torch.learn import buffer as buffer_lib
+
+    tree = _tree("cpu", depth=4)
+    cfg = RNaDConfig(batch_size=256, eta=0.2, lr=1e-3, logit_clip=2.0,
+                     **BUFFERED)
+    gen = torch.Generator().manual_seed(3)
+    md = tree.max_depth
+    noise = [[engine.turn_noise(256, 3, 2, gen, "cpu") for _ in range(md)]
+             for _ in range(3)]
+    out = {}
+    for device in ("cpu", dev):
+        dtree = tree.to(device)
+        packed = stepping.make_packed_tables(dtree)
+        net = nets.build_net(NetConfig(max_actions=3, width=64),
+                             torch.Generator().manual_seed(4))
+        state = rnad.init_train_state(net.to(device),
+                                      torch.Generator(device=device))
+        buf = buffer_lib.TrajectoryBuffer(4)
+        k1 = fused_turn_lib.fused_turn.launches
+        for slot_noise in noise:
+            buf.append(rnad.rollout(state, dtree, packed, cfg, slot_noise))
+        slots, lanes = buf.plan(256, np.random.default_rng(7))
+        assert all(x.device == torch.device(device) for x in lanes)
+        k2 = lookup_lib.lookup.launches
+        metrics = rnad.learn_step(state, packed,
+                                  buffer_lib.collate_slots(slots, lanes),
+                                  0.5, cfg)
+        launched = (fused_turn_lib.fused_turn.launches - k1,
+                    lookup_lib.lookup.launches - k2)
+        assert launched == ((3 * md, 1) if device == dev else (0, 0))
+        out[str(device)] = (slots, metrics, [p.detach().cpu()
+                                             for p in state.net.parameters()])
+    (sc, mc, pc), (sg, mg, pg) = out["cpu"], out[str(dev)]
+    for a, b in zip(sc, sg, strict=True):
+        for f in ("indices", "actions", "rewards"):
+            assert torch.equal(getattr(a, f), getattr(b, f).cpu()), f
+    for k in ("loss", "loss_v", "loss_nerd"):
+        torch.testing.assert_close(mg[k].cpu(), mc[k], rtol=1e-5, atol=1e-7)
+    for a, b in zip(pc, pg):
+        torch.testing.assert_close(b, a, rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("net_cfg", [CONV, NetConfig(max_actions=3,
+                                                     width=64)])
+def test_lift_train_step_card_vs_cpu(dev, net_cfg):
+    """One train step under the lift (the generic turn: one K2 launch a
+    turn, none in the learner, which reads the stored observations) on the
+    card and on the CPU from the same weights and noise: equal episodes,
+    stored observations within 1e-5, losses within rtol 1e-5, new weights,
+    BatchNorm statistics and the EMA target within 1e-5."""
+    from rnad_tpu_torch.config import ObsTransformConfig
+    from rnad_tpu_torch.ops import obs_transform as obs_transform_lib
+
+    tree = _tree("cpu", depth=4)
+    cfg = RNaDConfig(batch_size=512, eta=0.2, lr=1e-3, logit_clip=2.0,
+                     gamma_averaging=0.01,
+                     obs_transform=ObsTransformConfig(**LIFT))
+    gen = torch.Generator().manual_seed(3)
+    noise = [engine.turn_noise(512, 3, 2, gen, "cpu", LIFT["channels"])
+             for _ in range(tree.max_depth)]
+    out = {}
+    for device in ("cpu", dev):
+        dtree = tree.to(device)
+        packed = stepping.make_packed_tables(dtree)
+        tf = rnad.resolve_obs_transform(net_cfg, dtree, cfg)
+        net = nets.build_net(net_cfg, torch.Generator().manual_seed(4),
+                             obs_transform_lib.out_channels(cfg.obs_transform))
+        state = rnad.init_train_state(net.to(device),
+                                      torch.Generator(device=device))
+        k = (fused_turn_lib.fused_turn.launches, lookup_lib.lookup.launches)
+        traj = rnad.rollout(state, dtree, packed, cfg, noise, tf)
+        metrics = rnad.learn_step(state, packed, traj, 0.5, cfg)
+        launched = (fused_turn_lib.fused_turn.launches - k[0],
+                    lookup_lib.lookup.launches - k[1])
+        assert launched == ((0, tree.max_depth) if device == dev else (0, 0))
+        out[str(device)] = (traj, metrics, [
+            t.detach().cpu() for name in ("net", "net_target")
+            for t in getattr(state, name).state_dict().values()])
+    (tc, mc, pc), (tg, mg, pg) = out["cpu"], out[str(dev)]
+    for f in ("indices", "actions", "rewards"):
+        assert torch.equal(getattr(tc, f), getattr(tg, f).cpu()), f
+    assert tg.obs.shape == (2 * tree.max_depth, 512, 9, 3, 3)
+    torch.testing.assert_close(tg.obs.cpu(), tc.obs, rtol=0, atol=1e-5)
+    for k in ("loss", "loss_v", "loss_nerd"):
+        torch.testing.assert_close(mg[k].cpu(), mc[k], rtol=1e-5, atol=1e-7)
+    for a, b in zip(pc, pg, strict=True):
+        torch.testing.assert_close(b, a, rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_convnet_lift_resume_on_the_card_is_bit_exact(dev, tmp_path):
+    """A ConvNet run under the lift resumed from checkpoint (0, 2) on the
+    card ends on the straight run's weights, BatchNorm statistics and
+    generator state (cuDNN's deterministic algorithms)."""
+    from rnad_tpu_torch.config import ObsTransformConfig
+
+    tree = _tree("cpu")
+    cfg = RNaDConfig(batch_size=512, bounds=(2,), delta_m=(3,), lr=1e-3,
+                     obs_transform=ObsTransformConfig(**LIFT))
+    make = lambda name: rnad.RNaD(tree, cfg, CONV, directory_name=name,
+                                  runs_root=str(tmp_path))
+    straight = make("straight")
+    straight.run(checkpoint_mod=1)
+    cut = make("cut")
+    cut.run(max_updates=1, checkpoint_mod=1)  # 3 steps; latest is (0, 2)
+    assert cut.store.latest() == (0, 2)
+    resumed = make("cut")
+    resumed.run(checkpoint_mod=1)
+    assert resumed.state.total_steps == straight.state.total_steps == 6
+    for name in ("net", "net_target", "net_reg", "net_reg_"):
+        got = getattr(resumed.state, name).state_dict()
+        want = getattr(straight.state, name).state_dict()
+        assert any("bn" in k for k in want)
+        for k in want:
+            assert torch.equal(got[k], want[k]), (name, k)
+    assert torch.equal(resumed.state.generator.get_state(),
+                       straight.state.generator.get_state())

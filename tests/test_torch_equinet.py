@@ -246,6 +246,9 @@ def test_init_distribution():
     dict(type="EquiNet", max_actions=5, channels=128, depth=4,
          compute_dtype="bfloat16"),
     dict(type="MLP", max_actions=3, width=4096, compute_dtype="bfloat16"),
+    # the ConvNet: noisy-conv's net, and a wide one at A = 5
+    dict(type="ConvNet", max_actions=3, channels=16, depth=2),
+    dict(type="ConvNet", max_actions=5, channels=128, depth=4),
 ])
 def test_inference_chunk_nodes_matches(cfg):
     want = jax_nets.inference_chunk_nodes(jax_nets.build_net(NetConfig(**cfg)),
@@ -256,5 +259,10 @@ def test_inference_chunk_nodes_matches(cfg):
 
 
 def test_other_families_raise():
+    """The ConvNet runs in float32 only; an unknown family raises
+    rnad_tpu's error."""
     with pytest.raises(NotImplementedError, match="ConvNet"):
-        torch_nets.build_net(TorchNetConfig(type="ConvNet", max_actions=3))
+        torch_nets.build_net(TorchNetConfig(type="ConvNet", max_actions=3,
+                                            compute_dtype="bfloat16"))
+    with pytest.raises(ValueError, match="unknown net type: ResNet"):
+        torch_nets.build_net(TorchNetConfig(type="ResNet", max_actions=3))

@@ -131,11 +131,8 @@ def test_rnad_loop_schedule_and_eval(small_tree, tmp_path):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("obs_transform", torch_config.ObsTransformConfig(kind="lift")),
     ("frozen_net_dtype", "bfloat16"),
     ("rollout_actor_dtype", "bfloat16"),
-    ("n_batches_per_buffer", 4),
-    ("buffer_mod", 2),
     ("vtrace_mode", "associative"),
 ])
 def test_unported_fields_raise(small_tree, field, value):

@@ -28,12 +28,18 @@ NETS = {
     "mlp": dict(max_actions=A, width=16),
     "equinet": dict(type="EquiNet", max_actions=A, channels=8, depth=2,
                     solver_iters=8, solver_prime=True),
+    # BatchNorm statistics in the checkpoint, and the lift's noise drawn
+    # from the rollout generator
+    "convnet-lift": dict(type="ConvNet", max_actions=A, channels=4, depth=1),
 }
+LIFT = torch_config.ObsTransformConfig(kind="lift", channels=4, sigma=0.15)
 
 
 def _run(tree, tmp_path, name="run", net="mlp", **kw):
     cfg = dict(batch_size=32, bounds=(2,), delta_m=(3,), lr=1e-3,
                gamma_averaging=0.01, nashconv_chunk_nodes=50)
+    if net == "convnet-lift":
+        cfg["obs_transform"] = LIFT
     cfg.update(kw)
     return torch_rnad.RNaD(tree, torch_config.RNaDConfig(**cfg),
                            torch_config.NetConfig(**NETS[net]),

@@ -1,6 +1,7 @@
 """The port's train CLI (``python -m rnad_tpu_torch.train``): a run on the
-CPU, its resume, the option strings of ``examples/train.py`` and the options
-whose values the port does not run."""
+CPU, its resume, the option strings of ``examples/train.py``, the options
+whose values the port does not run, and the flag sets of the round-5
+buffered and noisy-lift runs (docs/CONVERGENCE.md) at a small size."""
 
 import ast
 import json
@@ -13,6 +14,8 @@ import sys
 
 import pytest
 
+from rnad_tpu.config import NetConfig, RNaDConfig
+from rnad_tpu.learn import rnad as jax_rnad
 from rnad_tpu_torch import train
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
@@ -83,13 +86,10 @@ def test_parser_has_every_option_of_examples_train():
     (["--coordinator", "localhost:1234"], "--coordinator"),
     (["--num-processes", "2"], "--num-processes"),
     (["--process-id", "0"], "--process-id"),
-    (["--obs-lift", "8"], "--obs-lift"),
-    (["--n-batches-per-buffer", "4"], "--n-batches-per-buffer"),
-    (["--buffer-mod", "2"], "--buffer-mod"),
     (["--frozen-dtype", "bfloat16"], "--frozen-dtype"),
-    (["--net", "ConvNet"], "--net"),
     (["--net-depth", "3"], "--net-depth"),
     (["--vtrace-mode", "associative"], "--vtrace-mode"),
+    (["--net", "ConvNet", "--compute-dtype", "bfloat16"], "--compute-dtype"),
 ])
 def test_unported_options_raise(tmp_path, monkeypatch, argv, flag):
     monkeypatch.chdir(tmp_path)
@@ -112,3 +112,65 @@ def test_tpu_layout_options_change_nothing(tmp_path, monkeypatch):
     assert plain.cfg.reg_anchor == "best" and plain.cfg.lr_decay_steps == 1
     for p, q in zip(plain.state.net.parameters(), laid.state.net.parameters()):
         assert (p == q).all()
+
+
+# r5-offpol-32k's buffer flags, r5-noisy-conv's and r5-noisy-mlp's lift and
+# nets, each on a depth-3 tree at 64 lanes
+SMALL = ["--cpu", "--tree-depth", "3", "--batch-size", "64", "--bounds", "2",
+         "--delta-m", "4", "--checkpoint-mod", "2", "--log-mod", "1"]
+ROUND5 = {
+    "offpol": ["--n-batches-per-buffer", "4", "--buffer-mod", "2"],
+    "noisy-conv": ["--obs-lift", "8", "--obs-noise-sigma", "0.15", "--net",
+                   "ConvNet", "--channels", "8", "--net-depth", "2"],
+    "noisy-mlp": ["--obs-lift", "8", "--obs-noise-sigma", "0.15",
+                  "--width", "32"],
+}
+
+
+@pytest.fixture(scope="module")
+def rnad_tpu_metric_keys(tmp_path_factory):
+    """The keys of rnad_tpu's metrics.jsonl lines on its buffered path."""
+    root = tmp_path_factory.mktemp("jax")
+    from rnad_tpu.config import TreeConfig
+    from rnad_tpu.env import tree as tree_lib
+
+    tree = tree_lib.generate_tree(TreeConfig(
+        max_actions=3, max_transitions=2, transition_threshold=0.3,
+        depth_bound=3), seed=0)
+    run = jax_rnad.RNaD(tree, RNaDConfig(batch_size=32, bounds=(1,),
+                                         delta_m=(2,), n_batches_per_buffer=4,
+                                         buffer_mod=2),
+                        NetConfig(max_actions=3, width=16),
+                        directory_name="jax", runs_root=str(root))
+    run.run(log_mod=1)
+    run.final_eval()
+    run.logger.finish()
+    lines = (root / "jax" / "metrics.jsonl").read_text().splitlines()
+    return [sorted(json.loads(x)) for x in lines]
+
+
+@pytest.mark.parametrize("name", sorted(ROUND5))
+def test_cli_runs_the_round5_flag_sets(tmp_path, monkeypatch, name,
+                                       rnad_tpu_metric_keys):
+    monkeypatch.chdir(tmp_path)
+    argv = SMALL + ROUND5[name] + ["--name", name]
+    first = train.main(argv + ["--max-updates", "1"])
+    cfg, net_cfg = first.cfg, first.net_config
+    assert (cfg.n_batches_per_buffer, cfg.buffer_mod) == (
+        (4, 2) if name == "offpol" else (1, 1))
+    if name != "offpol":
+        assert cfg.obs_transform.kind == "lift"
+        assert (cfg.obs_transform.channels, cfg.obs_transform.sigma) == (
+            8, 0.15)
+        assert net_cfg.type == ("ConvNet" if name == "noisy-conv" else "MLP")
+        assert net_cfg.batch_norm  # as examples/train.py leaves it
+    assert first.state.total_steps == 4
+    assert first.store.latest() == (0, 2)
+    again = train.main(argv)  # resumes at (0, 2): steps 3..8
+    assert again.state.total_steps == 8
+    assert [s for s, m in again.history if "loss" in m] == list(range(3, 9))
+    lines = [json.loads(x) for x in
+             (tmp_path / "saved_runs" / name / "metrics.jsonl").open()]
+    assert all(math.isfinite(v) for r in lines for v in r.values())
+    keys = {tuple(sorted(r)) for r in lines}
+    assert keys == {tuple(k) for k in rnad_tpu_metric_keys}

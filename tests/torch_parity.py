@@ -94,7 +94,52 @@ def rollout_noise(k_roll, batch_size: int, A: int, T: int, num_turns: int):
 
 
 def train_step_noise(state_key, batch_size: int, A: int, T: int,
-                     num_turns: int):
-    """The rollout noise of one rnad_tpu train step from ``state.key``."""
+                     num_turns: int, channels=None):
+    """The rollout noise of one rnad_tpu train step from ``state.key``
+    (under a lift of ``channels`` lifted channels where given)."""
     _, k_roll = jax.random.split(state_key)
+    if channels is not None:
+        return lift_rollout_noise(k_roll, batch_size, A, T, num_turns,
+                                  channels)
     return rollout_noise(k_roll, batch_size, A, T, num_turns)
+
+
+def lift_rollout_noise(k_roll, batch_size: int, A: int, T: int,
+                       num_turns: int, channels: int):
+    """Per-turn (g_act, g_chance, eps (2B, channels, A, A)) as rnad_tpu's
+    rollout draws them under an observation transform: per-turn keys split
+    three ways (k_act, k_ch, k_noise), the lift's noise a unit normal of
+    the lifted observations' shape from k_noise."""
+    noise = []
+    for key_t in jax.random.split(k_roll, num_turns):
+        k_act, k_ch, k_noise = jax.random.split(key_t, 3)
+        g_act = jax.random.gumbel(k_act, (2 * batch_size, A), jnp.float32)
+        g_ch = jax.random.gumbel(k_ch, (T, batch_size), jnp.float32).T
+        eps = jax.random.normal(k_noise, (2 * batch_size, channels, A, A),
+                                jnp.float32)
+        noise.append(tuple(torch.from_numpy(np.array(x))
+                           for x in (g_act, g_ch, eps)))
+    return noise
+
+
+def torch_convnet(variables, max_actions: int, channels: int, depth: int,
+                  batch_norm: bool = True,
+                  in_channels: int = 2) -> torch_nets.ConvNet:
+    """The port's ConvNet holding a flax ConvNet's params and batch_stats."""
+    net = torch_nets.ConvNet(max_actions, channels=channels, depth=depth,
+                             batch_norm=batch_norm, in_channels=in_channels)
+    net.load_state_dict(torch_nets.convnet_from_flax(
+        jax.tree.map(np.asarray, dict(variables))))
+    return net
+
+
+def torch_trajectory(traj, keep_obs: bool = True):
+    """An rnad_tpu Trajectory ("bma" layout) as the port's, on the CPU."""
+    from rnad_tpu_torch.env import engine as torch_engine
+
+    t = lambda x: torch.from_numpy(np.array(x))
+    return torch_engine.Trajectory(
+        indices=t(traj.indices), policy=t(traj.policy),
+        actions=t(traj.actions), rewards=t(traj.rewards),
+        values=t(traj.values),
+        obs=t(traj.obs) if keep_obs and traj.obs is not None else None)
