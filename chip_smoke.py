@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Seven phases, and any failure exits nonzero:
+Eight phases, and any failure exits nonzero:
 
 1. Build the three CUDA kernels from ``rnad_tpu_torch/csrc`` (one nvcc
    each, started together) and print the build time and ptxas's registers
@@ -73,6 +73,23 @@ Seven phases, and any failure exits nonzero:
    at checkpoint (1, 50) ending on the straight run's weights and BatchNorm
    statistics bitwise (cuDNN deterministic), and one ConvNet step and one
    noisy-MLP step on the card against the CPU; times updates/s.
+8. Drive the reference's eta sweep through ``rnad_tpu_torch.eta_sweep.
+   main`` (``examples/eta_sweep.py``'s experiment: the demo tree of seed 0,
+   a width-256 MLP at 512 lanes, etas 0, 0.2, 0.5 and 1), cut to 2 update
+   periods of 25 steps a run (printed).  Checks the tree's hash against
+   rnad_tpu's, every eta > 0 run starting from the eta = 0 run's weights
+   bitwise, 4 K1 launches and 1 K2 launch a step, finite NashConv and mean
+   |return| <= 1; holds K1 at (A = 3, W = 256, 512 lanes) and K2 at one
+   learner regather (2048 ids) against their plain versions and times them
+   against their bounds.  Then one step at 256 lanes on the card against
+   the CPU, for a depth-2 width-256 MLP and the primed EquiNet with
+   bfloat16 frozen passes and for a bfloat16 ConvNet 16x2 with BatchNorm:
+   the rollouts part only at near-ties and the weights stay within 2 lr
+   (plus 1e-6 of float32 rounding), and on one shared trajectory the
+   losses agree within rtol 1e-3 (1e-2 for the bfloat16 ConvNet) and the
+   weights within the same 2 lr.  Last, the demo tree in the "pure", "mixed" and
+   "enummixed" equilibrium selections on the card's host: the hash stays
+   rnad_tpu's and the stored solution scores NashConv 0.
 
 It runs in a temporary working directory (the CLI writes ``saved_trees/``
 and ``saved_runs/`` under it).  It prints a ``{"kernels": [...]}`` line,
@@ -135,13 +152,21 @@ OFFPOL_CUTS = [("--delta-m", ["10"], "300")]
 OFFPOL_STEPS, OFFPOL_SLOTS, OFFPOL_MOD = 20, 4, 2
 # r5-noisy-conv (docs/runs/r5-noisy-conv.params.json): the demo tree of the
 # CLI's defaults, the lift and the ConvNet; its cut is --max-updates 2.  The
-# tree's hash is rnad_tpu's numpy-path hash of it (tests/test_torch_tree.py);
-# the run's params.json holds -3732021709909792432, the hash of the same
-# tree solved by rnad_tpu's native solver, whose float64 values differ in
-# their last bits
+# tree's hash is rnad_tpu's (both packages solve its levels with the same
+# native simplex), the one the run's params.json holds
 NOISY_RUN = ["--demo", "--obs-lift", "8", "--obs-noise-sigma", "0.15",
              "--net", "ConvNet", "--channels", "16", "--net-depth", "2"]
-NOISY_NODES, NOISY_HASH, NOISY_STEPS = 1648, 2168787413126214997, 200
+NOISY_NODES, NOISY_HASH, NOISY_STEPS = 1648, -3732021709909792432, 200
+# the reference's eta sweep (examples/eta_sweep.py) at seed 0, cut from 64
+# update periods of 100 steps to 2 of 25.  Its tree config carries a desc,
+# which the content hash takes: rnad_tpu's hash of that tree is
+# SWEEP_HASH, and the same game under the config without its desc (phase
+# 3's) hashes to DEMO_HASH
+SWEEP_ARGV = ["--seed", "0", "--bounds", "2", "--delta-m", "25", "--name",
+              "sweep"]
+SWEEP_CUTS = [("--bounds", "2", "64"), ("--delta-m", "25", "100")]
+SWEEP_ETAS, SWEEP_STEPS = (0.0, 0.2, 0.5, 1.0), 50
+SWEEP_HASH, DEMO_HASH = 7199347968155577245, 5087467122622553942
 
 
 def log(msg: str) -> None:
@@ -444,13 +469,16 @@ def main() -> int:
 
     # -- phase 7: the noisy-lift ConvNet path -----------------------------
     noisy = noisy_phase(card)
+
+    # -- phase 8: the reference's eta sweep, the new nets, selection -----
+    sweep = sweep_phase(card, gen)
     k1_by_path = {"mlp": k1_launches, "equinet": equi["k1"], "flagship": 0,
-                  "offpol": offpol["k1"], "noisy": 0}
+                  "offpol": offpol["k1"], "noisy": 0, "sweep": sweep["k1"]}
     k2_by_path = {"mlp": k2_launches, "equinet": equi["k2"],
                   "flagship": flag["k2"], "offpol": offpol["k2"],
-                  "noisy": noisy["k2"]}
+                  "noisy": noisy["k2"], "sweep": sweep["k2"]}
     k3_by_path = {"mlp": 0, "equinet": equi["k3"], "flagship": flag["k3"],
-                  "offpol": 0, "noisy": 0}
+                  "offpol": 0, "noisy": 0, "sweep": sweep["k3"]}
     kernels = [
         {"name": "fused_turn", "route": "cuda",
          "source": "rnad_tpu_torch/csrc/fused_turn.cu",
@@ -505,6 +533,16 @@ def main() -> int:
          "replaces": "rnad_tpu/ops/pallas_lookup.py:45",
          "launches": noisy["k2"], "launches_by_path": {"noisy": noisy["k2"]},
          **noisy["lookup"]},
+        {"name": "fused_turn (eta sweep shapes)", "route": "cuda",
+         "source": "rnad_tpu_torch/csrc/fused_turn.cu",
+         "replaces": "rnad_tpu/ops/pallas_turn.py:79",
+         "launches": sweep["k1"], "launches_by_path": {"sweep": sweep["k1"]},
+         **sweep["fused_turn"]},
+        {"name": "lookup (eta sweep shapes)", "route": "cuda",
+         "source": "rnad_tpu_torch/csrc/lookup.cu",
+         "replaces": "rnad_tpu/ops/pallas_lookup.py:45",
+         "launches": sweep["k2"], "launches_by_path": {"sweep": sweep["k2"]},
+         **sweep["lookup"]},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
@@ -699,7 +737,7 @@ def equinet_phase(run, card):
         f" train {1e3 / step_ms:.6g} updates/s ({step_ms:.4f} ms per step, "
         f"runs {runs(step_runs)} ms, device busy {step_dev_ms:.4f} ms); peak "
         f"memory {peak:.3f} GiB | {card}")
-    check_equinet_against_cpu(tree, cfg, run.net_config)
+    check_step_against_cpu(tree, cfg, run.net_config)
     return counts
 
 
@@ -846,7 +884,7 @@ def flagship_phase(card, gen):
             f"(first run {first_eval:.7f})")
     else:
         log(f"  FALLBACK: the resumed weights are not bitwise equal (max_abs_"
-            f"err {err:.3g}); held to check_equinet_against_cpu's 2 lr")
+            f"err {err:.3g}); held to check_step_against_cpu's 2 lr")
         if not err <= 2 * cfg.lr:
             raise AssertionError(f"resume: weights differ by {err}")
     del first, resumed
@@ -924,7 +962,7 @@ def flagship_phase(card, gen):
         f"{step_dev_ms:.4f} ms a step ({100 * (1 - step_dev_ms / step_runs[1]):.1f}"
         f" % idle); peak memory {peak:.3f} GiB; {tree.size}-node NashConv "
         f"eval {eval_s:.4f} s wall; tree generation {gen_line} | {card}")
-    check_equinet_against_cpu(tree.to("cpu"), cfg, again.net_config,
+    check_step_against_cpu(tree.to("cpu"), cfg, again.net_config,
                               atol=2 * cfg.lr)
     cli_log.removeHandler(capture)
     return {"k2": counts["k2"], "k3": counts["k3"], "lookup": lookup,
@@ -1297,6 +1335,208 @@ def noisy_phase(card):
     return {"k2": counts["k2"], "lookup": k2}
 
 
+def sweep_phase(card, gen):
+    """The reference's eta sweep (phase 8): ``rnad_tpu_torch.eta_sweep.
+    main`` cut to 2 update periods of 25 steps; K1 and K2 at its shapes;
+    one step of each new net (a depth-2 MLP and the EquiNet with bfloat16
+    frozen passes, a bfloat16 ConvNet) on the card against the CPU; the
+    three equilibrium selections on the card's host.  Returns the launch
+    counts and the kernels line's entries at the sweep's shapes."""
+    from rnad_tpu_torch import eta_sweep
+    from rnad_tpu_torch.config import NetConfig, RNaDConfig
+    from rnad_tpu_torch.env import engine
+    from rnad_tpu_torch.env import tree as tree_lib
+    from rnad_tpu_torch.learn import rnad
+    from rnad_tpu_torch.metrics import nashconv
+    from rnad_tpu_torch.models import nets
+    from rnad_tpu_torch.ops import fused_turn as fused_turn_lib
+    from rnad_tpu_torch.ops import lookup as lookup_lib
+    from rnad_tpu_torch.ops import rmplus as rmplus_lib
+
+    t_phase = time.perf_counter()
+    log("sweep path: python -m rnad_tpu_torch.eta_sweep "
+        + " ".join(SWEEP_ARGV))
+    for flag, value, full in SWEEP_CUTS:
+        log(f"  reduced from the reference's sweep: {flag} {value} "
+            f"(examples/eta_sweep.py: {full})")
+    fused_turn_lib.fused_turn.launches = 0
+    lookup_lib.lookup.launches = 0
+    rmplus_lib.rmplus.launches = 0
+    t0 = time.perf_counter()
+    trials = eta_sweep.main(SWEEP_ARGV)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {"k1": fused_turn_lib.fused_turn.launches,
+              "k2": lookup_lib.lookup.launches,
+              "k3": rmplus_lib.rmplus.launches}
+    tree = trials[0].tree
+    md = tree.max_depth
+    evals = {t.cfg.eta: [m["nashconv"] for _, m in t.history
+                         if "nashconv" in m] for t in trials}
+    log(f"sweep path: tree S={tree.size} max_depth={md} hash={tree.hash}; "
+        f"{len(trials)} runs of {trials[0].state.total_steps} steps in "
+        f"{wall:.2f} s; launches K1 {counts['k1']}, K2 {counts['k2']}, K3 "
+        f"{counts['k3']}")
+    for eta, vals in evals.items():
+        log(f"  eta={eta} NashConv " + ", ".join(f"{v:.6f}" for v in vals))
+    bare = tree_lib.generate_tree(
+        dataclasses.replace(eta_sweep.DEMO_TREE, desc=""), seed=0,
+        device="cpu")
+    if (tree.hash != SWEEP_HASH or bare.hash != DEMO_HASH
+            or not torch.equal(bare.value, tree.value.cpu())):
+        raise AssertionError(f"sweep tree: hash {tree.hash} (want "
+                             f"{SWEEP_HASH}), without its desc {bare.hash} "
+                             f"(want {DEMO_HASH}), or another game")
+    if (tuple(t.cfg.eta for t in trials) != SWEEP_ETAS
+            or any(t.state.total_steps != SWEEP_STEPS for t in trials)):
+        raise AssertionError("sweep: runs or steps differ from the cut")
+    if not all(len(v) == 2 and all(math.isfinite(x) for x in v)
+               for v in evals.values()):
+        raise AssertionError(f"sweep NashConv: {evals}")
+    steps = len(trials) * SWEEP_STEPS
+    want = {"k1": md * steps, "k2": steps, "k3": 0}
+    if counts != want:
+        raise AssertionError(f"sweep launches {counts}, want {want}")
+    first = trials[0].store.load_checkpoint(0, 0, trials[0]._fresh_state())
+    for t in trials[1:]:
+        init = t.store.load_checkpoint(0, 0, t._fresh_state())
+        if not all(torch.equal(a, b) for a, b in zip(
+                init.net.state_dict().values(),
+                first.net.state_dict().values())):
+            raise AssertionError(f"sweep: eta={t.cfg.eta} does not start "
+                                 "from eta=0.0's weights")
+    last = trials[-1]
+    traj = rnad.rollout(last.state, tree, last.packed, last.cfg)
+    mean_abs = float(engine.episode_returns(traj).abs().mean())
+    if not mean_abs <= 1.0:
+        raise AssertionError(f"sweep rollout: mean |return| {mean_abs}")
+    log(f"checks: tree hash {tree.hash} (rnad_tpu's; {bare.hash} without "
+        f"the desc), every eta>0 run starts from eta=0.0's weights bitwise, "
+        f"K1 {md} launches a step, mean |episode return| {mean_abs:.4f}")
+
+    # K1 at the sweep's shape (B = 512, A = 3, W = 256) on the last run's
+    # weights and one turn's lanes; K2 at one learner regather
+    packed, cfg = last.packed, last.cfg
+    A, T, B = tree.max_actions, tree.max_transitions, cfg.batch_size
+    weights = [w.detach().contiguous()
+               for w in nets.mlp_fused_weights(last.state.net)]
+    idx = traj.indices[2].contiguous()  # the second turn's lanes
+    g_act, g_ch = engine.turn_noise(B, A, T, gen, idx.device)
+    turn_args = [packed.rows, *weights, idx, g_act, g_ch]
+    k1_err, near = check_fused_turn(fused_turn_lib, turn_args, A, T)
+    D = packed.rows.shape[1]
+    H = weights[0].shape[1]
+    rows = int(torch.unique(idx).numel())
+    bound, by, flops, nbytes = k1_bound_of(fused_turn_lib, A, H, B, T, D,
+                                           rows)
+    k1 = {"max_abs_err": k1_err,
+          "ms": device_ms(lambda: fused_turn_lib.fused_turn(*turn_args, A=A,
+                                                             T=T)),
+          "plain_ms": device_ms(lambda: fused_turn_lib.fused_turn_plain(
+              *turn_args, A=A, T=T)),
+          "bound_ms": bound, "bound_by": by, "library_ms": None,
+          "near_ties": near, "lanes": B, "width": H // 2, "A": A}
+    log(f"K1 fused_turn sweep (A={A}, W={H // 2}, {B} lanes, {rows} distinct"
+        f" rows): kernel {k1['ms']:.4f} ms, plain {k1['plain_ms']:.4f} ms, "
+        f"bound {bound:.6f} ms ({by}; {flops:.4g} FLOP, {nbytes:.4g} B), "
+        f"{100 * bound / k1['ms']:.2f} % of it | {card}")
+    ids = traj.indices[0::2].reshape(-1).contiguous()
+    k2 = lookup_entry(lookup_lib, packed.rows, ids, "sweep regather")
+    del trials, traj, turn_args
+
+    # one step of each new net at 256 lanes on the card against the CPU
+    cpu_tree = tree.to("cpu")
+    step_cfg = RNaDConfig(batch_size=256, eta=0.2, lr=5e-5,
+                          gamma_averaging=0.01, logit_clip=2.0,
+                          frozen_net_dtype="bfloat16")
+    conv_cfg = dataclasses.replace(step_cfg, frozen_net_dtype="float32")
+    for net_cfg, cfg in (
+            (NetConfig(type="MLP", max_actions=A, width=256, depth=2),
+             step_cfg),
+            (NetConfig(type="EquiNet", max_actions=A, channels=64, depth=2,
+                       solver_iters=RM_ITERS, solver_prime=True), step_cfg),
+            (NetConfig(type="ConvNet", max_actions=A, channels=16, depth=2,
+                       compute_dtype="bfloat16"), conv_cfg)):
+        # 2 lr, plus the float32 rounding of the two updated weights
+        check_step_against_cpu(cpu_tree, cfg, net_cfg,
+                               atol=2 * cfg.lr + 1e-6)
+        check_learner_against_cpu(
+            cpu_tree, cfg, net_cfg,
+            loss_rtol=1e-2 if net_cfg.compute_dtype == "bfloat16" else 1e-3)
+
+    # equilibrium selection on this host: the hash stays, NashConv 0
+    for mode in ("pure", "mixed", "enummixed"):
+        t0 = time.perf_counter()
+        sel = tree_lib.generate_tree(dataclasses.replace(
+            eta_sweep.DEMO_TREE, desc="", equilibrium_selection=mode),
+            seed=0, device="cpu")
+        secs = time.perf_counter() - t0
+        oracle = float(nashconv.nashconv_pure(sel, sel.solution).nashconv())
+        moved = int((sel.solution != bare.solution).any(1).sum())
+        if sel.hash != DEMO_HASH or not abs(oracle) < 1e-5 or not moved:
+            raise AssertionError(f"selection {mode}: hash {sel.hash}, stored"
+                                 f" solution NashConv {oracle}, {moved} "
+                                 "nodes re-selected")
+        log(f"selection {mode}: hash {sel.hash}, {moved} of {sel.size} nodes"
+            f" store another equilibrium, stored solution NashConv "
+            f"{oracle:.3g}, generated in {secs:.2f} s")
+    log(f"phase 8: {time.perf_counter() - t_phase:.1f} s")
+    return {"k1": counts["k1"], "k2": counts["k2"], "k3": counts["k3"],
+            "fused_turn": k1, "lookup": k2}
+
+
+def check_learner_against_cpu(tree, cfg, net_cfg, card="cuda",
+                              loss_rtol=1e-3) -> None:
+    """One learner step at 256 lanes on one trajectory (rolled out on the
+    card, copied to the CPU) on the card and on the CPU from the same
+    weights: losses within ``loss_rtol``, new weights and statistics of the
+    learner and the target within 2 lr (Adam with b1=0 moves a weight whose
+    gradient is 0 but for rounding by up to lr either way) plus 1e-6 (the
+    float32 rounding of the two updated weights).  A bfloat16 pass rounds
+    its float32 sums to bfloat16, 2**-8 apart, and the card's libraries sum
+    in another order than the CPU's, so some outputs part by one bfloat16
+    ulp: 1e-3 holds the float32 nets' bfloat16 frozen passes, 1e-2 a net
+    that computes in bfloat16 throughout (the ConvNet's step measured
+    1.5e-3 on an NVIDIA H100)."""
+    import copy
+
+    from rnad_tpu_torch.env import engine
+    from rnad_tpu_torch.learn import rnad
+    from rnad_tpu_torch.models import nets
+    from rnad_tpu_torch.ops import stepping
+
+    small = dataclasses.replace(cfg, batch_size=256)
+    net = nets.build_net(net_cfg, torch.Generator().manual_seed(4))
+    states, packs = {}, {}
+    for key, device in (("cpu", "cpu"), ("card", card)):
+        states[key] = rnad.init_train_state(
+            copy.deepcopy(net).to(device), torch.Generator(device=device))
+        packs[key] = stepping.make_packed_tables(tree.to(device))
+    traj = rnad.rollout(states["card"], tree.to(card), packs["card"], small)
+    cpu_traj = engine.Trajectory(*(None if t is None else t.cpu() for t in (
+        traj.indices, traj.policy, traj.actions, traj.rewards, traj.values,
+        traj.obs)))
+    mg = rnad.learn_step(states["card"], packs["card"], traj, 0.5, small)
+    mc = rnad.learn_step(states["cpu"], packs["cpu"], cpu_traj, 0.5, small)
+    for k in ("loss", "loss_v", "loss_nerd"):
+        a, b = float(mc[k]), float(mg[k])
+        if abs(a - b) > loss_rtol * max(abs(a), 1e-6):
+            raise AssertionError(f"{net_cfg.type} learner card vs CPU: {k} "
+                                 f"{b} vs {a}")
+    err = max(float((a.cpu() - b).abs().max()) for name in
+              ("net", "net_target") for a, b in zip(
+                  getattr(states["card"], name).state_dict().values(),
+                  getattr(states["cpu"], name).state_dict().values()))
+    if not err <= 2 * cfg.lr + 1e-6:
+        raise AssertionError(f"{net_cfg.type} learner card vs CPU: weights "
+                             f"differ by {err} > 2 lr")
+    log(f"{net_cfg.type} (depth {net_cfg.depth}, {net_cfg.compute_dtype}, "
+        f"frozen {cfg.frozen_net_dtype}) learner card vs CPU on one "
+        f"trajectory: loss {float(mg['loss']):.7f} (CPU "
+        f"{float(mc['loss']):.7f}, rtol {loss_rtol}), weights max_abs_err "
+        f"{err:.3g} (2 lr = {2 * cfg.lr:.3g})")
+
+
 def check_lift_against_cpu(tree, cfg, net_cfg) -> None:
     """One train step under the lift at the config's lanes on the card and
     on the CPU from the same weights and noise (the lift's eps included):
@@ -1352,10 +1592,11 @@ def check_lift_against_cpu(tree, cfg, net_cfg) -> None:
         f"loss {float(mg['loss']):.6f}, CPU {float(mc['loss']):.6f})")
 
 
-def check_equinet_against_cpu(tree, cfg, net_cfg, card="cuda",
+def check_step_against_cpu(tree, cfg, net_cfg, card="cuda",
                               atol=1e-4) -> None:
-    """One EquiNet train step at 256 lanes on the card (kernels) and on the
-    CPU (plain versions) from the same weights and noise.  A lane's episode
+    """One train step at 256 lanes on the card (kernels) and on the CPU
+    (plain versions) from the same weights and noise, for the EquiNet (and,
+    in phase 8, the deep MLP and the bfloat16 ConvNet).  A lane's episode
     may part from the CPU's only at a near-tie: at the first half-step
     whose action differs, the CPU's two best scores (masked logits +
     Gumbel noise) lie within 1e-5, or within twice the largest difference
@@ -1420,22 +1661,22 @@ def check_equinet_against_cpu(tree, cfg, net_cfg, card="cuda",
         near = gap < torch.clamp(2 * diff, min=1e-5)
         if not near.all():
             raise AssertionError(
-                f"EquiNet card vs CPU: {int((~near).sum())} lanes part "
+                f"{net_cfg.type} card vs CPU: {int((~near).sum())} lanes part "
                 f"without a near-tie (gaps {gap[~near].tolist()}, score "
                 f"differences {diff[~near].tolist()})")
     keep = ~flipped
     for f in ("indices", "actions", "rewards"):
         if not torch.equal(getattr(tc, f)[:, keep],
                            getattr(tg, f).cpu()[:, keep]):
-            raise AssertionError(f"EquiNet card vs CPU: {f} differ on lanes "
+            raise AssertionError(f"{net_cfg.type} card vs CPU: {f} differ on lanes "
                                  "whose actions agree")
     pc, pg = out["cpu"][2], out["card"][2]
     err = max(float((a - b).abs().max()) for a, b in zip(pc, pg))
     if not err <= atol:
-        raise AssertionError(f"EquiNet card vs CPU: weights differ by {err} "
+        raise AssertionError(f"{net_cfg.type} card vs CPU: weights differ by {err} "
                              f"> {atol}")
     mc, mg = out["cpu"][1], out["card"][1]
-    log(f"EquiNet ({net_cfg.compute_dtype}) card vs CPU: one step at {B} "
+    log(f"{net_cfg.type} ({net_cfg.compute_dtype}) card vs CPU: one step at {B} "
         f"lanes agrees: "
         f"{int(flipped.sum())} lanes parted, all at near-ties; weights "
         f"max_abs_err {err:.3g}; loss {float(mg['loss']):.6f} (CPU "

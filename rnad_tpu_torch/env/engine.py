@@ -139,10 +139,12 @@ def uses_fused_turn(net: nn.Module, mode: str = "auto",
     width whose weights K1 holds in shared memory, or on the CPU) and the
     generic turn for every other net or under an observation
     ``transform``; "off" takes the generic turn; "on" with another net (a
+    deeper MLP, whose hidden layers K1's packing has no place for, and a
     bfloat16 MLP included: K1 computes in float32) raises
     ``make_mlp_rows_actor``'s error, under a transform rnad_tpu's error,
     and on the card at too wide an MLP K1 raises."""
-    fusable = isinstance(net, nets.MLP) and net.dtype == torch.float32
+    fusable = (isinstance(net, nets.MLP) and net.depth == 1
+               and net.dtype == torch.float32)
     if mode == "off":
         return False
     if transform:
@@ -159,6 +161,11 @@ def uses_fused_turn(net: nn.Module, mode: str = "auto",
             raise ValueError(
                 f"make_mlp_rows_actor requires an MLP net, got "
                 f"{type(net).__name__}; use the generic actor_fn path")
+        if net.depth != 1:
+            raise ValueError(
+                f"make_mlp_rows_actor supports depth=1 MLPs only (got depth="
+                f"{net.depth}); mlp_seat_fused_weights cannot express hidden "
+                f"layers")
         if not fusable:
             raise ValueError(
                 f"make_mlp_rows_actor computes in float32; net dtype "

@@ -11,9 +11,13 @@ Two generators, each giving for a config and seed the same game as its
 ``rnad_tpu`` counterpart.  ``generate_tree`` is the host-side numpy
 generator, drawn from one ``numpy.random.Generator`` in exactly the same
 order (Dirichlet chance profiles, the three shaping-rule uniforms, the
-terminal draws), its levels solved with the numpy simplex
-(``env/solver.py``).  ``generate_tree_native`` runs the C++ generator
-(``native.py``), the one that scales to the 785,768-node trees.
+terminal draws), its levels solved by the native batched simplex
+(``env/solver.py``), so values and content hash are those of
+``rnad_tpu``'s default.  ``generate_tree_native`` runs the C++ generator
+(``native.py``), the one that scales to the 785,768-node trees.  Both store,
+on a degenerate node, the equilibrium ``TreeConfig.equilibrium_selection``
+picks; ``select_equilibria`` re-selects on a stored or loaded tree.  The
+selection never enters the hash.
 """
 
 from __future__ import annotations
@@ -105,10 +109,6 @@ def generate_tree(config: TreeConfig, seed: int = 0, device="cuda",
     Topology is built top-down one level at a time; values are solved
     bottom-up with one batched zero-sum LP call per level.  ``max_nodes``
     bounds runaway configs (a depth rule that never decrements)."""
-    if config.equilibrium_selection != "vertex":
-        raise NotImplementedError(
-            "TreeConfig.equilibrium_selection: the port stores the simplex "
-            f"vertex only, got {config.equilibrium_selection!r}")
     A, T = config.max_actions, config.max_transitions
     if config.depth_bound < 1:
         raise ValueError("depth_bound must be >= 1")
@@ -207,6 +207,16 @@ def generate_tree(config: TreeConfig, seed: int = 0, device="cuda",
     full_chance[0, 0, 0, 0] = 1.0
     full_legal[0, 0, 0, 0] = 1.0
 
+    if config.equilibrium_selection != "vertex":
+        # re-select the stored equilibrium of degenerate nodes on the
+        # float64 games; the values, and so the hash, do not change
+        node_rows = full_legal[:, 0, :, 0].sum(axis=1).astype(np.int64)
+        node_cols = full_legal[:, 0, 0, :].sum(axis=1).astype(np.int64)
+        x, y = solver.refine_equilibrium_batch(
+            full_ev[:, 0], node_rows, node_cols, solution[:, :A],
+            solution[:, A:], node_value, config.equilibrium_selection)
+        solution = np.concatenate([x, y], axis=1)
+
     tree_hash = _content_hash(config, seed, full_index, full_value)
     f32 = lambda a: torch.as_tensor(a, dtype=torch.float32)
     return GameTree(
@@ -247,10 +257,6 @@ def generate_tree_native(config: TreeConfig, seed: int = 0, device="cuda",
     stream is its own, so for a seed it makes another tree than the numpy
     path, the same tree (and hash) as ``rnad_tpu``'s native path.  A failed
     build of the generator raises."""
-    if config.equilibrium_selection != "vertex":
-        raise NotImplementedError(
-            "TreeConfig.equilibrium_selection: the port stores the simplex "
-            f"vertex only, got {config.equilibrium_selection!r}")
     from .. import native
 
     rules = tuple(
@@ -267,7 +273,33 @@ def generate_tree_native(config: TreeConfig, seed: int = 0, device="cuda",
             "max_depth": int(arrays["depth"][1]),
             "hash": _content_hash(config, seed, arrays["index"],
                                   arrays["value"])}
-    return tree_from_arrays(arrays, meta, device)
+    tree = tree_from_arrays(arrays, meta, "cpu")
+    return select_equilibria(tree, config.equilibrium_selection).to(device)
+
+
+def select_equilibria(tree: GameTree, mode: str,
+                      tol: float = 3e-6) -> GameTree:
+    """Re-selects the stored equilibrium of each degenerate node of a
+    generated or loaded tree (``rnad_tpu``'s ``select_equilibria``): each
+    node's ``expected_value`` matrix is the game its ``solution`` row
+    solves.  The default ``tol`` suits float32 tensors (generation refines
+    the float64 games with a tighter one).  Values, topology and the hash
+    are unchanged."""
+    if mode == "vertex":
+        return tree
+    A = tree.max_actions
+    host = lambda t: t.detach().cpu().double().numpy()
+    legal = host(tree.legal)
+    sol = host(tree.solution)
+    node_rows = legal[:, 0, :, 0].sum(axis=1).astype(np.int64)
+    node_cols = legal[:, 0, 0, :].sum(axis=1).astype(np.int64)
+    x, y = solver.refine_equilibrium_batch(
+        host(tree.expected_value[:, 0]), node_rows, node_cols, sol[:, :A],
+        sol[:, A:], host(tree.root_value[:, 0]), mode, tol=tol)
+    solution = torch.as_tensor(np.concatenate([x, y], axis=1),
+                               dtype=tree.solution.dtype,
+                               device=tree.device)
+    return dataclasses.replace(tree, solution=solution)
 
 
 def depth_from_index(index: np.ndarray, chance: np.ndarray) -> np.ndarray:

@@ -10,9 +10,12 @@ observations (one packed-row lookup, and one RM+ solve shared by all four
 passes) or on the stored lifted ones, the frozen passes, the
 alpha-interpolated reward transform and two-player v-trace, the NeuRD and
 critic losses, the optax global-norm clip, Adam with the optax formulas
-(b1=0 by default) and the EMA target update.  The frozen passes follow ``fuse_net_passes``: "heads"
-(the MLP: the EMA target's value head and the regularization pair's policy
-heads) or "off" (every other net: each frozen net's whole forward).  The
+(b1=0 by default) and the EMA target update.  The frozen passes follow
+``fuse_net_passes``: "heads" (the MLP: the EMA target's value head and the
+regularization pair's policy heads) or "off" (every other net: each frozen
+net's whole forward), computed in ``frozen_net_dtype`` where it is
+bfloat16 (the nets' float32 weights cast per layer, as ``rnad_tpu``'s
+``net.clone(dtype=...)`` does) and in the net's own dtype otherwise.  The
 ``RNaD`` host loop owns the run's lifecycle (a fresh start or a bit-exact
 resume from the run store), the (m, n, alpha) schedule, regularization
 rotation (``reg_anchor`` "target", "best" or "fixed"), checkpoints, exact
@@ -184,16 +187,31 @@ def resolve_fuse_mode(net: nn.Module, cfg: RNaDConfig) -> str:
                 f"with separable heads); got {type(net).__name__}")
         return mode
     if mode in ("frozen", "all"):
-        if not is_mlp:
+        if not (is_mlp and net.depth == 1):
             raise ValueError(
                 f"fuse_net_passes={mode!r} requires a depth-1 MLP "
                 f"(mlp_multi_net_forward packing); got "
                 f"{type(net).__name__} with depth "
                 f"{getattr(net, 'depth', '?')}")
+        if mode == "all" and frozen_dtype(net, cfg) != net.dtype:
+            raise ValueError(
+                f"fuse_net_passes='all' runs all four nets in the learner's "
+                f"compute dtype ({str(net.dtype).split('.')[-1]}); set "
+                f"frozen_net_dtype to match (got "
+                f"{cfg.frozen_net_dtype!r}) or use 'frozen'")
         return "heads"
     if mode != "off":
         raise ValueError(f"unknown fuse_net_passes mode {mode!r}")
     return mode
+
+
+def frozen_dtype(net: nn.Module, cfg: RNaDConfig) -> torch.dtype:
+    """The dtype of the three frozen passes: ``frozen_net_dtype`` where it
+    is not float32, else the net's own (``rnad_tpu`` clones the net only
+    for a non-float32 ``frozen_net_dtype``)."""
+    if cfg.frozen_net_dtype == "float32":
+        return net.dtype
+    return nets.DTYPES[cfg.frozen_net_dtype]
 
 
 @dataclasses.dataclass
@@ -249,24 +267,22 @@ def learn_loss(state: TrainState, packed: stepping.PackedTables,
     log_pi = common.masked_log_policy(logits, masks)
 
     with torch.no_grad():
+        dtype = frozen_dtype(state.net, cfg)
         if fuse == "heads":
             # the target contributes its value, the reg pair their
             # policies; the target's policy feeds one diagnostic only
-            values_target = nets.mlp_head_eval(state.net_target, obs_flat,
-                                               "value")
-            logits_reg = nets.mlp_head_eval(state.net_reg, obs_flat,
-                                            "policy")
-            logits_reg_prev = nets.mlp_head_eval(state.net_reg_, obs_flat,
-                                                 "policy")
-            logits_t = (nets.mlp_head_eval(state.net_target, obs_flat,
-                                           "policy")
+            head = lambda net, h: nets.mlp_head_eval(net, obs_flat, h, dtype)
+            values_target = head(state.net_target, "value")
+            logits_reg = head(state.net_reg, "policy")
+            logits_reg_prev = head(state.net_reg_, "policy")
+            logits_t = (head(state.net_target, "policy")
                         if cfg.detailed_metrics else None)
         else:  # "off": every frozen net's whole forward
-            logits_t, values_target = state.net_target(obs_flat,
-                                                       inputs.solver_feats)
-            logits_reg, _ = state.net_reg(obs_flat, inputs.solver_feats)
-            logits_reg_prev, _ = state.net_reg_(obs_flat,
-                                                inputs.solver_feats)
+            feats = inputs.solver_feats
+            logits_t, values_target = state.net_target(obs_flat, feats,
+                                                       dtype=dtype)
+            logits_reg, _ = state.net_reg(obs_flat, feats, dtype=dtype)
+            logits_reg_prev, _ = state.net_reg_(obs_flat, feats, dtype=dtype)
         v_target_net = values_target.reshape(T, B)[..., None]
         log_pi_reg = common.masked_log_policy(logits_reg.reshape(T, B, A),
                                               masks)
@@ -426,8 +442,11 @@ def nashconv(tree: GameTree, net: nn.Module,
 def check_supported(cfg: RNaDConfig, net_config: NetConfig) -> None:
     """Raises ``NotImplementedError`` naming each config field the port
     does not implement yet, and ``ValueError`` on unknown modes."""
+    if cfg.frozen_net_dtype not in nets.DTYPES:
+        raise NotImplementedError(
+            f"frozen_net_dtype: the port computes in "
+            f"{' or '.join(nets.DTYPES)}, got {cfg.frozen_net_dtype!r}")
     missing = {
-        "frozen_net_dtype": cfg.frozen_net_dtype != "float32",
         "rollout_actor_dtype": cfg.rollout_actor_dtype != "float32",
         "vtrace_mode": cfg.vtrace_mode == "associative",
     }

@@ -1,9 +1,10 @@
-"""Policy/value nets: the depth-1 two-head MLP, the EquiNet and the ConvNet.
+"""Policy/value nets: the two-head MLP, the EquiNet and the ConvNet.
 
 Counterpart of ``rnad_tpu/models/nets.py``.  The MLP (the
-reference architecture) feeds the flattened (2, A, A) observation to two
-separate one-hidden-layer heads, ``policy_fc0 -> relu -> policy_fc1`` (A
-logits) and ``value_fc0 -> relu -> value_fc1`` (one value).  The EquiNet
+reference architecture at depth 1) feeds the flattened (2, A, A)
+observation to two separate heads, ``policy_fc0 -> relu ->
+[policy_hidden{i} -> relu] -> policy_fc1`` (A logits) and the same for the
+value (one value), with ``depth - 1`` hidden layers each.  The EquiNet
 is a tower of row/column-exchangeable layers over the (A, A) cells, with
 optional RM+ solver features (kernel K3 on the card) that can prime its
 heads.  The ConvNet is a tower of row + column convolutions (cuDNN) with
@@ -15,9 +16,14 @@ learner's pass.
 
 ``compute_dtype`` follows flax's ``dtype``: the parameters stay float32 (the
 optimizer's master copy) and each layer casts its input, kernel and bias to
-the compute dtype and computes in it (a bfloat16 product, then a bfloat16
-bias add, as flax's Dense does); the outputs leave as float32.  The
-EquiNet's RM+ solver features, and so kernel K3, stay float32.
+the compute dtype and computes in it (a bfloat16 product or convolution,
+then a bfloat16 bias add, as flax's Dense and Conv do); the outputs leave as
+float32.  A ConvNet's BatchNorm computes its statistics and normalizes in
+float32 and casts its output to the compute dtype.  The EquiNet's RM+
+solver features, and so kernel K3, stay float32.  Every forward takes a
+``dtype`` that overrides the net's own for one call: the learner's frozen
+passes run a float32 net in bfloat16 that way (``rnad_tpu``'s
+``net.clone(dtype=...)``).
 
 Weights cross between the packages through the carrier below: a flax Dense
 kernel is (in, out) and a torch Linear weight is (out, in), so the carrier
@@ -54,9 +60,11 @@ def _dense(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype
 
 
 class MLP(nn.Module):
-    """Two-headed depth-1 MLP; layer names match the flax module's."""
+    """Two-headed MLP with ``depth`` hidden layers a head; layer names
+    match the flax module's (``{policy,value}_hidden{i}``, i = 1 ..
+    depth - 1, between each head's ``fc0`` and ``fc1``)."""
 
-    def __init__(self, max_actions: int, width: int = 256,
+    def __init__(self, max_actions: int, width: int = 256, depth: int = 1,
                  in_channels: int = 2,
                  generator: Optional[torch.Generator] = None,
                  dtype: torch.dtype = torch.float32):
@@ -64,27 +72,33 @@ class MLP(nn.Module):
         A = max_actions
         self.max_actions = A
         self.width = width
+        self.depth = depth
         self.dtype = dtype
         din = in_channels * A * A
         self.policy_fc0 = nn.Linear(din, width)
         self.policy_fc1 = nn.Linear(width, A)
         self.value_fc0 = nn.Linear(din, width)
         self.value_fc1 = nn.Linear(width, 1)
+        hidden = [f"{head}_hidden{i}" for head in ("policy", "value")
+                  for i in range(1, depth)]
+        for name in hidden:
+            setattr(self, name, nn.Linear(width, width))
         with torch.no_grad():
-            for name in _LAYERS:
+            for name in _LAYERS + tuple(hidden):
                 layer = getattr(self, name)
                 bound = 1.0 / layer.in_features ** 0.5
                 layer.weight.uniform_(-bound, bound, generator=generator)
                 layer.bias.uniform_(-bound, bound, generator=generator)
 
-    def forward(self, obs: torch.Tensor, solver_feats=None
+    def forward(self, obs: torch.Tensor, solver_feats=None,
+                dtype: Optional[torch.dtype] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """(N, C, A, A) observations -> (logits (N, A), values (N,)).
         ``solver_feats`` is the EquiNet's; the MLP takes none."""
         del solver_feats
         x = obs.reshape(obs.shape[0], -1)
-        logits = mlp_head_eval(self, x, "policy")
-        return logits, mlp_head_eval(self, x, "value")
+        logits = mlp_head_eval(self, x, "policy", dtype)
+        return logits, mlp_head_eval(self, x, "value", dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -141,10 +155,12 @@ class _ExchangeableDense(nn.Module):
             self.kernel.uniform_(-bound, bound, generator=generator)
             self.bias.uniform_(-bound, bound, generator=generator)
 
-    def forward(self, h: torch.Tensor) -> torch.Tensor:
+    def forward(self, h: torch.Tensor,
+                dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+        dtype = dtype or self.dtype
         cin = h.shape[-1]
-        kernel = self.kernel.to(self.dtype)
-        h = h.to(self.dtype)
+        kernel = self.kernel.to(dtype)
+        h = h.to(dtype)
         blk = lambda i: kernel[i * cin:(i + 1) * cin]
         out = h @ blk(0)
         out = out + h.mean(dim=2, keepdim=True) @ blk(1)
@@ -152,7 +168,7 @@ class _ExchangeableDense(nn.Module):
         out = out + h.mean(dim=(1, 2), keepdim=True) @ blk(3)
         out = out + torch.amax(h, dim=2, keepdim=True) @ blk(4)
         out = out + torch.amax(h, dim=1, keepdim=True) @ blk(5)
-        return out + self.bias.to(self.dtype)
+        return out + self.bias.to(dtype)
 
 
 class EquiNet(nn.Module):
@@ -205,24 +221,26 @@ class EquiNet(nn.Module):
             self.value_prime_gate = nn.Parameter(torch.ones(()))
 
     def forward(self, obs: torch.Tensor,
-                solver_feats: Optional[_SolverFeats] = None
+                solver_feats: Optional[_SolverFeats] = None,
+                dtype: Optional[torch.dtype] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """(N, C, A, A) observations -> (logits (N, A), values (N,)).
         ``solver_feats`` (from ``equinet_solver_features`` on the same
         observations) skips the solve; otherwise it runs here."""
+        dtype = dtype or self.dtype
         x = obs.permute(0, 2, 3, 1)  # (N, A, A, C): mover rows, opp cols
         if self.solver_iters:
             feats, log_x, v_rm = (solver_feats if solver_feats is not None
                                   else _solver_features(x, self.solver_iters))
             x = torch.cat([x, feats], dim=-1)
-        x = x.to(self.dtype)
+        x = x.to(dtype)
         x0 = x  # input skip to the heads
         for i in range(self.depth):
-            x = torch.relu(getattr(self, f"ex{i}")(x))
+            x = torch.relu(getattr(self, f"ex{i}")(x, dtype))
         row_feat = torch.cat([x.mean(dim=2), x0.mean(dim=2)], dim=-1)
         glob = torch.cat([x.mean(dim=(1, 2)), x0.mean(dim=(1, 2))], dim=-1)
-        logits = _dense(self.policy, row_feat, self.dtype)[..., 0].float()
-        value = _dense(self.value, glob, self.dtype)[:, 0].float()
+        logits = _dense(self.policy, row_feat, dtype)[..., 0].float()
+        value = _dense(self.value, glob, dtype)[:, 0].float()
         if self.primed:
             logits = logits + self.policy_prime_gate * log_x
             value = value + self.value_prime_gate * v_rm
@@ -244,7 +262,9 @@ class CrossConv(nn.Module):
     """Row + column structured convolution over (N, C, A, A): a (1, 2A-1)
     row conv and a (2A-1, 1) column conv, each over A-1 zero padding, summed,
     so every output cell sees its whole row and column.  torch's Conv2d
-    initialization (U(+-1/sqrt(fan_in)) for kernel and bias)."""
+    initialization (U(+-1/sqrt(fan_in)) for kernel and bias).  In bfloat16
+    each convolution rounds to bfloat16 before its bias is added, as flax's
+    Conv does."""
 
     def __init__(self, max_actions: int, in_channels: int, features: int,
                  generator: Optional[torch.Generator] = None):
@@ -259,13 +279,22 @@ class CrossConv(nn.Module):
                 _uniform_(conv.weight, fan_in, generator)
                 _uniform_(conv.bias, fan_in, generator)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                dtype: torch.dtype = torch.float32) -> torch.Tensor:
         F = nn.functional
-        r = F.conv2d(x, self.row_conv.weight, self.row_conv.bias,
-                     padding=(0, self.pad))
-        c = F.conv2d(x, self.col_conv.weight, self.col_conv.bias,
-                     padding=(self.pad, 0))
-        return r + c
+        if dtype == torch.float32:
+            r = F.conv2d(x, self.row_conv.weight, self.row_conv.bias,
+                         padding=(0, self.pad))
+            c = F.conv2d(x, self.col_conv.weight, self.col_conv.bias,
+                         padding=(self.pad, 0))
+            return r + c
+        x = x.to(dtype)
+        out = []
+        for conv, pad in ((self.row_conv, (0, self.pad)),
+                          (self.col_conv, (self.pad, 0))):
+            y = F.conv2d(x, conv.weight.to(dtype), padding=pad)
+            out.append(y + conv.bias.to(dtype).reshape(1, -1, 1, 1))
+        return out[0] + out[1]
 
 
 class MaskedBatchNorm(nn.Module):
@@ -277,7 +306,9 @@ class MaskedBatchNorm(nn.Module):
     ``denom = max(sum(mask) * H * W, 1)``, and moves the running averages
     in place with flax's convention ``ra = 0.99 ra + 0.01 batch`` (outside
     autograd).  Eval mode normalizes by the running averages.  The mode is
-    an argument of each call, never the module's ``training`` flag."""
+    an argument of each call, never the module's ``training`` flag.  The
+    statistics and the normalization are float32; the output is cast to
+    ``dtype``."""
 
     momentum = 0.99
     epsilon = 1e-5
@@ -290,7 +321,8 @@ class MaskedBatchNorm(nn.Module):
         self.register_buffer("var", torch.ones(features))
 
     def forward(self, x: torch.Tensor, train: bool = False,
-                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                mask: Optional[torch.Tensor] = None,
+                dtype: torch.dtype = torch.float32) -> torch.Tensor:
         view = lambda v: v.reshape(1, -1, 1, 1)
         x = x.float()
         if not train:
@@ -311,7 +343,7 @@ class MaskedBatchNorm(nn.Module):
                 self.mean.copy_(m * self.mean + (1.0 - m) * mean)
                 self.var.copy_(m * self.var + (1.0 - m) * var)
         y = (x - view(mean)) * torch.rsqrt(view(var) + self.epsilon)
-        return y * view(self.scale) + view(self.bias)
+        return (y * view(self.scale) + view(self.bias)).to(dtype)
 
 
 class ConvResBlock(nn.Module):
@@ -329,12 +361,13 @@ class ConvResBlock(nn.Module):
             self.bn1 = MaskedBatchNorm(channels)
 
     def forward(self, x: torch.Tensor, train: bool = False,
-                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                mask: Optional[torch.Tensor] = None,
+                dtype: torch.dtype = torch.float32) -> torch.Tensor:
         h = x
         for i in range(2):
-            h = torch.relu(getattr(self, f"conv{i}")(h))
+            h = torch.relu(getattr(self, f"conv{i}")(h, dtype))
             if self.batch_norm:
-                h = getattr(self, f"bn{i}")(h, train, mask)
+                h = getattr(self, f"bn{i}")(h, train, mask, dtype)
         return x + h
 
 
@@ -342,7 +375,7 @@ class ConvNet(nn.Module):
     """AlphaZero-style tower (``rnad_tpu``'s ConvNet): a ``pre`` CrossConv
     to ``channels``, ``depth`` residual blocks, and linear ``policy`` (A
     logits) and ``value`` heads over the (A, A, C) flattening in flax's
-    channels-last order.  float32 only.
+    channels-last order, in float32 or bfloat16.
 
     ``forward(obs, solver_feats=None, train=False, mask=None)``: train mode
     normalizes by the batch's statistics (leaving out samples whose ``mask``
@@ -351,13 +384,14 @@ class ConvNet(nn.Module):
 
     def __init__(self, max_actions: int, channels: int = 16, depth: int = 1,
                  batch_norm: bool = True, in_channels: int = 2,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         A = max_actions
         self.max_actions = A
         self.channels = channels
         self.depth = depth
-        self.dtype = torch.float32
+        self.dtype = dtype
         self.pre = CrossConv(A, in_channels, channels, generator)
         for i in range(depth):
             setattr(self, f"block{i}", ConvResBlock(A, channels, batch_norm,
@@ -371,17 +405,20 @@ class ConvNet(nn.Module):
                 _uniform_(head.bias, fan, generator)
 
     def forward(self, obs: torch.Tensor, solver_feats=None,
-                train: bool = False, mask: Optional[torch.Tensor] = None
+                train: bool = False, mask: Optional[torch.Tensor] = None,
+                dtype: Optional[torch.dtype] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """(N, C, A, A) observations -> (logits (N, A), values (N,))."""
         del solver_feats
+        dtype = dtype or self.dtype
         if mask is not None:
             mask = mask.reshape(-1)
-        x = self.pre(obs.float())
+        x = self.pre(obs.to(dtype), dtype)
         for i in range(self.depth):
-            x = getattr(self, f"block{i}")(x, train, mask)
+            x = getattr(self, f"block{i}")(x, train, mask, dtype)
         flat = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)  # flax's NHWC
-        return self.policy(flat), self.value(flat)[:, 0]
+        return (_dense(self.policy, flat, dtype).float(),
+                _dense(self.value, flat, dtype)[:, 0].float())
 
 
 def forward_train(net: nn.Module, obs: torch.Tensor,
@@ -422,21 +459,14 @@ def build_net(config: NetConfig,
                        in_channels=in_channels, generator=generator,
                        dtype=dtype)
     if config.type == "ConvNet":
-        if dtype != torch.float32:
-            raise NotImplementedError(
-                f"NetConfig.compute_dtype: the port's ConvNet computes in "
-                f"float32, got {config.compute_dtype!r}")
         return ConvNet(config.max_actions, channels=config.channels,
                        depth=config.depth, batch_norm=config.batch_norm,
-                       in_channels=in_channels, generator=generator)
+                       in_channels=in_channels, generator=generator,
+                       dtype=dtype)
     if config.type != "MLP":
         raise ValueError(f"unknown net type: {config.type}")
-    if config.depth != 1:
-        raise NotImplementedError(
-            f"NetConfig.depth: the port runs depth-1 MLPs only, got "
-            f"{config.depth}")
-    return MLP(config.max_actions, config.width, in_channels=in_channels,
-               generator=generator, dtype=dtype)
+    return MLP(config.max_actions, config.width, config.depth,
+               in_channels=in_channels, generator=generator, dtype=dtype)
 
 
 def inference_chunk_nodes(net: nn.Module, max_actions: int,
@@ -462,7 +492,8 @@ def inference_chunk_nodes(net: nn.Module, max_actions: int,
 
 def params_from_flax(np_params: Dict[str, Dict[str, np.ndarray]]
                      ) -> Dict[str, torch.Tensor]:
-    """flax ``params`` -> a state_dict for :class:`MLP` or
+    """flax ``params`` -> a state_dict for :class:`MLP` (any depth: its
+    ``*_hidden{i}`` layers are Dense layers like the others) or
     :class:`EquiNet`.  Dense layers ({kernel (in, out), bias}) become torch
     Linears (weight (out, in)); the EquiNet's ``ex{i}`` kernels keep the
     flax layout and its gates are scalars."""
@@ -481,8 +512,8 @@ def params_from_flax(np_params: Dict[str, Dict[str, np.ndarray]]
 
 
 def params_to_flax(module: nn.Module) -> Dict[str, Dict[str, np.ndarray]]:
-    """:class:`MLP` or :class:`EquiNet` -> flax-layout ``params`` of numpy
-    arrays."""
+    """:class:`MLP` (any depth) or :class:`EquiNet` -> flax-layout
+    ``params`` of numpy arrays."""
     out: Dict = {}
     for key, p in module.state_dict().items():
         a = p.detach().cpu().numpy().copy()
@@ -548,7 +579,12 @@ def convnet_to_flax(module: "ConvNet") -> Dict:
 def mlp_fused_weights(net: MLP) -> Tuple[torch.Tensor, ...]:
     """Both heads as one fused pair: W0 = [policy_fc0 | value_fc0]
     (din, 2W), b0 (2W,); W1 (2W, A+1) block-diagonal, mapping the policy
-    half to the A logits and the value half to column A; b1 (A+1,)."""
+    half to the A logits and the value half to column A; b1 (A+1,).
+    Depth-1 MLPs only: the packing has no place for hidden layers, so a
+    deeper MLP raises rather than losing them."""
+    if net.depth != 1:
+        raise ValueError(f"mlp_fused_weights supports depth=1 MLPs only "
+                         f"(got depth={net.depth})")
     A, W = net.max_actions, net.width
     w0 = torch.cat([net.policy_fc0.weight.t(), net.value_fc0.weight.t()], 1)
     b0 = torch.cat([net.policy_fc0.bias, net.value_fc0.bias])
@@ -559,16 +595,19 @@ def mlp_fused_weights(net: MLP) -> Tuple[torch.Tensor, ...]:
     return w0.contiguous(), b0, w1, b1
 
 
-def mlp_head_eval(net: MLP, obs_flat: torch.Tensor,
-                  head: str) -> torch.Tensor:
+def mlp_head_eval(net: MLP, obs_flat: torch.Tensor, head: str,
+                  dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """One head's forward: ``logits (N, A)`` for ``head="policy"`` or
     ``values (N,)`` for ``head="value"``.  The heads share nothing, so a
     consumer of one head skips the other's matmuls (the learner's frozen
     passes need only the target's value and the reg nets' policies).
-    Computed in the net's dtype; float32 out."""
-    x = obs_flat.reshape(obs_flat.shape[0], -1)
-    fc0 = getattr(net, f"{head}_fc0")
-    fc1 = getattr(net, f"{head}_fc1")
-    out = _dense(fc1, torch.relu(_dense(fc0, x, net.dtype)), net.dtype)
-    out = out.float()
+    Computed in ``dtype`` (default: the net's) through ``fc0``, the hidden
+    layers and ``fc1``; float32 out."""
+    dtype = dtype or net.dtype
+    h = obs_flat.reshape(obs_flat.shape[0], -1).to(dtype)
+    layers = [f"{head}_fc0"]
+    layers += [f"{head}_hidden{i}" for i in range(1, net.depth)]
+    for name in layers:
+        h = torch.relu(_dense(getattr(net, name), h, dtype))
+    out = _dense(getattr(net, f"{head}_fc1"), h, dtype).float()
     return out[:, 0] if head == "value" else out

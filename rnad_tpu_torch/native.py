@@ -1,17 +1,20 @@
-"""The native (C++) tree generator: build, load and call.
+"""The native (C++) tree generator and batched simplex: build, load and
+call.
 
-Counterpart of ``rnad_tpu/native.py``'s tree-generation half.
-``csrc/treegen.cpp`` and ``csrc/solver.cpp`` are the port's own copies of
-``rnad_tpu``'s sources: a level-synchronous generator in C++ with OpenMP
-and the batched simplex that solves each level.  They are host code, not
-CUDA kernels.  The first call compiles both with ``g++`` into one shared
+Counterpart of ``rnad_tpu/native.py``.  ``csrc/treegen.cpp`` and
+``csrc/solver.cpp`` are the port's own copies of ``rnad_tpu``'s sources: a
+level-synchronous generator in C++ with OpenMP and the batched simplex
+that solves each level, which ``env/solver.py`` also calls directly for the
+numpy generator's levels.  They are host code, not CUDA kernels.  The first call compiles both with ``g++`` into one shared
 library under ``rnad_tpu_torch/_build/`` (git-ignored), named by a hash of
 the sources, and binds it with ctypes.
 
 The compiler flags are ``rnad_tpu``'s: ``-ffp-contract=off`` keeps every
 ``a * b + c`` two roundings, on which the content hash of a generated tree
-depends.  A failed build or load raises; there is no fallback (the numpy
-generator in ``env/tree.py`` makes a different tree for the same seed).
+depends.  A failed build or load, or a nonzero status, raises; there is no
+fallback (the numpy generator in ``env/tree.py`` makes a different tree
+for the same seed, and the numpy simplex rounds the game values otherwise
+in their last bits, which would change the content hash without a word).
 """
 
 from __future__ import annotations
@@ -85,6 +88,16 @@ def library() -> ctypes.CDLL:
         if _lib is not None:
             return _lib
         lib = ctypes.CDLL(str(build()))
+        lib.solve_zero_sum_batch.restype = ctypes.c_int
+        lib.solve_zero_sum_batch.argtypes = [
+            ctypes.POINTER(ctypes.c_double),  # payoff
+            ctypes.POINTER(ctypes.c_int),  # rows
+            ctypes.POINTER(ctypes.c_int),  # cols
+            ctypes.c_int, ctypes.c_int, ctypes.c_int,  # batch, rows, cols
+            ctypes.POINTER(ctypes.c_double),  # row_strat
+            ctypes.POINTER(ctypes.c_double),  # col_strat
+            ctypes.POINTER(ctypes.c_double),  # values
+        ]
         lib.treegen_generate.restype = ctypes.c_int64
         lib.treegen_generate.argtypes = [
             ctypes.c_uint64,  # seed
@@ -108,6 +121,29 @@ def library() -> ctypes.CDLL:
         lib.treegen_free.argtypes = []
         _lib = lib
         return lib
+
+
+def solve_zero_sum_batch_native(payoff: np.ndarray, rows: np.ndarray,
+                                cols: np.ndarray):
+    """The C++ batched simplex on (batch, max_rows, max_cols) payoffs with
+    active sizes ``rows``, ``cols``: (row_strat, col_strat, values) as
+    float64 arrays.  Raises ``RuntimeError`` on a nonzero status."""
+    lib = library()
+    payoff = np.ascontiguousarray(payoff, dtype=np.float64)
+    rows = np.ascontiguousarray(rows, dtype=np.int32)
+    cols = np.ascontiguousarray(cols, dtype=np.int32)
+    batch, max_r, max_c = payoff.shape
+    row_strat = np.zeros((batch, max_r), dtype=np.float64)
+    col_strat = np.zeros((batch, max_c), dtype=np.float64)
+    values = np.zeros((batch,), dtype=np.float64)
+    dptr = lambda a: a.ctypes.data_as(ctypes.POINTER(ctypes.c_double))
+    iptr = lambda a: a.ctypes.data_as(ctypes.POINTER(ctypes.c_int))
+    status = lib.solve_zero_sum_batch(
+        dptr(payoff), iptr(rows), iptr(cols), batch, max_r, max_c,
+        dptr(row_strat), dptr(col_strat), dptr(values))
+    if status != 0:
+        raise RuntimeError(f"native solver returned status {status}")
+    return row_strat, col_strat, values
 
 
 def generate_tree_arrays(seed: int, max_actions: int, max_transitions: int,

@@ -158,10 +158,6 @@ def _check_unported(args: argparse.Namespace) -> None:
         "--coordinator": args.coordinator is not None,
         "--num-processes": args.num_processes is not None,
         "--process-id": args.process_id is not None,
-        "--frozen-dtype": args.frozen_dtype == "bfloat16",
-        "--net-depth": args.net == "MLP" and args.net_depth > 1,
-        "--compute-dtype": (args.net == "ConvNet"
-                            and args.compute_dtype == "bfloat16"),
         "--vtrace-mode": args.vtrace_mode == "associative",
     }
     for flag, unsupported in unported.items():

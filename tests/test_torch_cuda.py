@@ -17,6 +17,7 @@ float32 rounding in another order parted the two runs, which as a set are
 as good as the plain version's (mean and worst exploitability).
 """
 
+import copy
 import dataclasses
 
 import pytest
@@ -615,3 +616,64 @@ def test_convnet_lift_resume_on_the_card_is_bit_exact(dev, tmp_path):
             assert torch.equal(got[k], want[k]), (name, k)
     assert torch.equal(resumed.state.generator.get_state(),
                        straight.state.generator.get_state())
+
+
+NEW_NETS = {
+    "mlp_depth2_frozen_bf16": (
+        NetConfig(type="MLP", max_actions=3, width=256, depth=2),
+        "bfloat16"),
+    "equinet_frozen_bf16": (EQUI, "bfloat16"),
+    "convnet_bf16": (
+        NetConfig(type="ConvNet", max_actions=3, channels=16, depth=2,
+                  compute_dtype="bfloat16"), "float32"),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(NEW_NETS))
+def test_new_nets_step_card_vs_cpu(dev, name):
+    """One step at 256 lanes of a depth-2 MLP and the EquiNet with
+    bfloat16 frozen passes and of a bfloat16 ConvNet, on the card and on
+    the CPU from the same weights and noise: at most 2 % of the episodes
+    part (near-ties), the others equal.  Then one learner step on the
+    card's trajectory on both: losses within rtol 1e-3 for the bfloat16
+    frozen passes and 1e-2 for the bfloat16 ConvNet (a bfloat16 pass
+    rounds float32 sums, which the devices take in another order, to
+    2**-8; the ConvNet rounds at every layer and measured 1.5e-3), new
+    weights and statistics within 2 lr plus the float32 rounding of the
+    updated weights (1e-6)."""
+    net_cfg, frozen = NEW_NETS[name]
+    tree = _tree("cpu", depth=4)
+    cfg = RNaDConfig(batch_size=256, eta=0.2, lr=5e-5, logit_clip=2.0,
+                     frozen_net_dtype=frozen)
+    gen = torch.Generator().manual_seed(3)
+    noise = [engine.turn_noise(256, 3, 2, gen, "cpu")
+             for _ in range(tree.max_depth)]
+    net = nets.build_net(net_cfg, torch.Generator().manual_seed(4))
+    states, packs, trajs = {}, {}, {}
+    for device in ("cpu", dev):
+        key = str(device)
+        states[key] = rnad.init_train_state(copy.deepcopy(net).to(device),
+                                            torch.Generator(device=device))
+        packs[key] = stepping.make_packed_tables(tree.to(device))
+        trajs[key] = rnad.rollout(states[key], tree.to(device), packs[key],
+                                  cfg, noise)
+    tc, tg = trajs["cpu"], trajs[str(dev)]
+    parted = (tc.actions != tg.actions.cpu()).any(0)
+    assert parted.float().mean() <= 0.02
+    for f in ("indices", "actions", "rewards"):
+        assert torch.equal(getattr(tc, f)[:, ~parted],
+                           getattr(tg, f).cpu()[:, ~parted]), f
+    shared = engine.Trajectory(*(None if t is None else t.cpu() for t in (
+        tg.indices, tg.policy, tg.actions, tg.rewards, tg.values, tg.obs)))
+    mg = rnad.learn_step(states[str(dev)], packs[str(dev)], tg, 0.5, cfg)
+    mc = rnad.learn_step(states["cpu"], packs["cpu"], shared, 0.5, cfg)
+    rtol = 1e-2 if net_cfg.compute_dtype == "bfloat16" else 1e-3
+    for k in ("loss", "loss_v", "loss_nerd"):
+        torch.testing.assert_close(mg[k].cpu(), mc[k], rtol=rtol, atol=1e-6)
+    for name_ in ("net", "net_target"):
+        got = getattr(states[str(dev)], name_).state_dict()
+        want = getattr(states["cpu"], name_).state_dict()
+        for k in want:
+            torch.testing.assert_close(got[k].cpu(), want[k], rtol=0,
+                                       atol=2 * cfg.lr + 1e-6)

@@ -246,6 +246,14 @@ def test_init_distribution():
     dict(type="EquiNet", max_actions=5, channels=128, depth=4,
          compute_dtype="bfloat16"),
     dict(type="MLP", max_actions=3, width=4096, compute_dtype="bfloat16"),
+    # the deep MLP (its width alone sets the chunk) and the bf16 ConvNet
+    dict(type="MLP", max_actions=3, width=4096, depth=3),
+    dict(type="MLP", max_actions=5, width=256, depth=2,
+         compute_dtype="bfloat16"),
+    dict(type="ConvNet", max_actions=3, channels=16, depth=2,
+         compute_dtype="bfloat16"),
+    dict(type="ConvNet", max_actions=5, channels=128, depth=4,
+         compute_dtype="bfloat16"),
     # the ConvNet: noisy-conv's net, and a wide one at A = 5
     dict(type="ConvNet", max_actions=3, channels=16, depth=2),
     dict(type="ConvNet", max_actions=5, channels=128, depth=4),
@@ -259,10 +267,13 @@ def test_inference_chunk_nodes_matches(cfg):
 
 
 def test_other_families_raise():
-    """The ConvNet runs in float32 only; an unknown family raises
+    """The ConvNet builds in bfloat16 too (its forward is held by
+    tests/test_torch_nets_depth_dtype.py); an unknown family raises
     rnad_tpu's error."""
-    with pytest.raises(NotImplementedError, match="ConvNet"):
-        torch_nets.build_net(TorchNetConfig(type="ConvNet", max_actions=3,
-                                            compute_dtype="bfloat16"))
+    conv = torch_nets.build_net(TorchNetConfig(type="ConvNet", max_actions=3,
+                                               compute_dtype="bfloat16"))
+    assert isinstance(conv, torch_nets.ConvNet)
+    assert conv.dtype == torch.bfloat16
+    assert all(p.dtype == torch.float32 for p in conv.parameters())
     with pytest.raises(ValueError, match="unknown net type: ResNet"):
         torch_nets.build_net(TorchNetConfig(type="ResNet", max_actions=3))

@@ -131,7 +131,7 @@ def test_rnad_loop_schedule_and_eval(small_tree, tmp_path):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("frozen_net_dtype", "bfloat16"),
+    ("frozen_net_dtype", "float16"),
     ("rollout_actor_dtype", "bfloat16"),
     ("vtrace_mode", "associative"),
 ])

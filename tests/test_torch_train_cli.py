@@ -86,16 +86,37 @@ def test_parser_has_every_option_of_examples_train():
     (["--coordinator", "localhost:1234"], "--coordinator"),
     (["--num-processes", "2"], "--num-processes"),
     (["--process-id", "0"], "--process-id"),
-    (["--frozen-dtype", "bfloat16"], "--frozen-dtype"),
-    (["--net-depth", "3"], "--net-depth"),
     (["--vtrace-mode", "associative"], "--vtrace-mode"),
-    (["--net", "ConvNet", "--compute-dtype", "bfloat16"], "--compute-dtype"),
 ])
 def test_unported_options_raise(tmp_path, monkeypatch, argv, flag):
     monkeypatch.chdir(tmp_path)
     with pytest.raises(NotImplementedError, match=flag):
         train.main(["--cpu", *argv])
     assert not any(tmp_path.iterdir())  # raised before any work
+
+
+@pytest.mark.parametrize("argv", [
+    ["--frozen-dtype", "bfloat16"],
+    ["--net-depth", "3", "--width", "16"],
+    ["--net", "ConvNet", "--channels", "4", "--compute-dtype", "bfloat16"],
+])
+def test_formerly_unported_options_run(tmp_path, monkeypatch, argv):
+    """The bfloat16 frozen passes, the deep MLP and the bfloat16 ConvNet run
+    one update on the CPU and reach the trainer's configs."""
+    monkeypatch.chdir(tmp_path)
+    run = train.main(["--cpu", "--tree-depth", "2", "--batch-size", "16",
+                      "--bounds", "1", "--delta-m", "2", "--name", "x",
+                      *argv])
+    assert run.state.total_steps == 2
+    assert all(math.isfinite(v) for _, m in run.history for v in m.values())
+    if "--frozen-dtype" in argv:
+        assert run.cfg.frozen_net_dtype == "bfloat16"
+    if "--net-depth" in argv:
+        assert run.state.net.depth == 3 and hasattr(run.state.net,
+                                                    "value_hidden2")
+    if "--compute-dtype" in argv:
+        assert run.net_config.type == "ConvNet"
+        assert str(run.state.net.dtype) == "torch.bfloat16"
 
 
 def test_tpu_layout_options_change_nothing(tmp_path, monkeypatch):
