@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Eight phases, and any failure exits nonzero:
+Nine phases, and any failure exits nonzero:
 
 1. Build the three CUDA kernels from ``rnad_tpu_torch/csrc`` (one nvcc
    each, started together) and print the build time and ptxas's registers
@@ -90,6 +90,27 @@ Eight phases, and any failure exits nonzero:
    weights within the same 2 lr.  Last, the demo tree in the "pure", "mixed" and
    "enummixed" equilibrium selections on the card's host: the hash stays
    rnad_tpu's and the stored solution scores NashConv 0.
+9. Drive the distillation floor through ``rnad_tpu_torch.distill_floor.
+   main`` on phase 5's stored flagship tree (docs/SCALE.md's floor runs,
+   cut to 300 steps a net at a node batch of 8192; printed):
+   ``EquiNet:64x2s128p``, ``MLP:512x3`` and the ``RM+:2000`` skyline.
+   Checks one K3 launch a step and an eval chunk and 4 for the skyline and
+   none of K1 or K2, finite floors, and the skyline within 2e-4 of
+   rnad_tpu's 0.001115; holds K3 at a distillation forward's 8192 games
+   (128 iterations) and at a skyline chunk's 200,000 (2000 iterations)
+   against its plain version and times both.  Then the bf16 rows-actor:
+   the bf16 K1 at 32768 lanes (A = 3 on the demo tree, A = 5 on the
+   flagship's, width 256) against its plain version by
+   ``fused_turn.check_bf16`` (outputs within ``fused_turn.bf16_band``, and
+   the plain version with the row or the hidden activation left unrounded
+   outside it) and timed against its bound at 989 TFLOP/s;
+   one step at 256 lanes on the card against the CPU; phase 3's config
+   with ``rollout_actor_dtype="bfloat16"`` for 30 steps (4 bf16 K1
+   launches a step, finite losses, mean |return| <= 1).  Then one learner
+   step with ``vtrace_mode="associative"`` against the scan (losses rtol
+   2e-5, atol 2e-6; weights rtol 1e-4, atol 1e-6) and the oracle rollout
+   of the flagship tree's stored solution at 32768 lanes (mean return
+   within 3 standard errors of the root value).
 
 It runs in a temporary working directory (the CLI writes ``saved_trees/``
 and ``saved_runs/`` under it).  It prints a ``{"kernels": [...]}`` line,
@@ -167,19 +188,34 @@ SWEEP_ARGV = ["--seed", "0", "--bounds", "2", "--delta-m", "25", "--name",
 SWEEP_CUTS = [("--bounds", "2", "64"), ("--delta-m", "25", "100")]
 SWEEP_ETAS, SWEEP_STEPS = (0.0, 0.2, 0.5, 1.0), 50
 SWEEP_HASH, DEMO_HASH = 7199347968155577245, 5087467122622553942
+# phase 9: distillation on phase 5's stored tree through the tool, cut from
+# the full-width floors (3000 and 10000 steps; docs/port_runs/
+# distill_floor/full_width.py) to a few hundred steps each
+DISTILL_ARGV = ["--tree", "flagship3", "--net", "EquiNet:64x2s128p", "--net",
+                "MLP:512x3", "--net", "RM+:2000", "--steps", "300",
+                "--node-batch", "8192"]
+DISTILL_CUTS = [("--steps", "300", "3000 (EquiNet), 10000 (MLP)")]
+DISTILL_STEPS, NODE_BATCH, SKYLINE_ITERS, SKYLINE_CHUNK = 300, 8192, 2000, \
+    200_000
+# rnad_tpu's RM+:2000 skyline of this tree on the CPU (docs/port_runs/
+# distill_floor/rnad_tpu_skyline.jsonl) and how far the port's may lie
+# from it (RM+ has no random init; float32 RM+ in another order parts
+# on ~0.6 % of the tree's games)
+SKYLINE_NASHCONV, SKYLINE_ATOL = 0.001115, 2e-4
+BF16_FLOPS = 989e12  # H100 SXM dense bf16 on the tensor cores
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def device_ms(fn, iters: int = 20) -> float:
+def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     """Device time of one ``fn()`` in ms, the mean over ``iters`` calls
-    after a warm-up.  Each call is queued behind a sleep kernel longer than
+    after ``warmup`` calls.  Each call is queued behind a sleep kernel longer than
     its enqueue, and CUDA events on either side time it on the device, so
     the host's launch overhead does not show (a kernel's own time, or the
     busy time of a function of many kernels)."""
-    for _ in range(3):
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -239,7 +275,8 @@ def check_lookup(lookup_lib, table, idx, label):
 
 
 def check_fused_turn(fused_turn_lib, args, A, T):
-    """K1 against its plain version; returns (max_abs_err, near_ties)."""
+    """K1 against its plain version; returns (max_abs_err, near_ties, the
+    kernel's actions)."""
     table, w0, b0, w1, b1, idx, g_act, g_ch = args
     B = idx.shape[0]
     got = fused_turn_lib.fused_turn(*args, A=A, T=T)
@@ -268,7 +305,7 @@ def check_fused_turn(fused_turn_lib, args, A, T):
     log(f"K1 fused_turn: {B} lanes: episodes equal except {int(flipped.sum())}"
         f" flipped lanes, all within the {int(near.sum())} near-ties; policy"
         f"/values max_abs_err {err:.3g} (atol 1e-5)")
-    return err, int(near.sum())
+    return err, int(near.sum()), act_g
 
 
 def main() -> int:
@@ -351,7 +388,8 @@ def main() -> int:
                         dtype=torch.int32)
     g_act, g_ch = engine.turn_noise(B_MAIN, A, T, gen, dev)
     turn_args = [packed.rows, *weights, idx, g_act, g_ch]
-    k1_err, near_ties = check_fused_turn(fused_turn_lib, turn_args, A, T)
+    k1_err, near_ties, k1_actions = check_fused_turn(fused_turn_lib,
+                                                     turn_args, A, T)
 
     k1_ms = device_ms(lambda: fused_turn_lib.fused_turn(*turn_args, A=A, T=T))
     k1_plain_ms = device_ms(
@@ -370,9 +408,8 @@ def main() -> int:
     del big, big_ids
 
     # bounds: the larger of bytes over HBM rate and FLOPs over f32 peak
-    H = weights[0].shape[1]
     k1_bound, k1_by, k1_flops, k1_bytes = k1_bound_of(
-        fused_turn_lib, A, H, B_MAIN, T, D, S)
+        fused_turn_lib, turn_args, k1_actions, A, T)
     unique_rows = int(torch.unique(ids).numel())
     k2_bytes = 4.0 * (N_REGATHER + unique_rows * D + N_REGATHER * D)
     k2_bound = k2_bytes / HBM_BYTES_PER_S * 1e3
@@ -472,13 +509,19 @@ def main() -> int:
 
     # -- phase 8: the reference's eta sweep, the new nets, selection -----
     sweep = sweep_phase(card, gen)
+
+    # -- phase 9: distillation, the bf16 actor, associative v-trace ------
+    s7 = slice7_phase(card, gen, tree, cfg, net_cfg)
     k1_by_path = {"mlp": k1_launches, "equinet": equi["k1"], "flagship": 0,
-                  "offpol": offpol["k1"], "noisy": 0, "sweep": sweep["k1"]}
+                  "offpol": offpol["k1"], "noisy": 0, "sweep": sweep["k1"],
+                  "slice7": s7["k1"]}
     k2_by_path = {"mlp": k2_launches, "equinet": equi["k2"],
                   "flagship": flag["k2"], "offpol": offpol["k2"],
-                  "noisy": noisy["k2"], "sweep": sweep["k2"]}
+                  "noisy": noisy["k2"], "sweep": sweep["k2"],
+                  "slice7": s7["k2"]}
     k3_by_path = {"mlp": 0, "equinet": equi["k3"], "flagship": flag["k3"],
-                  "offpol": 0, "noisy": 0, "sweep": sweep["k3"]}
+                  "offpol": 0, "noisy": 0, "sweep": sweep["k3"],
+                  "distill": s7["k3"]}
     kernels = [
         {"name": "fused_turn", "route": "cuda",
          "source": "rnad_tpu_torch/csrc/fused_turn.cu",
@@ -543,6 +586,18 @@ def main() -> int:
          "replaces": "rnad_tpu/ops/pallas_lookup.py:45",
          "launches": sweep["k2"], "launches_by_path": {"sweep": sweep["k2"]},
          **sweep["lookup"]},
+        *({"name": name, "route": "cuda",
+           "source": "rnad_tpu_torch/csrc/fused_turn.cu",
+           "replaces": "rnad_tpu/ops/pallas_turn.py:79",
+           "launches": s7["k1_bf16"],
+           "launches_by_path": {"mlp_bf16_actor": s7["k1_bf16"]}, **entry}
+          for name, entry in s7["bf16"].items()),
+        *({"name": name, "route": "cuda",
+           "source": "rnad_tpu_torch/csrc/rmplus.cu",
+           "replaces": "rnad_tpu/ops/pallas_rmplus.py:52",
+           "launches": s7["k3"], "launches_by_path": {"distill": s7["k3"]},
+           **entry}
+          for name, entry in s7["rmplus"].items()),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
@@ -969,19 +1024,31 @@ def flagship_phase(card, gen):
             "rmplus": rm}
 
 
-def k1_bound_of(fused_turn_lib, A, H, B, T, D, rows):
-    """(ms, by, flops, bytes) of K1's bound: the larger of its operations
-    over the f32 peak and its bytes over the HBM rate, the bytes counting
-    each of the ``rows`` distinct packed rows of D floats it reads once."""
-    din = 2 * A * A
+def k1_bound_of(fused_turn_lib, args, actions, A, T):
+    """(ms, by, flops, bytes) of K1's bound on ``args`` (the arguments of
+    ``fused_turn``), whose lanes played ``actions`` (2, B): the larger of
+    its operations over the peak rate of its weights' type (the f32 CUDA
+    cores, or the tensor cores' dense bf16) and the bytes it must move over
+    the HBM rate.  The bytes count each lane's index and noise and its
+    outputs, each distinct state's two observations and masks (2 din + 2 A
+    floats), each distinct (state, joint cell) played's T log-chances,
+    child and value (T + 2 floats), and the weights (in their own type)
+    and biases once."""
+    table, w0, b0, w1, b1, idx, g_act, g_ch = args
+    B, H, din = idx.shape[0], w0.shape[1], 2 * A * A
+    rows = int(torch.unique(idx).numel())
+    cells = int(torch.unique(idx.long() * A * A + actions[0].long() * A
+                             + actions[1].long()).numel())
+    peak = BF16_FLOPS if w0.dtype == torch.bfloat16 else F32_FLOPS
     flops = 2.0 * B * fused_turn_lib.operations(A, H)
-    nbytes = 4.0 * (B + rows * D + din * H + H + H * (A + 1) + A + 1
-                    + 2 * B * A + B * T  # noise
-                    + B + 2 * B * A + 2 * B + B + 2 * B)  # outputs
-    by = ("operations" if flops / F32_FLOPS > nbytes / HBM_BYTES_PER_S
-          else "bytes")
-    return (max(flops / F32_FLOPS, nbytes / HBM_BYTES_PER_S) * 1e3, by,
-            flops, nbytes)
+    nbytes = (4.0 * (B + rows * (2 * din + 2 * A) + cells * (T + 2)
+                     + H + A + 1  # biases
+                     + 2 * B * A + B * T  # noise
+                     + B + 2 * B * A + 2 * B + B + 2 * B)  # outputs
+              + w0.element_size() * (w0.numel() + w1.numel()))
+    by = "operations" if flops / peak > nbytes / HBM_BYTES_PER_S else "bytes"
+    return (max(flops / peak, nbytes / HBM_BYTES_PER_S) * 1e3, by, flops,
+            nbytes)
 
 
 def lookup_entry(lookup_lib, table, ids, label):
@@ -1127,12 +1194,12 @@ def offpol_phase(card, gen):
     idx = traj.indices[4].contiguous()  # the third turn's lanes
     g_act, g_ch = engine.turn_noise(B, A, T, gen, traj.indices.device)
     turn_args = [packed.rows, *weights, idx, g_act, g_ch]
-    k1_err, near = check_fused_turn(fused_turn_lib, turn_args, A, T)
-    D = packed.rows.shape[1]
+    k1_err, near, actions = check_fused_turn(fused_turn_lib, turn_args, A,
+                                             T)
     H = weights[0].shape[1]
     rows = int(torch.unique(idx).numel())
-    bound, by, flops, nbytes = k1_bound_of(fused_turn_lib, A, H, B, T, D,
-                                           rows)
+    bound, by, flops, nbytes = k1_bound_of(fused_turn_lib, turn_args,
+                                           actions, A, T)
     k1 = {"max_abs_err": k1_err,
           "ms": device_ms(lambda: fused_turn_lib.fused_turn(*turn_args, A=A,
                                                              T=T)),
@@ -1423,12 +1490,12 @@ def sweep_phase(card, gen):
     idx = traj.indices[2].contiguous()  # the second turn's lanes
     g_act, g_ch = engine.turn_noise(B, A, T, gen, idx.device)
     turn_args = [packed.rows, *weights, idx, g_act, g_ch]
-    k1_err, near = check_fused_turn(fused_turn_lib, turn_args, A, T)
-    D = packed.rows.shape[1]
+    k1_err, near, actions = check_fused_turn(fused_turn_lib, turn_args, A,
+                                             T)
     H = weights[0].shape[1]
     rows = int(torch.unique(idx).numel())
-    bound, by, flops, nbytes = k1_bound_of(fused_turn_lib, A, H, B, T, D,
-                                           rows)
+    bound, by, flops, nbytes = k1_bound_of(fused_turn_lib, turn_args,
+                                           actions, A, T)
     k1 = {"max_abs_err": k1_err,
           "ms": device_ms(lambda: fused_turn_lib.fused_turn(*turn_args, A=A,
                                                              T=T)),
@@ -1483,6 +1550,290 @@ def sweep_phase(card, gen):
     log(f"phase 8: {time.perf_counter() - t_phase:.1f} s")
     return {"k1": counts["k1"], "k2": counts["k2"], "k3": counts["k3"],
             "fused_turn": k1, "lookup": k2}
+
+
+def slice7_phase(card, gen, demo_tree, mlp_cfg, mlp_net_cfg):
+    """Phase 9: distillation on phase 5's stored tree through
+    ``rnad_tpu_torch.distill_floor.main``, K3 at its shapes, the bf16
+    rows-actor (the bf16 K1 at the MLP paths' shapes, a step on the card
+    against the CPU, phase 3's config for 30 steps), the associative
+    v-trace against the scan, and the oracle rollout.  Returns the launch
+    counts of its runs and the kernels line's entries."""
+    import copy
+
+    from rnad_tpu_torch import distill_floor
+    from rnad_tpu_torch.env import engine, solver_device
+    from rnad_tpu_torch.learn import rnad, supervised
+    from rnad_tpu_torch.models import nets
+    from rnad_tpu_torch.ops import fused_turn as fused_turn_lib
+    from rnad_tpu_torch.ops import lookup as lookup_lib
+    from rnad_tpu_torch.ops import rmplus as rmplus_lib
+    from rnad_tpu_torch.ops import stepping
+    from rnad_tpu_torch.utils import checkpoint
+
+    t_phase = time.perf_counter()
+    counters = lambda: {"k1": fused_turn_lib.fused_turn.launches,
+                        "k1_bf16": fused_turn_lib.fused_turn.launches_bf16,
+                        "k2": lookup_lib.lookup.launches,
+                        "k3": rmplus_lib.rmplus.launches}
+
+    def zero():
+        fused_turn_lib.fused_turn.launches = 0
+        fused_turn_lib.fused_turn.launches_bf16 = 0
+        lookup_lib.lookup.launches = 0
+        rmplus_lib.rmplus.launches = 0
+
+    # -- distillation through the tool ------------------------------------
+    log("distillation path: python -m rnad_tpu_torch.distill_floor "
+        + " ".join(DISTILL_ARGV))
+    for flag, value, full in DISTILL_CUTS:
+        log(f"  reduced from the full-width floors: {flag} {value} ({full})")
+    zero()
+    t0 = time.perf_counter()
+    lines = distill_floor.main(DISTILL_ARGV)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = counters()
+    tree = checkpoint.load_tree("flagship3", device="cuda")
+    equi_net = nets.build_net(distill_floor.parse_net("EquiNet:64x2s128p",
+                                                      tree.max_actions))
+    chunks = math.ceil(tree.size / nets.inference_chunk_nodes(
+        equi_net, tree.max_actions))
+    want = {"k1": 0, "k1_bf16": 0, "k2": 0,
+            "k3": DISTILL_STEPS + chunks
+            + math.ceil(tree.size / SKYLINE_CHUNK)}
+    log(f"distillation: {wall:.2f} s for {len(lines) - 1} nets; launches "
+        f"{counts} (want {want})")
+    for line in lines:
+        log(f"  {json.dumps(line)}")
+    floors = {x["net"]: x["floor_nashconv"] for x in lines[1:]}
+    if lines[0]["size"] != FLAGSHIP_NODES or counts != want:
+        raise AssertionError(f"distillation: tree {lines[0]}, launches "
+                             f"{counts}, want {want}")
+    if not all(math.isfinite(v) and v >= 0 for v in floors.values()):
+        raise AssertionError(f"distillation floors: {floors}")
+    sky = floors["RM+:2000"]
+    if not abs(sky - SKYLINE_NASHCONV) <= SKYLINE_ATOL:
+        raise AssertionError(f"RM+:2000 skyline {sky} is more than "
+                             f"{SKYLINE_ATOL} from rnad_tpu's "
+                             f"{SKYLINE_NASHCONV}")
+    log(f"  RM+:2000 skyline {sky} against rnad_tpu's {SKYLINE_NASHCONV} "
+        f"(CPU): gap {sky - SKYLINE_NASHCONV:+.6f} (limit {SKYLINE_ATOL})")
+
+    # K3 at the distillation's shapes: one forward's minibatch and a
+    # skyline chunk
+    obs_all = supervised.dataset(tree)[0]
+    A = tree.max_actions
+    rows = torch.randint(0, obs_all.shape[0], (NODE_BATCH,), generator=gen,
+                         device=obs_all.device)
+    rm_entries = {}
+    ev, lg = tree.expected_value[:SKYLINE_CHUNK, 0], \
+        tree.legal[:SKYLINE_CHUNK, 0]
+    for name, (Mz, lr_, lc_), iters, plain_iters in (
+            ("rmplus (distillation forward)",
+             _games_of(obs_all[rows].reshape(-1, 2, A, A)), RM_ITERS, 5),
+            ("rmplus (RM+:2000 skyline chunk)",
+             (ev * lg, lg.amax(2), lg.amax(1)), SKYLINE_ITERS, 1)):
+        args = (Mz.permute(1, 2, 0).contiguous(), lr_.t().contiguous(),
+                lc_.t().contiguous(), iters)
+        got = rmplus_lib.rmplus(*args)
+        torch.cuda.synchronize()
+        plain = rmplus_lib.rmplus_plain(*args)
+        res = solver_device.agreement(
+            Mz, lr_, lc_, [t.t() for t in got[:2]],
+            [t.t() for t in plain[:2]], got[2], plain[2])
+        B3 = Mz.shape[0]
+        ops = rmplus_lib.operations(A, A, iters) * B3
+        nbytes = rmplus_lib.io_bytes(A, A, B3)
+        entry = {"max_abs_err": res.max_abs_err,
+                 "ms": device_ms(lambda: rmplus_lib.rmplus(*args)),
+                 "plain_ms": device_ms(lambda: rmplus_lib.rmplus_plain(
+                     *args), iters=plain_iters, warmup=1),
+                 "bound_ms": max(ops / F32_FLOPS,
+                                 nbytes / HBM_BYTES_PER_S) * 1e3,
+                 "bound_by": ("operations" if ops / F32_FLOPS
+                              > nbytes / HBM_BYTES_PER_S else "bytes"),
+                 "library_ms": None, "games": B3, "iters": iters,
+                 "diverged_games": res.diverged}
+        log(f"K3 {name} ({B3} games, {iters} iterations): {res.diverged} "
+            f"diverged, max_abs_err {res.max_abs_err:.3g} on the rest, mean "
+            f"exploitability {res.mean_expl[0]:.6g} (plain "
+            f"{res.mean_expl[1]:.6g}); kernel {entry['ms']:.4f} ms, plain "
+            f"{entry['plain_ms']:.4f} ms, bound {entry['bound_ms']:.4f} ms "
+            f"({entry['bound_by']}), {100 * entry['bound_ms'] / entry['ms']:.1f}"
+            f" % of it | {card}")
+        if not res.ok:
+            raise AssertionError(f"K3 disagrees with its plain version at "
+                                 f"the {name} shape: {res}")
+        rm_entries[name] = entry
+        del args, got, plain
+
+    # -- the bf16 actor -----------------------------------------------------
+    bf16 = {}
+    for name, t in (("fused_turn bf16 (A=3)", demo_tree),
+                    ("fused_turn bf16 (A=5)", tree)):
+        packed = stepping.make_packed_tables(t)
+        A_, T_ = t.max_actions, t.max_transitions
+        net = nets.MLP(A_, 256, generator=torch.Generator().manual_seed(1))
+        w0, b0, w1, b1 = [w.detach().to(t.device).contiguous()
+                          for w in nets.mlp_fused_weights(net)]
+        idx = torch.randint(1, t.size, (B_MAIN,), generator=gen,
+                            device=t.device, dtype=torch.int32)
+        g_act, g_ch = engine.turn_noise(B_MAIN, A_, T_, gen, t.device)
+        args = [packed.rows, w0.bfloat16(), b0, w1.bfloat16(), b1, idx,
+                g_act, g_ch]
+        got = fused_turn_lib.fused_turn(*args, A=A_, T=T_)
+        torch.cuda.synchronize()
+        res = fused_turn_lib.check_bf16(got, args, A=A_, T=T_)
+        log(f"K1 {name}: {B_MAIN} lanes: {res['flipped']} flipped lanes, "
+            f"all within the {res['near_ties']} near-ties of the bf16 band "
+            f"(median row band {res['row_band_median']:.3g}); policy/values"
+            f" max_abs_err {res['max_abs_err']:.3g}, every output within "
+            f"its band; share of outputs outside it: "
+            + ", ".join(f"{k} {v:.4f}" for k, v in res["controls"].items()))
+        bound, by, flops, nbytes = k1_bound_of(fused_turn_lib, args, got[2],
+                                               A_, T_)
+        entry = {"max_abs_err": res["max_abs_err"],
+                 "ms": device_ms(lambda: fused_turn_lib.fused_turn(
+                     *args, A=A_, T=T_)),
+                 "plain_ms": device_ms(lambda: fused_turn_lib.fused_turn_plain(
+                     *args, A=A_, T=T_)),
+                 "bound_ms": bound, "bound_by": by, "library_ms": None,
+                 "near_ties": res["near_ties"],
+                 "controls_outside_band": res["controls"],
+                 "lanes": B_MAIN, "width": 256, "A": A_}
+        f32_ms = device_ms(lambda: fused_turn_lib.fused_turn(
+            packed.rows, w0, b0, w1, b1, idx, g_act, g_ch, A=A_, T=T_))
+        log(f"K1 {name}: kernel {entry['ms']:.4f} ms (the float32 variant "
+            f"{f32_ms:.4f} ms), plain {entry['plain_ms']:.4f} ms, bound "
+            f"{entry['bound_ms']:.6f} ms ({by}; {flops:.4g} FLOP at 989 "
+            f"TFLOP/s bf16, {nbytes:.4g} B), "
+            f"{100 * entry['bound_ms'] / entry['ms']:.2f} % of it | {card}")
+        bf16[name] = entry
+        del args, packed
+
+    bf16_cfg = dataclasses.replace(mlp_cfg, rollout_actor_dtype="bfloat16")
+    check_bf16_step_against_cpu(demo_tree.to("cpu"), bf16_cfg, mlp_net_cfg)
+    run = rnad.RNaD(demo_tree, bf16_cfg, mlp_net_cfg,
+                    directory_name="mlp_bf16_actor", seed=0, device="cuda")
+    zero()
+    run.run(log_mod=1)
+    torch.cuda.synchronize()
+    actor = counters()
+    losses = [m for _, m in run.history if "loss" in m]
+    traj = rnad.rollout(run.state, run.tree, run.packed, bf16_cfg)
+    mean_abs = float(engine.episode_returns(traj).abs().mean())
+    want = {"k1": 0, "k1_bf16": demo_tree.max_depth * STEPS, "k2": STEPS,
+            "k3": 0}
+    log(f"bf16 actor: phase 3's config, {run.state.total_steps} steps; "
+        f"launches {actor} (want {want}); loss first "
+        f"{losses[0]['loss']:.6f} last {losses[-1]['loss']:.6f}; mean "
+        f"|episode return| {mean_abs:.4f}")
+    if (len(losses) != STEPS or actor != want or not mean_abs <= 1.0
+            or not all(math.isfinite(v) for m in losses
+                       for v in m.values())):
+        raise AssertionError(f"bf16 actor run: {len(losses)} steps, "
+                             f"launches {actor}, mean |return| {mean_abs}")
+
+    # -- the associative v-trace against the scan -------------------------
+    state = run.state
+    traj = rnad.rollout(state, run.tree, run.packed, mlp_cfg)
+    out = {}
+    for mode in ("scan", "associative"):
+        s_ = rnad.init_train_state(copy.deepcopy(state.net),
+                                   torch.Generator(device="cuda"))
+        m = rnad.learn_step(s_, run.packed, traj, 0.5,
+                            dataclasses.replace(mlp_cfg, vtrace_mode=mode))
+        out[mode] = (m, [p.detach() for p in s_.net.parameters()])
+    (ms_, ps), (ma, pa) = out["scan"], out["associative"]
+    loss_gap = max(abs(float(ma[k]) - float(ms_[k])) - 2e-5 * abs(
+        float(ms_[k])) for k in ("loss", "loss_v", "loss_nerd"))
+    w_gap = max(float(((a - b).abs() - 1e-4 * b.abs()).max())
+                for a, b in zip(pa, ps))
+    log(f"associative v-trace: one learner step at {mlp_cfg.batch_size} "
+        f"lanes against the scan: loss {float(ma['loss']):.7f} (scan "
+        f"{float(ms_['loss']):.7f}); excess over rtol: losses "
+        f"{loss_gap:.3g} (atol 2e-6), weights {w_gap:.3g} (atol 1e-6)")
+    if not (loss_gap <= 2e-6 and w_gap <= 1e-6):
+        raise AssertionError("associative v-trace parts from the scan")
+
+    # -- the oracle rollout on the flagship tree ---------------------------
+    oracle = engine.rollout_tabular(tree, tree.solution, B_MAIN,
+                                    generator=gen)
+    returns = engine.episode_returns(oracle)
+    se = float(returns.std()) / B_MAIN ** 0.5
+    gap = float(returns.mean()) - float(tree.root_value[1, 0])
+    log(f"oracle rollout: {B_MAIN} lanes under the stored solution of the "
+        f"{tree.size}-node tree: mean return {float(returns.mean()):.6f}, "
+        f"root value {float(tree.root_value[1, 0]):.6f}, gap {gap:+.6f} "
+        f"({gap / se:+.2f} standard errors)")
+    if not abs(gap) < 3 * se:
+        raise AssertionError("oracle rollout misses the root value")
+    secs = time.perf_counter() - t_phase
+    log(f"phase 9: {secs:.1f} s")
+    return {"k1": actor["k1"], "k1_bf16": actor["k1_bf16"],
+            "k2": actor["k2"], "k3": counts["k3"], "bf16": bf16,
+            "rmplus": rm_entries}
+
+
+def check_bf16_step_against_cpu(tree, cfg, net_cfg, B=256) -> None:
+    """One train step with the bf16 actor at ``B`` lanes on the card (the
+    bf16 K1, one launch a turn) and on the CPU (its plain version) from the
+    same weights and noise: at most 2 % of the lanes part (near-ties of the
+    bf16 band), the others equal; one learner step on the card's trajectory
+    on both: losses within rtol 1e-5, weights within 1e-5.  The card tests
+    run it too (tests/test_torch_cuda.py)."""
+    import copy
+
+    from rnad_tpu_torch.env import engine
+    from rnad_tpu_torch.learn import rnad
+    from rnad_tpu_torch.models import nets
+    from rnad_tpu_torch.ops import fused_turn as fused_turn_lib
+    from rnad_tpu_torch.ops import stepping
+
+    small = dataclasses.replace(cfg, batch_size=B)
+    A, T, md = tree.max_actions, tree.max_transitions, tree.max_depth
+    gen = torch.Generator().manual_seed(3)
+    noise = [engine.turn_noise(B, A, T, gen, "cpu") for _ in range(md)]
+    net = nets.build_net(net_cfg, torch.Generator().manual_seed(4))
+    states, packs, trajs = {}, {}, {}
+    for device in ("cpu", "cuda"):
+        states[device] = rnad.init_train_state(
+            copy.deepcopy(net).to(device), torch.Generator(device=device))
+        packs[device] = stepping.make_packed_tables(tree.to(device))
+        before = fused_turn_lib.fused_turn.launches_bf16
+        trajs[device] = rnad.rollout(states[device], tree.to(device),
+                                     packs[device], small, noise)
+        launched = fused_turn_lib.fused_turn.launches_bf16 - before
+        if launched != (md if device == "cuda" else 0):
+            raise AssertionError(f"bf16 actor on {device}: {launched} bf16 "
+                                 f"K1 launches for {md} turns")
+    tc, tg = trajs["cpu"], trajs["cuda"]
+    parted = (tc.actions != tg.actions.cpu()).any(0)
+    if parted.float().mean() > 0.02 or not all(
+            torch.equal(getattr(tc, f)[:, ~parted],
+                        getattr(tg, f).cpu()[:, ~parted])
+            for f in ("indices", "actions", "rewards")):
+        raise AssertionError(f"bf16 actor card vs CPU: {int(parted.sum())} "
+                             "lanes part, or lanes whose actions agree")
+    shared = engine.Trajectory(*(t.cpu() for t in (
+        tg.indices, tg.policy, tg.actions, tg.rewards, tg.values)))
+    mg = rnad.learn_step(states["cuda"], packs["cuda"], tg, 0.5, small)
+    mc = rnad.learn_step(states["cpu"], packs["cpu"], shared, 0.5, small)
+    for k in ("loss", "loss_v", "loss_nerd"):
+        a, b = float(mc[k]), float(mg[k])
+        if abs(a - b) > 1e-5 * max(abs(a), 1e-6):
+            raise AssertionError(f"bf16 actor card vs CPU: {k} {b} vs {a}")
+    err = max(float((a.detach().cpu() - b.detach()).abs().max())
+              for a, b in zip(states["cuda"].net.parameters(),
+                              states["cpu"].net.parameters()))
+    if not err <= 1e-5:
+        raise AssertionError(f"bf16 actor card vs CPU: weights differ by "
+                             f"{err}")
+    log(f"bf16 actor card vs CPU: one step at {B} lanes: {int(parted.sum())}"
+        f" lanes parted at near-ties, the rest equal; learner on the card's "
+        f"trajectory: loss {float(mg['loss']):.7f} (CPU "
+        f"{float(mc['loss']):.7f}), weights max_abs_err {err:.3g}")
 
 
 def check_learner_against_cpu(tree, cfg, net_cfg, card="cuda",

@@ -42,9 +42,26 @@
 // writes), then one thread to each lane (the transition); everything after
 // the logits is exact, as before.  No tensor cores: TF32 would round the
 // logits by ~1e-3, far outside the near-tie band that keeps episodes equal.
-// The shared-memory attribute is set once per (device, A), to the most a
-// block may opt in to, and the grid once per (device, A, H).
+// The shared-memory attribute is set once per (device, A, operand type),
+// to the most a block may opt in to, and the grid once per (device, A, H,
+// operand type).
+//
+// The bf16-operand variant (the operand type W = __nv_bfloat16, a template
+// parameter) computes what rnad_tpu's rows-actor does with
+// compute_dtype=bfloat16 (rnad_tpu/env/engine.py::make_mlp_rows_actor): W0
+// and W1 arrive cast to bf16 once, the gathered f32 row and the hidden
+// activation are rounded to bf16 (round to nearest even), both products
+// accumulate in f32 and the biases are added in f32.  W0 and W1 stay bf16
+// in shared memory, half the bytes of the f32 variant, so wider nets fit;
+// each thread rounds the row elements it staged once they land, and the
+// k loop widens 4 bf16 weights a load to f32.  A product of two bf16
+// values is exact in f32, so fmaf in index order leaves only the summation
+// order between this and rnad_tpu (XLA's dot).  That is the design taken:
+// mma.sync.m16n8k16 would reach the tensor cores, but its adds round in an
+// order of the hardware's choosing, and it is left for a redesign that
+// holds the same near-tie band.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -91,18 +108,20 @@ __host__ __device__ inline int up4(int n) { return (n + 3) / 4 * 4; }
 
 // Shared-memory layout in floats; every region starts 16-byte aligned.  A
 // tile's staged inputs (observations, Gumbel noise, masks) have two
-// buffers: the next tile's are copied in while this one finishes.
+// buffers: the next tile's are copied in while this one finishes.  The
+// weights take wbytes (4 for f32, 2 for bf16) an element; Hp is a multiple
+// of 64, so their regions stay whole, aligned floats.
 struct Layout {
   int w0, b0, w1t, b1, obs, red, out, gact, mask, act, total;
   int obs_size, rows_size;  // one buffer of s_obs; of s_gact and s_mask
-  __host__ __device__ Layout(int A, int H) {
+  __host__ __device__ Layout(int A, int H, int wbytes) {
     const int din = 2 * A * A, nout = A + 1, Hp = padded_units(H);
     obs_size = up4(din * kObsStride);
     rows_size = up4(kTileRows * A);
-    w0 = 0;                                   // (din, Hp)
-    b0 = w0 + din * Hp;                       // (Hp,)
-    w1t = b0 + Hp;                            // (A+1, Hp)
-    b1 = w1t + nout * Hp;                     // (A+1,)
+    w0 = 0;                                   // (din, Hp) weights
+    b0 = w0 + din * Hp * wbytes / 4;          // (Hp,) f32
+    w1t = b0 + Hp;                            // (A+1, Hp) weights
+    b1 = w1t + nout * Hp * wbytes / 4;        // (A+1,) f32
     obs = b1 + up4(nout);                     // 2 x (din, kObsStride)
     red = obs + 2 * obs_size;                 // (4, (A+1) x 64 + 1)
     out = red + up4(kContrib * (nout * kTileRows + 1));
@@ -125,12 +144,56 @@ __device__ __forceinline__ void copies_done() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
-template <int A>
+// The operand type's helpers: a weight staged into shared memory (f32 by
+// cp.async, bf16 by a plain load), zero, widened to f32, 4 widened at a
+// time (16 or 8 aligned bytes), and an f32 value rounded to the operand
+// type and back (the identity for f32).
+__device__ __forceinline__ void stage_weight(float* dst, const float* src) {
+  copy4(dst, src);
+}
+__device__ __forceinline__ void stage_weight(__nv_bfloat16* dst,
+                                             const __nv_bfloat16* src) {
+  *dst = *src;
+}
+template <typename W>
+__device__ __forceinline__ W zero_weight();
+template <>
+__device__ __forceinline__ float zero_weight<float>() {
+  return 0.f;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 zero_weight<__nv_bfloat16>() {
+  return __float2bfloat16_rn(0.f);
+}
+__device__ __forceinline__ float widen(float x) { return x; }
+__device__ __forceinline__ float widen(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ float4 widen4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 widen4(const __nv_bfloat16* p) {
+  const uint2 v = *reinterpret_cast<const uint2*>(p);  // p[0] in v.x low
+  return make_float4(__uint_as_float(v.x << 16),
+                     __uint_as_float(v.x & 0xffff0000u),
+                     __uint_as_float(v.y << 16),
+                     __uint_as_float(v.y & 0xffff0000u));
+}
+template <typename W>
+__device__ __forceinline__ float round_operand(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ float round_operand<__nv_bfloat16>(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+template <int A, typename W>
 __global__ void __launch_bounds__(kThreads, A <= 4 ? 2 : 1)
 fused_turn_kernel(const float* __restrict__ table, int32_t S, int32_t D,
                   const int32_t* __restrict__ idx,
-                  const float* __restrict__ w0, const float* __restrict__ b0,
-                  const float* __restrict__ w1, const float* __restrict__ b1,
+                  const W* __restrict__ w0, const float* __restrict__ b0,
+                  const W* __restrict__ w1, const float* __restrict__ b1,
                   const float* __restrict__ g_act,
                   const float* __restrict__ g_ch, int32_t* __restrict__ new_idx,
                   float* __restrict__ policy, int32_t* __restrict__ actions,
@@ -140,13 +203,14 @@ fused_turn_kernel(const float* __restrict__ table, int32_t S, int32_t D,
   constexpr int nout = A + 1;
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
-  const Layout L(A, H);
+  constexpr bool kRound = sizeof(W) != sizeof(float);
+  const Layout L(A, H, sizeof(W));
   const int Hp = padded_units(H);
   const int mask_off = 2 * din;
   const int trans_off = mask_off + 2 * A;
-  float* s_w0 = smem + L.w0;
+  W* s_w0 = reinterpret_cast<W*>(smem + L.w0);
   float* s_b0 = smem + L.b0;
-  float* s_w1t = smem + L.w1t;
+  W* s_w1t = reinterpret_cast<W*>(smem + L.w1t);
   float* s_b1 = smem + L.b1;
   float* s_obs = smem + L.obs;
   float* s_out = smem + L.out;
@@ -158,13 +222,13 @@ fused_turn_kernel(const float* __restrict__ table, int32_t S, int32_t D,
   // weights, zero-padded to Hp units, all copies in flight at once
   for (int k = 0; k < din; ++k)
     for (int u = tid; u < Hp; u += kThreads) {
-      if (u < H) copy4(s_w0 + k * Hp + u, w0 + (int64_t)k * H + u);
-      else s_w0[k * Hp + u] = 0.f;
+      if (u < H) stage_weight(s_w0 + k * Hp + u, w0 + (int64_t)k * H + u);
+      else s_w0[k * Hp + u] = zero_weight<W>();
     }
   for (int o = 0; o < nout; ++o)
     for (int u = tid; u < Hp; u += kThreads) {
-      if (u < H) copy4(s_w1t + o * Hp + u, w1 + (int64_t)u * nout + o);
-      else s_w1t[o * Hp + u] = 0.f;
+      if (u < H) stage_weight(s_w1t + o * Hp + u, w1 + (int64_t)u * nout + o);
+      else s_w1t[o * Hp + u] = zero_weight<W>();
     }
   for (int u = tid; u < Hp; u += kThreads) {
     if (u < H) copy4(s_b0 + u, b0 + u);
@@ -219,6 +283,12 @@ fused_turn_kernel(const float* __restrict__ table, int32_t S, int32_t D,
     const int lane0 = tile * kTileLanes;
     const int next_state = state_of(tile + gridDim.x);  // in flight meanwhile
     copies_done();
+    if (kRound) {  // the row elements this thread staged, rounded
+      float* obs = s_obs + buf * L.obs_size;
+      for (int k = sq; k < din; k += 4)
+        obs[k * kObsStride + srow] =
+            round_operand<W>(obs[k * kObsStride + srow]);
+    }
     __syncthreads();  // this tile's inputs (and the weights) have landed
     const float* t_obs = s_obs + buf * L.obs_size;
     const float* t_gact = s_gact + buf * L.rows_size;
@@ -242,9 +312,9 @@ fused_turn_kernel(const float* __restrict__ table, int32_t S, int32_t D,
         const float* ok = t_obs + k * kObsStride + row0;
         const float4 oa = *reinterpret_cast<const float4*>(ok);
         const float4 ob = *reinterpret_cast<const float4*>(ok + 4);
-        const float* wk = s_w0 + k * Hp + u0;
-        const float4 wa = *reinterpret_cast<const float4*>(wk);
-        const float4 wb = *reinterpret_cast<const float4*>(wk + kHalf);
+        const W* wk = s_w0 + k * Hp + u0;
+        const float4 wa = widen4(wk);
+        const float4 wb = widen4(wk + kHalf);
         const float o[8] = {oa.x, oa.y, oa.z, oa.w, ob.x, ob.y, ob.z, ob.w};
         const float w[8] = {wa.x, wa.y, wa.z, wa.w, wb.x, wb.y, wb.z, wb.w};
 #pragma unroll
@@ -258,10 +328,10 @@ fused_turn_kernel(const float* __restrict__ table, int32_t S, int32_t D,
         const float bias = s_b0[u];
         float w1u[nout];
 #pragma unroll
-        for (int o = 0; o < nout; ++o) w1u[o] = s_w1t[o * Hp + u];
+        for (int o = 0; o < nout; ++o) w1u[o] = widen(s_w1t[o * Hp + u]);
 #pragma unroll
         for (int r = 0; r < 8; ++r) {
-          const float h = fmaxf(acc[r][j] + bias, 0.f);
+          const float h = round_operand<W>(fmaxf(acc[r][j] + bias, 0.f));
 #pragma unroll
           for (int o = 0; o < nout; ++o) part[r][o] = fmaf(h, w1u[o], part[r][o]);
         }
@@ -363,40 +433,42 @@ fused_turn_kernel(const float* __restrict__ table, int32_t S, int32_t D,
 }
 
 // Launch settings, set once: the shared-memory attribute of
-// fused_turn_kernel<A> on a device at the most a block may opt in to (it
-// belongs to the kernel, whatever H), and the grid of each (device, A, H).
+// fused_turn_kernel<A, W> on a device at the most a block may opt in to (it
+// belongs to the kernel, whatever H), and the grid of each (device, A, H,
+// W).
 std::mutex cache_mutex;
-std::set<std::pair<int, int>> smem_set;
-std::map<std::tuple<int, int, int>, int> grid_cache;
+std::set<std::tuple<int, int, int>> smem_set;
+std::map<std::tuple<int, int, int, int>, int> grid_cache;
 
-template <int A>
+template <int A, typename W>
 cudaError_t launch(const float* table, int32_t S, int32_t D,
-                   const int32_t* idx, const float* w0, const float* b0,
-                   const float* w1, const float* b1, const float* g_act,
+                   const int32_t* idx, const W* w0, const float* b0,
+                   const W* w1, const float* b1, const float* g_act,
                    const float* g_ch, int32_t* new_idx, float* policy,
                    int32_t* actions, float* rewards, float* values, int32_t B,
                    int32_t T, int32_t H, cudaStream_t stream) {
-  const size_t smem = (size_t)Layout(A, H).total * sizeof(float);
+  const int wbytes = (int)sizeof(W);
+  const size_t smem = (size_t)Layout(A, H, wbytes).total * sizeof(float);
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return err;
   int blocks = 0;
   {
     std::lock_guard<std::mutex> lock(cache_mutex);
-    if (!smem_set.count(std::make_pair(device, A))) {
+    if (!smem_set.count(std::make_tuple(device, A, wbytes))) {
       int optin = 0;
       if ((err = cudaDeviceGetAttribute(
                &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device)) !=
           cudaSuccess)
         return err;
       if ((err = cudaFuncSetAttribute(
-               fused_turn_kernel<A>,
+               fused_turn_kernel<A, W>,
                cudaFuncAttributeMaxDynamicSharedMemorySize, optin)) !=
           cudaSuccess)
         return err;
-      smem_set.insert(std::make_pair(device, A));
+      smem_set.insert(std::make_tuple(device, A, wbytes));
     }
-    const auto key = std::make_tuple(device, A, H);
+    const auto key = std::make_tuple(device, A, H, wbytes);
     auto found = grid_cache.find(key);
     if (found != grid_cache.end()) {
       blocks = found->second;
@@ -406,7 +478,8 @@ cudaError_t launch(const float* table, int32_t S, int32_t D,
                                         device)) != cudaSuccess)
         return err;
       if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-               &per_sm, fused_turn_kernel<A>, kThreads, smem)) != cudaSuccess)
+               &per_sm, fused_turn_kernel<A, W>, kThreads, smem)) !=
+          cudaSuccess)
         return err;
       if (per_sm < 1) return cudaErrorInvalidConfiguration;
       blocks = sms * per_sm;
@@ -415,7 +488,7 @@ cudaError_t launch(const float* table, int32_t S, int32_t D,
   }
   const int64_t tiles = ((int64_t)B + kTileLanes - 1) / kTileLanes;
   const unsigned grid = (unsigned)(tiles < blocks ? tiles : blocks);
-  fused_turn_kernel<A><<<grid, kThreads, smem, stream>>>(
+  fused_turn_kernel<A, W><<<grid, kThreads, smem, stream>>>(
       table, S, D, idx, w0, b0, w1, b1, g_act, g_ch, new_idx, policy, actions,
       rewards, values, B, T, H);
   return cudaGetLastError();
@@ -423,8 +496,10 @@ cudaError_t launch(const float* table, int32_t S, int32_t D,
 
 }  // namespace
 
-extern "C" size_t rnad_fused_turn_smem_bytes(int32_t A, int32_t H) {
-  return (size_t)Layout(A, H).total * sizeof(float);
+// bf16: 0 for f32 weights, 1 for bf16 weights (the bf16-operand variant).
+extern "C" size_t rnad_fused_turn_smem_bytes(int32_t A, int32_t H,
+                                             int32_t bf16) {
+  return (size_t)Layout(A, H, bf16 ? 2 : 4).total * sizeof(float);
 }
 
 extern "C" int rnad_fused_turn(const void* table, int32_t S, int32_t D,
@@ -433,19 +508,23 @@ extern "C" int rnad_fused_turn(const void* table, int32_t S, int32_t D,
                                const void* g_act, const void* g_ch,
                                void* new_idx, void* policy, void* actions,
                                void* rewards, void* values, int32_t B,
-                               int32_t A, int32_t T, int32_t H, void* stream) {
+                               int32_t A, int32_t T, int32_t H, int32_t bf16,
+                               void* stream) {
   if (A < 1 || A > kMaxA || T < 1 || T > kMaxT || H < 1)
     return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
   switch (A) {
+#define RNAD_FUSED_TURN_LAUNCH(K, W)                                        \
+  launch<K, W>((const float*)table, S, D, (const int32_t*)idx,              \
+               (const W*)w0, (const float*)b0, (const W*)w1,                \
+               (const float*)b1, (const float*)g_act, (const float*)g_ch,   \
+               (int32_t*)new_idx, (float*)policy, (int32_t*)actions,        \
+               (float*)rewards, (float*)values, B, T, H,                    \
+               (cudaStream_t)stream)
 #define RNAD_FUSED_TURN_CASE(K)                                             \
   case K:                                                                   \
-    return (int)launch<K>(                                                  \
-        (const float*)table, S, D, (const int32_t*)idx, (const float*)w0,   \
-        (const float*)b0, (const float*)w1, (const float*)b1,               \
-        (const float*)g_act, (const float*)g_ch, (int32_t*)new_idx,         \
-        (float*)policy, (int32_t*)actions, (float*)rewards, (float*)values, \
-        B, T, H, (cudaStream_t)stream);
+    return (int)(bf16 ? RNAD_FUSED_TURN_LAUNCH(K, __nv_bfloat16)            \
+                      : RNAD_FUSED_TURN_LAUNCH(K, float));
     RNAD_FUSED_TURN_CASE(1)
     RNAD_FUSED_TURN_CASE(2)
     RNAD_FUSED_TURN_CASE(3)
@@ -455,6 +534,7 @@ extern "C" int rnad_fused_turn(const void* table, int32_t S, int32_t D,
     RNAD_FUSED_TURN_CASE(7)
     RNAD_FUSED_TURN_CASE(8)
 #undef RNAD_FUSED_TURN_CASE
+#undef RNAD_FUSED_TURN_LAUNCH
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -2,7 +2,8 @@
 the MLP, or the generic turn for any net.
 
 Counterpart of ``rnad_tpu/env/engine.py`` (the ``"bma"`` trajectory layout,
-``rollout_from``, ``trajectory_observations``, ``episode_returns``).  The
+``rollout_from``, ``rollout_tabular``, ``trajectory_observations``,
+``episode_returns``).  The
 absorbing-state convention (terminated lanes self-loop at index 0 with
 reward 0) means no masking mid-rollout; validity is ``indices != 0``.
 Both turns take the same noise and, given equal logits, play the same
@@ -132,7 +133,8 @@ def trajectory_observations(packed: stepping.PackedTables, traj: Trajectory
 
 
 def uses_fused_turn(net: nn.Module, mode: str = "auto",
-                    transform: bool = False) -> bool:
+                    transform: bool = False,
+                    actor_dtype: torch.dtype = torch.float32) -> bool:
     """Resolves ``RNaDConfig.rollout_rows_actor`` as ``rnad_tpu``'s
     ``resolve_rows_actor`` does: "auto" takes kernel K1 exactly where it
     exists (the depth-1 float32 MLP on raw observations, on the card at a
@@ -142,7 +144,12 @@ def uses_fused_turn(net: nn.Module, mode: str = "auto",
     deeper MLP, whose hidden layers K1's packing has no place for, and a
     bfloat16 MLP included: K1 computes in float32) raises
     ``make_mlp_rows_actor``'s error, under a transform rnad_tpu's error,
-    and on the card at too wide an MLP K1 raises."""
+    and on the card at too wide an MLP K1 raises.
+
+    ``actor_dtype`` (``RNaDConfig.rollout_actor_dtype``) is K1's operand
+    type; like rnad_tpu, only the K1 route reads it.  An MLP too wide for
+    the bfloat16 variant raises under "auto" too: the generic turn would
+    compute other (float32) values."""
     fusable = (isinstance(net, nets.MLP) and net.depth == 1
                and net.dtype == torch.float32)
     if mode == "off":
@@ -177,7 +184,16 @@ def uses_fused_turn(net: nn.Module, mode: str = "auto",
     if not fusable:
         return False
     on_card = next(net.parameters()).device.type == "cuda"
-    return not on_card or fused_turn_lib.fits(net.max_actions, 2 * net.width)
+    if not on_card or fused_turn_lib.fits(net.max_actions, 2 * net.width,
+                                          actor_dtype):
+        return True
+    if actor_dtype != torch.float32:
+        raise ValueError(
+            f"rollout_actor_dtype={str(actor_dtype).split('.')[-1]}: K1's "
+            f"{str(actor_dtype).split('.')[-1]}-operand variant cannot hold "
+            f"an MLP of width {net.width} at A={net.max_actions} in shared "
+            f"memory, and the generic turn computes in float32")
+    return False
 
 
 def generic_turn(packed: stepping.PackedTables, net: nn.Module,
@@ -220,10 +236,12 @@ def rollout_from(tree: GameTree, packed: stepping.PackedTables,
                  generator: Optional[torch.Generator] = None,
                  rows_actor: str = "auto",
                  obs_transform: Optional[ObsTransform] = None,
-                 obs_dtype: torch.dtype = torch.float32) -> Trajectory:
+                 obs_dtype: torch.dtype = torch.float32,
+                 actor_dtype: torch.dtype = torch.float32) -> Trajectory:
     """Plays ``num_turns`` turns (default ``tree.max_depth``) from the
     per-lane states ``init_indices`` (B,) under ``net``'s policy, each turn
-    through kernel K1 or the generic turn as ``uses_fused_turn`` resolves
+    through kernel K1 (its weights cast once to ``actor_dtype``, its
+    operand type) or the generic turn as ``uses_fused_turn`` resolves
     ``rows_actor``.  A ConvNet acts on its BatchNorm running averages.
 
     ``noise`` gives each turn's ``(g_act (2B, A), g_chance (B, T))``, and
@@ -237,9 +255,11 @@ def rollout_from(tree: GameTree, packed: stepping.PackedTables,
     B = init_indices.shape[0]
     device = packed.rows.device
     channels = None if obs_transform is None else obs_transform.channels
-    if uses_fused_turn(net, rows_actor, obs_transform is not None):
-        weights = [w.detach().contiguous()
-                   for w in nets.mlp_fused_weights(net)]
+    if uses_fused_turn(net, rows_actor, obs_transform is not None,
+                       actor_dtype):
+        w0, b0, w1, b1 = [w.detach() for w in nets.mlp_fused_weights(net)]
+        weights = [w0.to(actor_dtype).contiguous(), b0.contiguous(),
+                   w1.to(actor_dtype).contiguous(), b1.contiguous()]
         turn = lambda idx, g_act, g_ch: fused_turn_lib.fused_turn(
             packed.rows, *weights, idx, g_act, g_ch, A=A, T=T) + (None,)
     else:
@@ -265,6 +285,72 @@ def rollout_from(tree: GameTree, packed: stepping.PackedTables,
     return Trajectory(indices=cat(0), policy=cat(1), actions=cat(2),
                       rewards=cat(3), values=cat(4),
                       obs=None if obs_transform is None else cat(5))
+
+
+def tabular_noise(batch_size: int, A: int, T: int,
+                  generator: Optional[torch.Generator], device
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One turn's noise of ``rollout_tabular``: Gumbel ``g_row`` (B, A),
+    ``g_col`` (B, A) and ``g_chance`` (B, T), drawn in that order."""
+    return (gumbel((batch_size, A), generator, device),
+            gumbel((batch_size, A), generator, device),
+            gumbel((batch_size, T), generator, device))
+
+
+@torch.no_grad()
+def rollout_tabular(tree: GameTree, joint_policy: torch.Tensor,
+                    batch_size: int, num_turns: Optional[int] = None, *,
+                    noise: Optional[Sequence[Tuple[torch.Tensor, ...]]]
+                    = None,
+                    generator: Optional[torch.Generator] = None
+                    ) -> Trajectory:
+    """``batch_size`` episodes from the root under a per-node joint policy
+    (S, 2A) (``rnad_tpu``'s ``rollout_tabular``): each seat plays
+    ``argmax(log p + g)`` over its legal actions (log 0 = -1e30), the
+    chance outcome is ``argmax(log chance + g_chance)`` of the chosen cell,
+    and the values are the stored exact node values (the row seat's v,
+    the column seat's -v).  Rolling out ``tree.solution`` is the oracle
+    check: the mean return is the root value.  ``noise`` gives each turn's
+    ``tabular_noise``; if it is None it is drawn from ``generator`` on the
+    tree's device."""
+    if num_turns is None:
+        num_turns = tree.max_depth
+    A, T = tree.max_actions, tree.max_transitions
+    B = batch_size
+    device = tree.device
+    log = lambda p: torch.where(p > 0, torch.log(torch.clamp(p, min=1e-30)),
+                                torch.full_like(p, -1e30))
+    norm = lambda p: p / torch.clamp(p.sum(-1, keepdim=True), min=1e-30)
+    indices = torch.ones((B,), dtype=torch.int32, device=device)
+    recs = []
+    for t in range(num_turns):
+        g_row, g_col, g_ch = (
+            tabular_noise(B, A, T, generator, device) if noise is None else
+            [g.to(device=device, dtype=torch.float32) for g in noise[t]])
+        idx = indices.long()
+        legal = tree.legal[idx, 0]  # (B, A, A)
+        pi = joint_policy[idx]
+        zero = torch.zeros((), dtype=pi.dtype, device=device)
+        pi_row = torch.where(legal[:, :, 0] > 0, pi[:, :A], zero)
+        pi_col = torch.where(legal[:, 0, :] > 0, pi[:, A:], zero)
+        row_a = torch.argmax(log(pi_row) + g_row, dim=1)
+        col_a = torch.argmax(log(pi_col) + g_col, dim=1)
+        cell = lambda x: x[idx, :, row_a, col_a]  # (B, T)
+        chance_a = torch.argmax(log(cell(tree.chance)) + g_ch, dim=1,
+                                keepdim=True)
+        new_idx = cell(tree.index).gather(1, chance_a)[:, 0].to(torch.int32)
+        value = cell(tree.value).gather(1, chance_a)[:, 0]
+        rewards = torch.where(new_idx == 0, value, torch.zeros_like(value))
+        v = tree.root_value[idx, 0]
+        recs.append((torch.stack([indices, indices]),
+                     torch.stack([norm(pi_row), norm(pi_col)]),
+                     torch.stack([row_a, col_a]).to(torch.int32),
+                     torch.stack([torch.zeros_like(rewards), rewards]),
+                     torch.stack([v, -v])))
+        indices = new_idx
+    cat = lambda i: torch.cat([r[i] for r in recs], 0)
+    return Trajectory(indices=cat(0), policy=cat(1), actions=cat(2),
+                      rewards=cat(3), values=cat(4))
 
 
 def episode_returns(traj: Trajectory) -> torch.Tensor:

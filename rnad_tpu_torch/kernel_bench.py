@@ -5,7 +5,8 @@
 Builds ``csrc/fused_turn.cu`` and ``csrc/rmplus.cu`` (``ops/_build.py``),
 prints what ptxas reports for each kernel (registers, spills) and counts
 the SASS instructions of every loop of the kernels at the paths' sizes,
-``fused_turn_kernel<3>`` and ``rmplus_kernel<5>`` (``cuobjdump -sass``),
+``fused_turn_kernel<3>`` (its float32 and bf16 variants) and
+``rmplus_kernel<5>`` (``cuobjdump -sass``),
 with their FFMA counts.  K3 has two iteration loops, one for games whose
 masks hold only 0 and 1 and one for any other mask; K1's k loop is the one
 with the most FFMA.  Needs the CUDA toolkit; the kernels' times are
@@ -21,7 +22,10 @@ from pathlib import Path
 
 from .ops import _build
 
-KERNELS = (("fused_turn", "fused_turn_kernelILi3E", "fused_turn_kernel<3>"),
+KERNELS = (("fused_turn", "fused_turn_kernelILi3EfE",
+            "fused_turn_kernel<3, float>"),
+           ("fused_turn", "fused_turn_kernelILi3E13__nv_bfloat16E",
+            "fused_turn_kernel<3, bf16>"),
            ("rmplus", "rmplus_kernelILi5E", "rmplus_kernel<5>"))
 
 
@@ -58,7 +62,7 @@ def sass_loops(lib_path: Path, mangled_part: str):
 
 
 def main() -> None:
-    _build.build([name for name, _, _ in KERNELS])
+    _build.build(sorted({name for name, _, _ in KERNELS}))
     for name, part, kernel in KERNELS:
         path = _build.library_path(name)
         regs = [r for k, r in _build.ptxas_lines(_build.build_log(name))

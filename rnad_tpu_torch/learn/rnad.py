@@ -61,7 +61,7 @@ from ..ops import stepping
 from ..utils.checkpoint import RunStore
 from ..utils.logging import MetricLogger
 from . import buffer as buffer_lib
-from . import vtrace
+from . import vtrace, vtrace_assoc
 
 
 @dataclasses.dataclass
@@ -137,8 +137,16 @@ def optimizer_update(cfg: RNaDConfig, params: List[torch.Tensor],
     g_norm = torch.sqrt(sum((g * g).sum() for g in grads))
     clip = cfg.grad_clip
     grads = [torch.where(g_norm < clip, g, g / g_norm * clip) for g in grads]
-    b1, b2 = cfg.b1_adam, cfg.b2_adam
-    lr = learning_rate(cfg, opt.count)
+    adam_update(params, grads, opt, learning_rate(cfg, opt.count),
+                cfg.b1_adam, cfg.b2_adam, cfg.epsilon_adam)
+
+
+@torch.no_grad()
+def adam_update(params: List[torch.Tensor], grads: List[torch.Tensor],
+                opt: AdamState, lr: float, b1: float, b2: float,
+                eps: float) -> None:
+    """optax ``adam(lr, b1, b2, eps)``'s update and ``apply_updates``, in
+    place, in optax's operation order."""
     opt.count += 1
     # host scalars holding the float32 values optax computes on device
     corr1 = float(np.float32(1) - np.float32(b1) ** np.int32(opt.count))
@@ -148,7 +156,7 @@ def optimizer_update(cfg: RNaDConfig, params: List[torch.Tensor],
         nu.copy_((1 - b2) * (g * g) + b2 * nu)
         mu_hat = mu / corr1
         nu_hat = nu / corr2
-        p.add_((-lr) * (mu_hat / (torch.sqrt(nu_hat) + cfg.epsilon_adam)))
+        p.add_((-lr) * (mu_hat / (torch.sqrt(nu_hat) + eps)))
 
 
 @torch.no_grad()
@@ -295,7 +303,10 @@ def learn_loss(state: TrainState, packed: stepping.PackedTables,
             pi.detach(), masks, cfg.n_discrete, cfg.epsilon_threshold)
         log_policy_reg = log_pi.detach() - (
             alpha * log_pi_reg + one_minus_alpha * log_pi_reg_prev)
-        v_t2, played2, pol_t2 = vtrace.v_trace_both(
+        vt_both = (vtrace_assoc.v_trace_both_assoc
+                   if cfg.vtrace_mode == "associative"
+                   else vtrace.v_trace_both)
+        v_t2, played2, pol_t2 = vt_both(
             v_target_net, valid, player_id, traj.policy, pi_processed,
             log_policy_reg, traj.actions_oh(), traj.rewards,
             eta=cfg.eta, lambda_=1.0, c=cfg.c_bar, rho=cfg.roh_bar,
@@ -376,7 +387,9 @@ def rollout(state: TrainState, tree: GameTree, packed: stepping.PackedTables,
                                noise=noise, generator=state.generator,
                                rows_actor=cfg.rollout_rows_actor,
                                obs_transform=obs_transform,
-                               obs_dtype=obs_storage_dtype(state.net, cfg))
+                               obs_dtype=obs_storage_dtype(state.net, cfg),
+                               actor_dtype=nets.DTYPES[
+                                   cfg.rollout_actor_dtype])
 
 
 def learn_step(state: TrainState, packed: stepping.PackedTables,
@@ -446,17 +459,17 @@ def check_supported(cfg: RNaDConfig, net_config: NetConfig) -> None:
         raise NotImplementedError(
             f"frozen_net_dtype: the port computes in "
             f"{' or '.join(nets.DTYPES)}, got {cfg.frozen_net_dtype!r}")
-    missing = {
-        "rollout_actor_dtype": cfg.rollout_actor_dtype != "float32",
-        "vtrace_mode": cfg.vtrace_mode == "associative",
-    }
-    for field, unsupported in missing.items():
-        if unsupported:
-            raise NotImplementedError(
-                f"{field}: the PyTorch port does not implement this value "
-                "yet")
-    if cfg.vtrace_mode not in ("scan", "auto"):
-        raise ValueError(f"unknown vtrace_mode {cfg.vtrace_mode!r}")
+    if cfg.vtrace_mode not in ("scan", "associative", "auto"):
+        raise ValueError(f"unknown vtrace_mode {cfg.vtrace_mode!r}; expected "
+                         "'scan', 'associative' or 'auto'")
+    if cfg.vtrace_mode == "associative" and cfg.learner_layout == "amb":
+        raise ValueError(
+            "learner_layout='amb' applies to the sequential-scan "
+            "v-trace only; vtrace_mode selected the associative path "
+            "at this trajectory length — use learner_layout='auto'")
+    if cfg.rollout_actor_dtype not in ("float32", "bfloat16"):
+        raise ValueError(f"rows-actor compute_dtype must be float32 or "
+                         f"bfloat16, got {cfg.rollout_actor_dtype}")
     if cfg.reg_anchor not in ("target", "best", "fixed"):
         raise ValueError(f"unknown reg_anchor {cfg.reg_anchor!r}; "
                          "expected 'target', 'best' or 'fixed'")
@@ -550,7 +563,8 @@ class RNaD:
             return
         state = self._fresh_state()
         engine.uses_fused_turn(state.net, self.cfg.rollout_rows_actor,
-                               self.obs_transform is not None)
+                               self.obs_transform is not None,
+                               nets.DTYPES[self.cfg.rollout_actor_dtype])
         resolve_fuse_mode(state.net, self.cfg)
         resumed = False
         if not self.store.exists() or self.store.latest() is None:

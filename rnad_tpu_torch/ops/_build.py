@@ -92,13 +92,17 @@ def build_log(name: str) -> str:
 def ptxas_lines(log: str):
     """(kernel, report) pairs of the registers and spills lines that
     ``ptxas -v`` wrote to a build log, e.g. ("rmplus_kernel<5>", "Used 84
-    registers, ...")."""
+    registers, ...") or ("fused_turn_kernel<3, bf16>", ...)."""
+    types = {"f": "float", "13__nv_bfloat16": "bf16"}
     out, kernel = [], "?"
     for line in log.splitlines():
         if "Compiling entry function" in line:
-            found = re.search(r"\d+([A-Za-z_]+_kernel)(?:ILi(\d+)E)?", line)
-            kernel = (f"{found.group(1)}<{found.group(2)}>"
-                      if found and found.group(2) else
+            found = re.search(r"\d+([A-Za-z_]+_kernel)"
+                              r"(?:ILi(\d+)E(f|13__nv_bfloat16)?E)?", line)
+            args = [found.group(2), types.get(found.group(3))] if found \
+                else []
+            args = [a for a in args if a]
+            kernel = (f"{found.group(1)}<{', '.join(args)}>" if args else
                       found.group(1) if found else "?")
         elif "registers" in line or "spill" in line:
             out.append((kernel, line.strip()))

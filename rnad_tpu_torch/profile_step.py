@@ -41,6 +41,7 @@ from .config import (NetConfig, ObsTransformConfig, RNaDConfig, ShapingRule,
 from .env import tree as tree_lib
 from .learn import buffer as buffer_lib
 from .learn import rnad
+from .utils import timing
 
 BATCH_SIZE = 32768
 TABLE_ROWS = 20  # kernels and operators listed from the trace
@@ -209,10 +210,8 @@ def main() -> None:
           f"{100 * (1 - step / back_to_back):.1f} % of it waiting for the "
           "host's launches")
 
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
     steps = 6  # a whole number of buffer_mod periods
-    with torch.profiler.profile(activities=acts) as prof:
+    with timing.trace() as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
             train_step()

@@ -158,7 +158,6 @@ def _check_unported(args: argparse.Namespace) -> None:
         "--coordinator": args.coordinator is not None,
         "--num-processes": args.num_processes is not None,
         "--process-id": args.process_id is not None,
-        "--vtrace-mode": args.vtrace_mode == "associative",
     }
     for flag, unsupported in unported.items():
         if unsupported:

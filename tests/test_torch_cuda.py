@@ -35,6 +35,9 @@ from rnad_tpu_torch.ops import rmplus as rmplus_lib
 from rnad_tpu_torch.ops import stepping
 
 NEAR_TIE = 1e-5
+# the share of an A = 5 tree's rows whose solver features (with log x) may
+# part between the card and the CPU; measured 0.0366 on the H100
+FEATURES_PARTED_SHARE = 0.05
 
 
 @pytest.fixture(scope="module")
@@ -677,3 +680,220 @@ def test_new_nets_step_card_vs_cpu(dev, name):
         for k in want:
             torch.testing.assert_close(got[k].cpu(), want[k], rtol=0,
                                        atol=2 * cfg.lr + 1e-6)
+
+
+def _check_bf16_turn(args, A, T):
+    """One launch of the bf16 variant, held to its plain version by
+    ``fused_turn.check_bf16`` (chip_smoke.py holds it the same way):
+    outputs within ``fused_turn.bf16_band``, actions differing only at
+    near-ties of twice the row's band, and the two unrounded-operand
+    controls outside the band."""
+    before = fused_turn_lib.fused_turn.launches_bf16
+    got = fused_turn_lib.fused_turn(*args, A=A, T=T)
+    torch.cuda.synchronize()
+    assert fused_turn_lib.fused_turn.launches_bf16 == before + 1
+    fused_turn_lib.check_bf16(got, args, A=A, T=T)
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("A,T,width,B", [
+    (3, 2, 256, 32768), (5, 2, 256, 32768), (3, 2, 256, TILE + 1),
+    (8, 8, 16, 2 * TILE + 1), (4, 3, 64, 1000),
+    # wider than the float32 variant holds at A = 5
+    (5, 2, 640, 1000)])
+def test_bf16_fused_turn_kernel_vs_plain(dev, A, T, width, B):
+    tree = _tree(dev, A=A, T=T)
+    args = _turn_args(dev, tree, width, B, seed=A * 100 + width + 1)
+    args[1] = args[1].bfloat16()
+    args[3] = args[3].bfloat16()
+    if width == 640:
+        assert not fused_turn_lib.fits(A, 2 * width)
+        assert fused_turn_lib.fits(A, 2 * width, torch.bfloat16)
+    got = _check_bf16_turn(args, A, T)
+    # the bf16 operands move the logits: not the float32 variant's values
+    f32 = [a.float() if a.dtype == torch.bfloat16 else a for a in args]
+    _, ml16, mask, _ = fused_turn_lib.turn_logits_plain(*args[:6], A=A)
+    _, ml32, _, _ = fused_turn_lib.turn_logits_plain(*f32[:6], A=A)
+    assert float((ml16 - ml32).abs()[mask > 0].max()) > 1e-5
+    assert torch.isfinite(got[1]).all()
+
+
+@pytest.mark.cuda
+def test_bf16_fused_turn_kernel_is_deterministic(dev):
+    tree = _tree(dev)
+    args = _turn_args(dev, tree, 256, 32768, seed=6)
+    args[1], args[3] = args[1].bfloat16(), args[3].bfloat16()
+    first = fused_turn_lib.fused_turn(*args, A=3, T=2)
+    second = fused_turn_lib.fused_turn(*args, A=3, T=2)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_bf16_actor_too_wide_raises(dev):
+    """No quiet float32: "auto" at a width the bf16 variant cannot hold
+    raises, where the float32 actor takes the generic turn."""
+    tree = _tree(dev, A=8, T=2)
+    packed = stepping.make_packed_tables(tree)
+    net = nets.MLP(8, 384, generator=torch.Generator().manual_seed(0)).to(dev)
+    assert not fused_turn_lib.fits(8, 768, torch.bfloat16)
+    assert not engine.uses_fused_turn(net, "auto")
+    init = torch.ones((64,), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="bfloat16-operand variant"):
+        engine.rollout_from(tree, packed, net, init,
+                            actor_dtype=torch.bfloat16)
+
+
+@pytest.mark.cuda
+def test_bf16_actor_train_step_card_vs_cpu(dev):
+    """One train step with ``rollout_actor_dtype="bfloat16"`` on the card
+    (the bf16 K1, one launch a turn) and on the CPU (its plain version)
+    from the same weights and noise, by chip_smoke.py's own check: at most
+    2 % of the episodes part (near-ties of the bf16 band), the others
+    equal; then one learner step on the card's trajectory on both: losses
+    within rtol 1e-5, weights within 1e-5."""
+    import chip_smoke
+
+    cfg = RNaDConfig(batch_size=512, eta=0.2, lr=1e-3, logit_clip=2.0,
+                     rollout_actor_dtype="bfloat16")
+    chip_smoke.check_bf16_step_against_cpu(
+        _tree("cpu", depth=4), cfg, NetConfig(max_actions=3, width=256),
+        B=512)
+
+
+@pytest.mark.cuda
+def test_associative_learner_step_on_the_card(dev):
+    """One learner step with ``vtrace_mode="associative"`` against the
+    scan on the same trajectory on the card, within rnad_tpu's tolerances
+    (tests/test_vtrace_assoc.py: losses rtol 2e-5, atol 2e-6; weights rtol
+    1e-4, atol 1e-6)."""
+    tree = _tree(dev, depth=4)
+    packed = stepping.make_packed_tables(tree)
+    net = nets.build_net(NetConfig(max_actions=3, width=64),
+                         torch.Generator().manual_seed(7)).to(dev)
+    cfg = RNaDConfig(batch_size=4096, eta=0.2, lr=1e-3, logit_clip=2.0)
+    state = rnad.init_train_state(copy.deepcopy(net),
+                                  torch.Generator(device=dev).manual_seed(1))
+    traj = rnad.rollout(state, tree, packed, cfg)
+    out = {}
+    for mode in ("scan", "associative"):
+        s = rnad.init_train_state(copy.deepcopy(net), torch.Generator(
+            device=dev))
+        m = rnad.learn_step(s, packed, traj, 0.5,
+                            dataclasses.replace(cfg, vtrace_mode=mode))
+        out[mode] = (m, [p.detach() for p in s.net.parameters()])
+    (ms, ps), (ma, pa) = out["scan"], out["associative"]
+    for k in ("loss", "loss_v", "loss_nerd"):
+        torch.testing.assert_close(ma[k], ms[k], rtol=2e-5, atol=2e-6)
+    for a, b in zip(pa, ps):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_distillation_steps_card_vs_cpu(dev):
+    """20 minibatched distillation steps of a depth-2 MLP on the card and
+    on the CPU from the same weights and rows: final loss within rtol 1e-5,
+    NashConv of the distilled nets within 1e-5, and no K3 launch."""
+    from rnad_tpu_torch.learn import supervised
+
+    tree = _tree("cpu", depth=4)
+    gen = torch.Generator().manual_seed(0)
+    idx = [torch.randint(0, 2 * tree.size, (256,), generator=gen)
+           for _ in range(20)]
+    net = nets.build_net(NetConfig(max_actions=3, width=64, depth=2),
+                         torch.Generator().manual_seed(4))
+    out = {}
+    for device in ("cpu", dev):
+        before = rmplus_lib.rmplus.launches
+        _, out[str(device)] = supervised.train_oracle_net(
+            tree.to(device), copy.deepcopy(net).to(device), steps=20,
+            lr=3e-3, node_batch=256, batch_indices=idx, eval_chunk_nodes=64)
+        assert rmplus_lib.rmplus.launches == before
+    mc, mg = out["cpu"], out[str(dev)]
+    assert abs(mg["final_loss"] - mc["final_loss"]) <= 1e-5 * abs(
+        mc["final_loss"])
+    assert abs(mg["nashconv"] - mc["nashconv"]) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_equinet_distillation_step_card_vs_cpu(dev):
+    """The primed solver EquiNet's distillation on the card (K3 in every
+    forward) against the CPU (its plain version): on one minibatch at the
+    same weights, the two devices' solves (x, y, v) of the rows' games
+    part on at most ``DIVERGED_SHARE`` of them (float32 RM+ summed in
+    another order), and each row's cross-entropy and squared value error
+    agree within rtol 1e-5, atol 1e-6 wherever the two devices' solver
+    features of the row's game agree within ``solver_device.ATOL`` (the
+    features' log x magnifies a small difference of a probability near 0,
+    and a primed net's logits are log x, so such a row's loss moves
+    freely), and those features part on at most
+    ``FEATURES_PARTED_SHARE`` of the rows.  Then one Adam step through
+    ``train_oracle_net`` launches K3 once for the step and once for each
+    eval chunk."""
+    from rnad_tpu_torch.learn import supervised
+    from rnad_tpu_torch.models import common
+
+    tree = _tree("cpu", A=5, depth=3)
+    net_cfg = NetConfig(type="EquiNet", max_actions=5, channels=8, depth=2,
+                        solver_iters=128, solver_prime=True)
+    net = nets.build_net(net_cfg, torch.Generator().manual_seed(4))
+    obs, pol, val, weight = supervised.dataset(tree)
+    rows = torch.randint(0, obs.shape[0], (4096,),
+                         generator=torch.Generator().manual_seed(1))
+    terms, solves = {}, {}
+    for device in ("cpu", dev):
+        o = obs[rows].reshape(-1, 2, 5, 5).to(device)
+        with torch.no_grad():
+            logits, value = copy.deepcopy(net).to(device)(o)
+        log_pi = common.masked_log_policy(logits, o[:, 1, :, 0])
+        ce = -(pol[rows].to(device) * log_pi).sum(-1)
+        mse = (value - val[rows].to(device)) ** 2
+        terms[str(device)] = torch.stack([ce, mse], -1).cpu()
+        legal = o[:, 1]
+        solves[str(device)] = [t.cpu() for t in (
+            *solver_device.solve_zero_sum_rmplus(
+                o[:, 0], legal.amax(2), legal.amax(1), iters=128),
+            *nets._solver_features(o.permute(0, 2, 3, 1), 128))]
+
+    def parted(pairs):
+        err = torch.zeros(len(rows))
+        for a, b in pairs:
+            err = torch.maximum(err, (a - b).abs().reshape(len(rows), -1)
+                                .amax(1))
+        return err > solver_device.ATOL
+
+    pairs = list(zip(solves["cpu"], solves[str(dev)]))
+    assert parted(pairs[:3]).float().mean() <= solver_device.DIVERGED_SHARE
+    agree = ~parted(pairs[3:])
+    assert (~agree).float().mean() <= FEATURES_PARTED_SHARE
+    torch.testing.assert_close(terms[str(dev)][agree], terms["cpu"][agree],
+                               rtol=1e-5, atol=1e-6)
+    before = rmplus_lib.rmplus.launches
+    _, m = supervised.train_oracle_net(tree.to(dev),
+                                       copy.deepcopy(net).to(dev), steps=1,
+                                       node_batch=256, eval_chunk_nodes=64)
+    assert rmplus_lib.rmplus.launches - before == 1 + -(-tree.size // 64)
+    assert m["nashconv"] >= 0.0
+
+
+@pytest.mark.cuda
+def test_rollout_tabular_on_the_card(dev):
+    """The oracle rollout of the stored solution on the card: the same
+    episodes as on the CPU under the same noise, and a mean return within
+    3 standard errors of the root value at 32768 lanes."""
+    tree = _tree("cpu", depth=4)
+    gen = torch.Generator().manual_seed(2)
+    B = 32768
+    noise = [engine.tabular_noise(B, 3, 2, gen, "cpu")
+             for _ in range(tree.max_depth)]
+    trajs = {str(d): engine.rollout_tabular(tree.to(d), tree.solution.to(d),
+                                            B, noise=noise)
+             for d in ("cpu", dev)}
+    tc, tg = trajs["cpu"], trajs[str(dev)]
+    for f in ("indices", "actions", "rewards", "values"):
+        assert torch.equal(getattr(tc, f), getattr(tg, f).cpu()), f
+    returns = engine.episode_returns(tg)
+    se = float(returns.std()) / B ** 0.5
+    assert abs(float(returns.mean()) - float(tree.root_value[1, 0])) < 3 * se

@@ -132,8 +132,6 @@ def test_rnad_loop_schedule_and_eval(small_tree, tmp_path):
 
 @pytest.mark.parametrize("field,value", [
     ("frozen_net_dtype", "float16"),
-    ("rollout_actor_dtype", "bfloat16"),
-    ("vtrace_mode", "associative"),
 ])
 def test_unported_fields_raise(small_tree, field, value):
     tree = torch_tree(small_tree)

@@ -86,7 +86,6 @@ def test_parser_has_every_option_of_examples_train():
     (["--coordinator", "localhost:1234"], "--coordinator"),
     (["--num-processes", "2"], "--num-processes"),
     (["--process-id", "0"], "--process-id"),
-    (["--vtrace-mode", "associative"], "--vtrace-mode"),
 ])
 def test_unported_options_raise(tmp_path, monkeypatch, argv, flag):
     monkeypatch.chdir(tmp_path)
@@ -99,10 +98,12 @@ def test_unported_options_raise(tmp_path, monkeypatch, argv, flag):
     ["--frozen-dtype", "bfloat16"],
     ["--net-depth", "3", "--width", "16"],
     ["--net", "ConvNet", "--channels", "4", "--compute-dtype", "bfloat16"],
+    ["--vtrace-mode", "associative"],
 ])
 def test_formerly_unported_options_run(tmp_path, monkeypatch, argv):
-    """The bfloat16 frozen passes, the deep MLP and the bfloat16 ConvNet run
-    one update on the CPU and reach the trainer's configs."""
+    """The bfloat16 frozen passes, the deep MLP, the bfloat16 ConvNet and
+    the associative v-trace run one update on the CPU and reach the
+    trainer's configs."""
     monkeypatch.chdir(tmp_path)
     run = train.main(["--cpu", "--tree-depth", "2", "--batch-size", "16",
                       "--bounds", "1", "--delta-m", "2", "--name", "x",
@@ -117,6 +118,8 @@ def test_formerly_unported_options_run(tmp_path, monkeypatch, argv):
     if "--compute-dtype" in argv:
         assert run.net_config.type == "ConvNet"
         assert str(run.state.net.dtype) == "torch.bfloat16"
+    if "--vtrace-mode" in argv:
+        assert run.cfg.vtrace_mode == "associative"
 
 
 def test_tpu_layout_options_change_nothing(tmp_path, monkeypatch):

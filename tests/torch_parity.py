@@ -143,3 +143,18 @@ def torch_trajectory(traj, keep_obs: bool = True):
         actions=t(traj.actions), rewards=t(traj.rewards),
         values=t(traj.values),
         obs=t(traj.obs) if keep_obs and traj.obs is not None else None)
+
+
+def jax_solve(payoffs, legal_rows, legal_cols, iters):
+    """rnad_tpu's ``solve_zero_sum_rmplus`` in the port's signature, for
+    monkeypatching ``solver_device.solve_zero_sum_rmplus`` where a test
+    holds the port against rnad_tpu past the EquiNet's solve: float32 RM+
+    runs summed in another order part ways on a few games
+    (``solver_device.agreement``), and the port's own solve is held by
+    tests/test_torch_rmplus.py and tests/test_torch_equinet.py."""
+    from rnad_tpu.env import solver_device as jax_sd
+
+    out = jax_sd.solve_zero_sum_rmplus(
+        *(jnp.asarray(t.numpy()) for t in (payoffs, legal_rows, legal_cols)),
+        iters=iters)
+    return tuple(torch.from_numpy(np.array(o)) for o in out)
