@@ -103,10 +103,14 @@ Nine phases, and any failure exits nonzero:
    flagship's, width 256) against its plain version by
    ``fused_turn.check_bf16`` (outputs within ``fused_turn.bf16_band``, and
    the plain version with the row or the hidden activation left unrounded
-   outside it) and timed against its bound at 989 TFLOP/s;
-   one step at 256 lanes on the card against the CPU; phase 3's config
-   with ``rollout_actor_dtype="bfloat16"`` for 30 steps (4 bf16 K1
-   launches a step, finite losses, mean |return| <= 1).  Then one learner
+   outside it) and timed against its bound at 989 TFLOP/s, beside the
+   float32 variant on the same inputs and cuBLAS's product of the gathered
+   bf16 rows by W0 alone (a yardstick for the first layer, not K1's
+   library call); one step at 256 lanes on the card against the CPU;
+   phase 3's config with ``rollout_actor_dtype="bfloat16"`` for 30 steps
+   (4 bf16 K1 launches a step, finite losses, mean |return| <= 1), then
+   the trained state's rollout with the bf16 and the float32 actor, device
+   time behind a sleep.  Then one learner
    step with ``vtrace_mode="associative"`` against the scan (losses rtol
    2e-5, atol 2e-6; weights rtol 1e-4, atol 1e-6) and the oracle rollout
    of the flagship tree's stored solution at 32768 lanes (mean return
@@ -1702,15 +1706,26 @@ def slice7_phase(card, gen, demo_tree, mlp_cfg, mlp_net_cfg):
                  "near_ties": res["near_ties"],
                  "controls_outside_band": res["controls"],
                  "lanes": B_MAIN, "width": 256, "A": A_}
-        f32_ms = device_ms(lambda: fused_turn_lib.fused_turn(
+        entry["f32_variant_ms"] = device_ms(lambda: fused_turn_lib.fused_turn(
             packed.rows, w0, b0, w1, b1, idx, g_act, g_ch, A=A_, T=T_))
+        # a yardstick for the product stage alone, not K1's library call:
+        # cuBLAS's product of the gathered rows (both seats, bf16) by W0
+        din = 2 * A_ * A_
+        rows = packed.rows[idx.long()]
+        x = torch.cat([rows[:, :din], rows[:, din:2 * din]]).bfloat16()
+        w0_bf16 = args[1]
+        entry["first_layer_matmul_ms"] = device_ms(lambda: torch.matmul(
+            x, w0_bf16))
         log(f"K1 {name}: kernel {entry['ms']:.4f} ms (the float32 variant "
-            f"{f32_ms:.4f} ms), plain {entry['plain_ms']:.4f} ms, bound "
-            f"{entry['bound_ms']:.6f} ms ({by}; {flops:.4g} FLOP at 989 "
-            f"TFLOP/s bf16, {nbytes:.4g} B), "
-            f"{100 * entry['bound_ms'] / entry['ms']:.2f} % of it | {card}")
+            f"{entry['f32_variant_ms']:.4f} ms), plain "
+            f"{entry['plain_ms']:.4f} ms, bound {entry['bound_ms']:.6f} ms "
+            f"({by}; {flops:.4g} FLOP at 989 TFLOP/s bf16, {nbytes:.4g} B), "
+            f"{100 * entry['bound_ms'] / entry['ms']:.2f} % of it; cuBLAS's "
+            f"first-layer product alone ({tuple(x.shape)} x "
+            f"{tuple(w0_bf16.shape)} bf16) {entry['first_layer_matmul_ms']:.4f}"
+            f" ms | {card}")
         bf16[name] = entry
-        del args, packed
+        del args, packed, rows, x
 
     bf16_cfg = dataclasses.replace(mlp_cfg, rollout_actor_dtype="bfloat16")
     check_bf16_step_against_cpu(demo_tree.to("cpu"), bf16_cfg, mlp_net_cfg)
@@ -1734,6 +1749,18 @@ def slice7_phase(card, gen, demo_tree, mlp_cfg, mlp_net_cfg):
                        for v in m.values())):
         raise AssertionError(f"bf16 actor run: {len(losses)} steps, "
                              f"launches {actor}, mean |return| {mean_abs}")
+    # the rollout phase, where the turn's variant shows: the trained
+    # state's rollout with each actor, device time behind a sleep
+    rollout_ms = {
+        dtype: device_ms(lambda: rnad.rollout(
+            run.state, run.tree, run.packed,
+            dataclasses.replace(mlp_cfg, rollout_actor_dtype=dtype)),
+            iters=10)
+        for dtype in ("bfloat16", "float32")}
+    log(f"bf16 actor: rollout at phase 3's config ({mlp_cfg.batch_size} "
+        f"lanes, {demo_tree.max_depth} turns), device busy "
+        f"{rollout_ms['bfloat16']:.4f} ms with the bf16 actor, "
+        f"{rollout_ms['float32']:.4f} ms with the float32 one | {card}")
 
     # -- the associative v-trace against the scan -------------------------
     state = run.state

@@ -5,12 +5,14 @@
 Builds ``csrc/fused_turn.cu`` and ``csrc/rmplus.cu`` (``ops/_build.py``),
 prints what ptxas reports for each kernel (registers, spills) and counts
 the SASS instructions of every loop of the kernels at the paths' sizes,
-``fused_turn_kernel<3>`` (its float32 and bf16 variants) and
-``rmplus_kernel<5>`` (``cuobjdump -sass``),
-with their FFMA counts.  K3 has two iteration loops, one for games whose
-masks hold only 0 and 1 and one for any other mask; K1's k loop is the one
-with the most FFMA.  Needs the CUDA toolkit; the kernels' times are
-``chip_smoke.py``'s.
+``fused_turn_kernel<3>`` (the float32 variant),
+``fused_turn_bf16_kernel<3>`` (the bf16-operand variant) and
+``rmplus_kernel<5>`` (``cuobjdump -sass``), with their FFMA and their
+tensor-core instructions (HMMA for ``mma.sync``, HGMMA for ``wgmma``).
+K3 has two iteration loops, one for games whose masks hold only 0 and 1
+and one for any other mask; the float32 K1's k loop is the one with the
+most FFMA, the bf16 K1's pass loop the one with the HMMA.  Needs the CUDA
+toolkit; the kernels' times are ``chip_smoke.py``'s.
 """
 
 from __future__ import annotations
@@ -22,10 +24,9 @@ from pathlib import Path
 
 from .ops import _build
 
-KERNELS = (("fused_turn", "fused_turn_kernelILi3EfE",
-            "fused_turn_kernel<3, float>"),
-           ("fused_turn", "fused_turn_kernelILi3E13__nv_bfloat16E",
-            "fused_turn_kernel<3, bf16>"),
+KERNELS = (("fused_turn", "fused_turn_kernelILi3EE", "fused_turn_kernel<3>"),
+           ("fused_turn", "fused_turn_bf16_kernelILi3EE",
+            "fused_turn_bf16_kernel<3>"),
            ("rmplus", "rmplus_kernelILi5E", "rmplus_kernel<5>"))
 
 
@@ -36,7 +37,8 @@ def _cuobjdump() -> str:
 
 def sass_loops(lib_path: Path, mangled_part: str):
     """Loops of the one function whose mangled name holds ``mangled_part``:
-    a sorted list of (instructions, FFMA), one per backward branch."""
+    a sorted list of (instructions, FFMA, HMMA + HGMMA), one per backward
+    branch."""
     text = subprocess.run([_cuobjdump(), "-sass", str(lib_path)],
                           capture_output=True, text=True, check=True).stdout
     body, inside = [], False
@@ -56,8 +58,9 @@ def sass_loops(lib_path: Path, mangled_part: str):
             start = int(m.group(1), 16)
             ops = [opcode(i) for a, i in body if start <= a <= addr]
             ops = [o for o in ops if o != "NOP"]
-            loops.append((len(ops), sum(o.split(".")[0] == "FFMA"
-                                        for o in ops)))
+            base = [o.split(".")[0] for o in ops]
+            loops.append((len(ops), base.count("FFMA"),
+                          base.count("HMMA") + base.count("HGMMA")))
     return sorted(set(loops))
 
 
@@ -67,8 +70,8 @@ def main() -> None:
         path = _build.library_path(name)
         regs = [r for k, r in _build.ptxas_lines(_build.build_log(name))
                 if k == kernel]
-        print(f"{kernel}: ptxas {regs}; SASS loops (instructions, FFMA) "
-              f"{sass_loops(path, part)}", flush=True)
+        print(f"{kernel}: ptxas {regs}; SASS loops (instructions, FFMA, "
+              f"HMMA + HGMMA) {sass_loops(path, part)}", flush=True)
 
 
 if __name__ == "__main__":

@@ -89,21 +89,29 @@ def build_log(name: str) -> str:
     return path.read_text() if path.exists() else ""
 
 
+def kernel_name(symbol: str) -> str:
+    """A mangled kernel's name and template argument, e.g.
+    "fused_turn_bf16_kernel<3>" from "_ZN<namespace>22fused_turn_bf16_
+    kernelILi3EEEv...": the last of its length-prefixed names."""
+    pos, name = len(re.match(r"_ZN?", symbol).group()), "?"
+    while pos < len(symbol) and symbol[pos].isdigit():
+        digits = re.match(r"\d+", symbol[pos:]).group()
+        pos += len(digits)
+        name = symbol[pos:pos + int(digits)]
+        pos += int(digits)
+    arg = re.match(r"ILi(\d+)E", symbol[pos:])
+    return f"{name}<{arg.group(1)}>" if arg else name
+
+
 def ptxas_lines(log: str):
     """(kernel, report) pairs of the registers and spills lines that
     ``ptxas -v`` wrote to a build log, e.g. ("rmplus_kernel<5>", "Used 84
-    registers, ...") or ("fused_turn_kernel<3, bf16>", ...)."""
-    types = {"f": "float", "13__nv_bfloat16": "bf16"}
+    registers, ...") or ("fused_turn_bf16_kernel<3>", ...)."""
     out, kernel = [], "?"
     for line in log.splitlines():
         if "Compiling entry function" in line:
-            found = re.search(r"\d+([A-Za-z_]+_kernel)"
-                              r"(?:ILi(\d+)E(f|13__nv_bfloat16)?E)?", line)
-            args = [found.group(2), types.get(found.group(3))] if found \
-                else []
-            args = [a for a in args if a]
-            kernel = (f"{found.group(1)}<{', '.join(args)}>" if args else
-                      found.group(1) if found else "?")
+            found = re.search(r"function '(_Z\w+)'", line)
+            kernel = kernel_name(found.group(1)) if found else "?"
         elif "registers" in line or "spill" in line:
             out.append((kernel, line.strip()))
     return out

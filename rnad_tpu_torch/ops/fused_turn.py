@@ -14,7 +14,9 @@ same noise, the turn is the same as ``rnad_tpu``'s gather-path turn
 The weights W0 and W1 come in float32 or, for the bf16-operand variant
 (``rnad_tpu``'s rows-actor with ``compute_dtype=bfloat16``), in bfloat16:
 the row and the hidden activation are then rounded to bfloat16 too, the
-products and sums stay float32, and so do the biases.
+products and sums stay float32, and so do the biases.  The float32
+variant runs on the CUDA cores; the bf16 variant's first layer runs on the
+tensor cores (``mma.sync`` m16n8k16), its second on the CUDA cores.
 
 ``fused_turn`` launches the kernel for CUDA tensors and runs
 ``fused_turn_plain`` only for CPU tensors.  ``fused_turn.launches`` counts
@@ -86,17 +88,36 @@ def bf16_band(table, w0, b0, w1, b1, indices, *, A: int) -> torch.Tensor:
     value) may lie from its plain version's on the same inputs.
 
     Both round the row to bfloat16 alike, and every product of two
-    bfloat16 values is exact in float32; they differ only in the order of
-    their float32 sums.  A first-layer sum of din products and the bias
-    lies within (din + 1) roundings of 2^-24 times the sum of its terms'
-    magnitudes of the exact value, so the two pre-activations lie within
-    twice that of each other.  Where that interval around the plain
-    version's pre-activation holds a bfloat16 rounding midpoint (or 0,
-    the ReLU's edge), the two may round the hidden unit to different
-    bfloat16 values: such a unit is allowed the gap between them, times
-    its second-layer weights.  Every output is also allowed 1e-5 for the
-    second layer's float32 sums in another order, as the float32 variant
-    is; no other unit gets an allowance."""
+    bfloat16 values is exact in float32; they differ only in how their
+    float32 sums round.  The plain version's first-layer sum of din
+    products and the bias lies within (din + 1) roundings to nearest of
+    2^-24 times the sum of its terms' magnitudes S of the exact value.
+    The kernel sums on the tensor cores, whose float32 accumulation NVIDIA
+    does not document.  The model taken is the one published measurements
+    of earlier generations report (Fasi, Higham, Mikaitis and Pranesh,
+    "Numerical behavior of NVIDIA tensor cores", PeerJ Computer Science 7,
+    e330, 2021): the products are exact; a step adds a group of them to
+    the float32 accumulator by aligning every addend to the largest one's
+    exponent, dropping (truncating) the bits below float32's 24, summing
+    exactly and truncating the normalized sum to float32; the bias is added
+    after, rounded to nearest.  A step's truncations each lose less than
+    2^-23 times its largest addend, so over din products in s = ceil(din /
+    n) groups of n the kernel's pre-activation lies within (2 din + 4 s +
+    1) 2^-24 S of the exact value, and within (3 din + 4 s + 2) 2^-24 S of
+    the plain version's: 64 at A = 3 and 168 at A = 5 for n = 16, the
+    instruction's depth, against the 38 and 102 of the slack below.  The
+    slack stays twice the round-to-nearest bound, as for the CUDA-core
+    order: truncations of addends of mixed signs partly cancel, a typical
+    sum lies far inside it (tests/test_torch_rollout_actor_bf16.py holds
+    this model's order, in groups of 4, 8 and 16, inside the band on the
+    CPU), and ``check_bf16`` on the card is the arbiter.  Where that interval
+    around the plain version's pre-activation holds a bfloat16 rounding
+    midpoint (or 0, the ReLU's edge), the two may round the hidden unit
+    to different bfloat16 values: such a unit is allowed the gap between
+    them, times its second-layer weights.  Every output is also allowed
+    1e-5 for the second layer's float32 sums in another order (the kernel
+    sums them on the CUDA cores), as the float32 variant is; no other unit
+    gets an allowance."""
     _, _, x, pre, _ = _seats_plain(table, w0, b0, indices, A)
     din = 2 * A * A
     slack = 2 * (din + 1) * 2.0 ** -24 * (x.abs() @ w0.float().abs()
@@ -213,8 +234,9 @@ def smem_bytes(A: int, H: int, dtype: torch.dtype = torch.float32) -> int:
 
 def fits(A: int, H: int, dtype: torch.dtype = torch.float32) -> bool:
     """Whether the kernel takes hidden width H (2W) at A actions with
-    weights of ``dtype``: its weights, zero-padded to 64 units, and a
-    tile's staged inputs fit in one block's shared memory."""
+    weights of ``dtype``: its weights (float32 zero-padded to 64 units;
+    bf16 to 32 units and W0's depth to a multiple of 16) and a tile's
+    staged inputs fit in one block's shared memory."""
     return smem_bytes(A, H, dtype) <= SMEM_LIMIT_BYTES
 
 
@@ -276,6 +298,10 @@ def fused_turn(table: torch.Tensor, w0: torch.Tensor, b0: torch.Tensor,
                          f"{smem_bytes(A, H, w0.dtype)} bytes at A={A}, "
                          f"2W={H} with {w0.dtype} weights exceed "
                          f"{SMEM_LIMIT_BYTES}")
+    if bf16 and (H % 2 or w0.data_ptr() % 4 or w1.data_ptr() % 4):
+        raise ValueError("fused_turn's bfloat16 variant copies W0's rows "
+                         "and W1 in 4-byte words: 2W must be even and the "
+                         "weights 4-byte aligned")
     fn = _build.entry("fused_turn", "rnad_fused_turn", ARGTYPES)
     S, D = table.shape
     B = indices.shape[0]

@@ -195,6 +195,18 @@ def test_fused_turn_kernel_rejects(dev):
     big = [w.detach().contiguous() for w in nets.mlp_fused_weights(wide)]
     with pytest.raises(ValueError, match="shared memory"):
         fused_turn_lib.fused_turn(args[0], *big, *args[5:], A=3, T=2)
+    # the bf16 variant copies W0's rows and W1 in 4-byte words: an odd 2W
+    # or a weight at an odd bf16 offset is refused
+    w0, b0, w1, b1 = args[1:5]
+    odd = [w0[:, :63].bfloat16().contiguous(), b0[:63].contiguous(),
+           w1[:63].bfloat16().contiguous(), b1]
+    with pytest.raises(ValueError, match="4-byte words"):
+        fused_turn_lib.fused_turn(args[0], *odd, *args[5:], A=3, T=2)
+    shifted = torch.zeros(w0.numel() + 1, dtype=torch.bfloat16, device=dev)
+    shifted[1:] = w0.reshape(-1).bfloat16()
+    with pytest.raises(ValueError, match="4-byte words"):
+        fused_turn_lib.fused_turn(args[0], shifted[1:].view(w0.shape), b0,
+                                  w1.bfloat16(), b1, *args[5:], A=3, T=2)
 
 
 def _random_games(dev, B, R, C, seed):

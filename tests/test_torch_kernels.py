@@ -18,6 +18,7 @@ from rnad_tpu.models import nets as jax_nets
 from rnad_tpu.ops import pallas_lookup, pallas_turn
 from rnad_tpu.ops import stepping as jax_stepping
 from rnad_tpu_torch.models import nets as torch_nets
+from rnad_tpu_torch.ops import _build
 from rnad_tpu_torch.ops import fused_turn as fused_turn_lib
 from rnad_tpu_torch.ops import lookup as lookup_lib
 from tests.torch_parity import torch_mlp
@@ -136,3 +137,23 @@ def test_fused_turn_operation_count(A, W):
     assert fused_turn_lib.operations(A, 2 * W) == 2 * (
         w0.numel() + int((w1 != 0).sum()))
     assert fused_turn_lib.operations(3, 512) == 2 * 10240
+
+
+@pytest.mark.parametrize("symbol,name", [
+    # the fused turn's kernels sit in an anonymous namespace, whose name
+    # ends in digits that run into the kernel name's length
+    ("_ZN46_GLOBAL__N__678c4e65_13_fused_turn_cu_43c6a85617fused_turn_"
+     "kernelILi3EEEvPKfiiPKiS2_S2_S2_S2_S2_S2_PiPfS5_S6_S6_iii",
+     "fused_turn_kernel<3>"),
+    ("_ZN46_GLOBAL__N__678c4e65_13_fused_turn_cu_43c6a85622fused_turn_"
+     "bf16_kernelILi5EEEvPKfiiPKiPK13__nv_bfloat16S2_S7_S2_S2_S2_PiPfS8_"
+     "S9_S9_iii", "fused_turn_bf16_kernel<5>"),
+    ("_Z13rmplus_kernelILi5EEvPKfS1_Pfiiii", "rmplus_kernel<5>"),
+    ("_Z13lookup_kernelPKfPKiPfiii", "lookup_kernel")])
+def test_ptxas_lines_name_the_kernels(symbol, name):
+    """``kernel_bench.py`` and ``chip_smoke.py`` read each kernel's
+    registers and spills from nvcc's log by these names."""
+    log = (f"ptxas info    : Compiling entry function '{symbol}' for "
+           f"'sm_90a'\nptxas info    : Used 122 registers, used 1 barriers\n")
+    assert _build.ptxas_lines(log) == [
+        (name, "ptxas info    : Used 122 registers, used 1 barriers")]

@@ -18,8 +18,12 @@ products and sums in float32, the biases in float32.
   other net rolls out as before), and "on" raises rnad_tpu's errors.
 - ``RNaD`` with the bf16 actor constructs and trains on the CPU.
 - ``fused_turn.check_bf16``, which holds the bf16 K1 on the card, takes a
-  turn whose sums run in the kernel's order (csrc/fused_turn.cu), and
-  rejects one that leaves the row or the hidden activation unrounded.
+  turn whose sums run in the CUDA-core order (the f32 variant's), and one
+  whose first layer sums in the tensor cores' order under the model that
+  ``fused_turn.bf16_band`` states (groups of 4, 8 or 16 exact products
+  added to the accumulator, aligned to the largest and truncated, the sum
+  truncated), and rejects either when it leaves the row or the hidden
+  activation unrounded.
 """
 
 import jax
@@ -184,12 +188,55 @@ def test_rnad_trains_with_the_bf16_actor(small_tree, tmp_path):
     assert np.isfinite(run.final_eval())
 
 
-def _kernel_order_turn(args, A, T, rounded=fused_turn_lib.ROUNDED):
-    """The bf16 variant's turn with its float32 sums in the kernel's order:
-    each hidden unit's products added in index order from 0 (a product of
-    two bfloat16 values is exact, so each add rounds as the kernel's fmaf
-    does), then the bias; the second layer unit by unit.  ``rounded``
-    leaves an operand unrounded, as a faulty kernel would."""
+def _in_index_order(x, w0f):
+    """The first layer's sums as the CUDA cores run them: each hidden
+    unit's products added in index order from 0 (a product of two bfloat16
+    values is exact, so each add rounds as an fmaf does)."""
+    acc = torch.zeros((x.shape[0], w0f.shape[1]))
+    for k in range(x.shape[1]):
+        acc = acc + x[:, k:k + 1] * w0f[k]
+    return acc
+
+
+def _truncated(v, exponent):
+    """``v`` (float64) with the bits below 2^(exponent - 24) dropped,
+    toward zero: a float32 significand aligned to a number whose
+    ``frexp`` exponent is ``exponent``."""
+    quantum = torch.ldexp(torch.ones_like(v), exponent - 24)
+    return torch.trunc(v / quantum) * quantum
+
+
+def _in_tensor_core_order(group):
+    """The first layer's sums under ``fused_turn.bf16_band``'s model of
+    the tensor cores: per step, ``group`` exact products (float64 holds
+    them) and the float32 accumulator are aligned to the largest one's
+    exponent and truncated to float32's 24 bits, summed exactly, and the
+    sum is truncated to float32."""
+    def first_layer(x, w0f):
+        x, w0f = x.double(), w0f.double()
+        acc = torch.zeros((x.shape[0], w0f.shape[1]), dtype=torch.float64)
+        for k0 in range(0, x.shape[1], group):
+            products = [x[:, k:k + 1] * w0f[k]
+                        for k in range(k0, min(k0 + group, x.shape[1]))]
+            top = acc.abs()
+            for p in products:
+                top = torch.maximum(top, p.abs())
+            exponent = torch.frexp(top).exponent
+            total = _truncated(acc, exponent)
+            for p in products:
+                total = total + _truncated(p, exponent)
+            acc = _truncated(total, torch.frexp(total).exponent)
+        assert torch.equal(acc, acc.float().double())
+        return acc.float()
+    return first_layer
+
+
+def _kernel_order_turn(args, A, T, rounded=fused_turn_lib.ROUNDED,
+                       first_layer=_in_index_order):
+    """The bf16 variant's turn with its float32 sums in a kernel's order:
+    the first layer's sums by ``first_layer`` from 0, then the bias; the
+    second layer unit by unit.  ``rounded`` leaves an operand unrounded,
+    as a faulty kernel would."""
     table, w0, b0, w1, b1, idx, g_act, g_ch = args
     din = 2 * A * A
     rows = table[idx.long()]
@@ -198,10 +245,7 @@ def _kernel_order_turn(args, A, T, rounded=fused_turn_lib.ROUNDED):
                       rows[:, 2 * din + A:2 * din + 2 * A]], 0)
     rnd = lambda v, name: v.bfloat16().float() if name in rounded else v
     x, w0f, w1f = rnd(obs, "row"), w0.float(), w1.float()
-    acc = torch.zeros((x.shape[0], w0.shape[1]))
-    for k in range(din):
-        acc = acc + x[:, k:k + 1] * w0f[k]
-    h = rnd(torch.relu(acc + b0), "hidden")
+    h = rnd(torch.relu(first_layer(x, w0f) + b0), "hidden")
     out = torch.zeros((x.shape[0], A + 1))
     for u in range(h.shape[1]):
         out = out + h[:, u:u + 1] * w1f[u]
@@ -243,3 +287,42 @@ def test_bf16_check_rejects_an_unrounded_operand(band_args, skipped):
     with pytest.raises(AssertionError, match="parts from its plain"):
         fused_turn_lib.check_bf16(_kernel_order_turn(args, A, 2, kept), args,
                                   A=A, T=2)
+
+
+@pytest.mark.parametrize("products,model,nearest", [
+    # aligned to 1, the 1.5 ulps of the second product lose their half
+    ((1.0, 1.5 * 2.0 ** -23), 1 + 2.0 ** -23, 1 + 2.0 ** -22),
+    # exact when aligned; the sum 2 + 1.5 ulps(2) is truncated
+    ((1.75, 0.25 + 3 * 2.0 ** -23), 2 + 2.0 ** -22, 2 + 2.0 ** -21)])
+def test_tensor_core_model_truncates(products, model, nearest):
+    """The model's step on two products whose float32 sum must drop bits:
+    it truncates where round to nearest (the index order's adds) rounds
+    up."""
+    x = torch.tensor([[1.0, 1.0]])
+    w0 = torch.tensor([[products[0]], [products[1]]])
+    for group in (1, 16):
+        assert float(_in_tensor_core_order(group)(x, w0)) == model
+    assert float(_in_index_order(x, w0)) == nearest
+
+
+@pytest.mark.parametrize("group", [4, 8, 16])
+def test_bf16_check_takes_the_tensor_core_order(band_args, group):
+    A, args = band_args
+    res = fused_turn_lib.check_bf16(
+        _kernel_order_turn(args, A, 2,
+                           first_layer=_in_tensor_core_order(group)),
+        args, A=A, T=2)
+    assert all(share > 0 for share in res["controls"].values())
+
+
+@pytest.mark.parametrize("group", [4, 8, 16])
+@pytest.mark.parametrize("skipped", fused_turn_lib.ROUNDED)
+def test_bf16_check_rejects_an_unrounded_operand_in_the_tensor_core_order(
+        band_args, skipped, group):
+    A, args = band_args
+    kept = tuple(r for r in fused_turn_lib.ROUNDED if r != skipped)
+    with pytest.raises(AssertionError, match="parts from its plain"):
+        fused_turn_lib.check_bf16(
+            _kernel_order_turn(args, A, 2, kept,
+                               first_layer=_in_tensor_core_order(group)),
+            args, A=A, T=2)
