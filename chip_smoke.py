@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Nine phases, and any failure exits nonzero:
+Ten phases, and any failure exits nonzero:
 
 1. Build the three CUDA kernels from ``rnad_tpu_torch/csrc`` (one nvcc
    each, started together) and print the build time and ptxas's registers
@@ -115,6 +115,22 @@ Nine phases, and any failure exits nonzero:
    2e-5, atol 2e-6; weights rtol 1e-4, atol 1e-6) and the oracle rollout
    of the flagship tree's stored solution at 32768 lanes (mean return
    within 3 standard errors of the root value).
+10. Drive data parallelism (``rnad_tpu_torch/parallel/``): (a) phase 3's
+   config through the train CLI with ``--data-parallel`` (one rank over
+   NCCL), cut to 10 steps and the final eval, with K1 and K2's counters
+   set to 0 just before and read just after (4 K1 and 1 K2 launch a
+   step), then the same 10 steps without the flag: the weights must be
+   bitwise equal (a SUM over one rank changes nothing), and the two steps'
+   back-to-back times are printed; (b) two ranks sharing the card over
+   gloo through ``multiprocess_check.run_cluster`` (16384 lanes each, 3
+   steps) against one rank: the step-0 lanes equal (indices, actions and
+   rewards bitwise, the stored policy within 1e-6), losses and the weights'
+   checksum within rtol 1e-4 / atol 1e-6, the weights bitwise equal on both
+   ranks, the per-step times printed; (c) the node-sharded NashConv of
+   phase 5's stored flagship tree over those two ranks: an untrained
+   width-256 MLP's per-node values within rtol / atol 1e-6 of
+   ``nashconv_root`` on the card, the stored solution's NashConv below
+   1e-4, both wall times printed.
 
 It runs in a temporary working directory (the CLI writes ``saved_trees/``
 and ``saved_runs/`` under it).  It prints a ``{"kernels": [...]}`` line,
@@ -516,13 +532,16 @@ def main() -> int:
 
     # -- phase 9: distillation, the bf16 actor, associative v-trace ------
     s7 = slice7_phase(card, gen, tree, cfg, net_cfg)
+
+    # -- phase 10: data parallelism and node-sharded NashConv -------------
+    dp = dp_phase(card, tree)
     k1_by_path = {"mlp": k1_launches, "equinet": equi["k1"], "flagship": 0,
                   "offpol": offpol["k1"], "noisy": 0, "sweep": sweep["k1"],
-                  "slice7": s7["k1"]}
+                  "slice7": s7["k1"], "dp": dp["k1"]}
     k2_by_path = {"mlp": k2_launches, "equinet": equi["k2"],
                   "flagship": flag["k2"], "offpol": offpol["k2"],
                   "noisy": noisy["k2"], "sweep": sweep["k2"],
-                  "slice7": s7["k2"]}
+                  "slice7": s7["k2"], "dp": dp["k2"]}
     k3_by_path = {"mlp": 0, "equinet": equi["k3"], "flagship": flag["k3"],
                   "offpol": 0, "noisy": 0, "sweep": sweep["k3"],
                   "distill": s7["k3"]}
@@ -1801,6 +1820,196 @@ def slice7_phase(card, gen, demo_tree, mlp_cfg, mlp_net_cfg):
     return {"k1": actor["k1"], "k1_bf16": actor["k1_bf16"],
             "k2": actor["k2"], "k3": counts["k3"], "bf16": bf16,
             "rmplus": rm_entries}
+
+
+# phase 10: phase 3's config through the train CLI as one data-parallel
+# rank (NCCL) and as the plain run, cut to one update period of 10 steps
+DP_ARGV = ["--max-actions", "3", "--max-transitions", "2", "--tree-depth",
+           "4", "--transition-threshold", "0.3", "--stochastic-depth",
+           "--stochastic-prob", "0.5", "--seed", "0", "--width", "256",
+           "--batch-size", str(B_MAIN), "--eta", "0.2", "--lr", "1e-3",
+           "--gamma-avg", "0.01", "--bounds", "1", "--delta-m", "10",
+           "--log-mod", "1"]
+DP_STEPS, DP_GLOO_STEPS = 10, 3
+
+
+def dp_phase(card, demo_tree):
+    """Phase 10: data parallelism.  (a) The train CLI with
+    ``--data-parallel`` (one rank over NCCL) against the plain run, bitwise,
+    and their back-to-back step times; (b) two ranks sharing the card over
+    gloo (``multiprocess_check.run_cluster``) against one rank; (c) the
+    node-sharded NashConv of phase 5's stored flagship tree over those two
+    ranks against ``nashconv_root`` on the card.  Returns the data-parallel
+    run's launch counts."""
+    from rnad_tpu_torch import multiprocess_check as mpc
+    from rnad_tpu_torch import train
+    from rnad_tpu_torch.config import NetConfig, RNaDConfig
+    from rnad_tpu_torch.learn import rnad
+    from rnad_tpu_torch.metrics import nashconv
+    from rnad_tpu_torch.models import nets
+    from rnad_tpu_torch.ops import fused_turn as fused_turn_lib
+    from rnad_tpu_torch.ops import lookup as lookup_lib
+    from rnad_tpu_torch.parallel import runtime
+    from rnad_tpu_torch.utils import checkpoint
+
+    import numpy as np
+
+    t_phase = time.perf_counter()
+    # -- (a) one rank over NCCL through the CLI, and the plain run --------
+    log("data-parallel path: python -m rnad_tpu_torch.train --data-parallel "
+        + " ".join(DP_ARGV) + " (phase 3's config, one update period of "
+        f"{DP_STEPS} steps and the final eval)")
+    fused_turn_lib.fused_turn.launches = 0
+    lookup_lib.lookup.launches = 0
+    dp_run = train.main(DP_ARGV + ["--data-parallel", "--name", "dp10"])
+    torch.cuda.synchronize()
+    counts = {"k1": fused_turn_lib.fused_turn.launches,
+              "k2": lookup_lib.lookup.launches}
+    plain_run = train.main(DP_ARGV + ["--name", "plain10"])
+    steps = dp_run.state.total_steps
+    if (steps != DP_STEPS or plain_run.state.total_steps != DP_STEPS
+            or dp_run.group.world != 1):
+        raise AssertionError(f"data-parallel CLI: {steps} steps on "
+                             f"{dp_run.group.world} ranks")
+    want = {"k1": demo_tree.max_depth * DP_STEPS, "k2": DP_STEPS}
+    if counts != want:
+        raise AssertionError(f"data-parallel launches {counts}, want {want}")
+    for (name, a), b in zip(dp_run.state.net.state_dict().items(),
+                            plain_run.state.net.state_dict().values()):
+        if not torch.equal(a, b):
+            raise AssertionError(f"data-parallel run parts from the plain "
+                                 f"run at {name}")
+    evals = [m["nashconv"] for r in (dp_run, plain_run)
+             for _, m in r.history if "nashconv" in m]
+    if len(evals) != 2 or evals[0] != evals[1] or not math.isfinite(
+            evals[0]):
+        raise AssertionError(f"data-parallel evals {evals}")
+    log(f"data-parallel CLI (one rank, NCCL): {steps} steps, launches "
+        f"{counts}; weights bitwise equal to the plain run; final NashConv "
+        f"{evals[0]:.6f} in both")
+    group = runtime.data_group("cuda")
+    try:
+        cfg = RNaDConfig(batch_size=B_MAIN, eta=0.2, bounds=(3,),
+                         delta_m=(10,), lr=1e-3, gamma_averaging=0.01,
+                         logit_clip=2.0)
+        net_cfg = NetConfig(type="MLP", max_actions=3, width=256)
+        runs = {name: rnad.RNaD(demo_tree, cfg, net_cfg, directory_name=name,
+                                seed=0, device="cuda", group=g)
+                for name, g in (("dp_time", group), ("plain_time", None))}
+        times = {name: [] for name in runs}
+        for name in ("dp_time", "plain_time", "plain_time", "dp_time"):
+            run = runs[name]
+            run.initialize()
+            times[name].append(wall_ms(lambda: run.train_step(run.state,
+                                                              1.0)))
+        one = torch.ones((), device="cuda")
+        scalar_ms = wall_ms(lambda: group.global_sum(one), iters=100)
+        grads = [p.detach().clone() for p in
+                 runs["dp_time"].state.net.parameters()]
+        grads_ms = wall_ms(lambda: group.sum_tensors(grads), iters=100)
+    finally:
+        runtime.shutdown()
+    dp_ms, plain_ms = (min(times["dp_time"]), min(times["plain_time"]))
+    log(f"data-parallel step, back to back at {B_MAIN} lanes (best of 2 "
+        f"runs of 10, in turns): one NCCL rank {dp_ms:.4f} ms (runs "
+        f"{times['dp_time']}), plain {plain_ms:.4f} ms (runs "
+        f"{times['plain_time']}); the step's 7 all-reduces add "
+        f"{dp_ms - plain_ms:.4f} ms; back to back, one all-reduce of a "
+        f"scalar takes {scalar_ms:.4f} ms and the gradients' "
+        f"({sum(g.numel() for g in grads)} floats) {grads_ms:.4f} ms | "
+        f"{card}")
+
+    # -- (b) two ranks sharing the card over gloo --------------------------
+    tree_dir = checkpoint.save_tree(demo_tree, "dp_demo")
+    traj_dirs = {n: os.path.abspath(f"dp_traj_{n}") for n in (1, 2)}
+    kw = dict(steps=DP_GLOO_STEPS, batch_size=B_MAIN, seed=0,
+              backend="gloo", device="cuda", width=256, tree_dir=tree_dir,
+              timeout=600)
+    t0 = time.perf_counter()
+    single = mpc.run_single(traj_out=traj_dirs[1], **kw)
+    t1 = time.perf_counter()
+    multi = mpc.run_cluster(2, traj_out=traj_dirs[2], **kw)
+    t2 = time.perf_counter()
+    whole = np.load(os.path.join(traj_dirs[1], "rank0.npz"))
+    lanes = B_MAIN // 2
+    policy_err = 0.0
+    for r in range(2):
+        part = np.load(os.path.join(traj_dirs[2], f"rank{r}.npz"))
+        cut = slice(r * lanes, (r + 1) * lanes)
+        for field in ("indices", "actions", "rewards"):
+            if not np.array_equal(part[field], whole[field][:, cut]):
+                raise AssertionError(f"gloo rank {r}: {field} differ from "
+                                     "the one-rank run's lanes")
+        policy_err = max(policy_err, float(np.abs(
+            part["policy"] - whole["policy"][:, cut]).max()))
+    if not policy_err <= 1e-6:
+        raise AssertionError(f"gloo ranks: stored policy off by {policy_err}")
+    for a, b in zip(multi["losses"], single["losses"]):
+        if not abs(a - b) <= 1e-6 + 1e-4 * abs(b):
+            raise AssertionError(f"gloo losses {multi['losses']} vs one "
+                                 f"rank {single['losses']}")
+    if not (abs(multi["param_checksum"] - single["param_checksum"])
+            <= 1e-6 + 1e-4 * abs(single["param_checksum"])):
+        raise AssertionError(f"gloo checksum {multi['param_checksum']} vs "
+                             f"{single['param_checksum']}")
+    if len({r["param_digest"] for r in multi["ranks"]}) != 1:
+        raise AssertionError("gloo ranks hold different weights")
+    step_ms = lambda res: "/".join(f"{1e3 * s:.2f}" for s in res["step_s"])
+    log(f"two gloo ranks on one card ({lanes} lanes each, "
+        f"{DP_GLOO_STEPS} steps): step-0 lanes equal to one rank's "
+        f"(indices, actions, rewards bitwise; policy max_abs_err "
+        f"{policy_err:.3g}); losses {multi['losses']} vs {single['losses']}"
+        f"; checksum {multi['param_checksum']:.6f} vs "
+        f"{single['param_checksum']:.6f}; weights equal on both ranks")
+    log(f"  per-step wall ms (host clock, synchronized; the ranks share the"
+        f" card's SMs): rank 0 {step_ms(multi)}, rank 1 "
+        f"{step_ms(multi['ranks'][1])}; one rank {step_ms(single)}; "
+        f"cluster wall {t2 - t1:.1f} s, one rank {t1 - t0:.1f} s | {card}")
+
+    # -- (c) node-sharded NashConv of the flagship tree --------------------
+    flag_dir = os.path.abspath(os.path.join("saved_trees", "flagship3"))
+    tree = checkpoint.load_tree("flagship3", device="cuda")
+    if tree.size != FLAGSHIP_NODES:
+        raise AssertionError(f"flagship tree has {tree.size} nodes")
+    net = nets.MLP(tree.max_actions, 256,
+                   generator=torch.Generator().manual_seed(3)).cuda()
+    joint = nashconv.joint_policy_from_net(tree, net, 200_000)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = nashconv.nashconv_root(tree, joint)
+    torch.cuda.synchronize()
+    one_s = time.perf_counter() - t0
+    paths = {}
+    for name, policy in (("net", joint), ("solution", tree.solution)):
+        paths[name] = os.path.abspath(f"dp_{name}.npy")
+        np.save(paths[name], policy.cpu().numpy())
+    t0 = time.perf_counter()
+    got = mpc.run_nashconv(2, flag_dir, paths["net"],
+                           os.path.abspath("dp_values.npz"), "gloo", "cuda")
+    cluster_s = time.perf_counter() - t0
+    values = np.load("dp_values.npz")
+    err = 0.0
+    for field in ("row_best", "col_best"):
+        want = getattr(ref, field).cpu().numpy()
+        off = np.abs(values[field] - want) - 1e-6 * np.abs(want)
+        if not (off <= 1e-6).all():
+            raise AssertionError(f"sharded NashConv: {field} off by "
+                                 f"{float(off.max()) + 1e-6}")
+        err = max(err, float(np.abs(values[field] - want).max()))
+    sol = mpc.run_nashconv(2, flag_dir, paths["solution"],
+                           os.path.abspath("dp_sol.npz"), "gloo", "cuda")
+    if not abs(sol["nashconv"]) < 1e-4:
+        raise AssertionError(f"sharded NashConv of the solution "
+                             f"{sol['nashconv']}")
+    log(f"sharded NashConv, flagship tree ({tree.size} nodes) over two gloo "
+        f"ranks on the card: untrained width-256 MLP {got['nashconv']:.6f} "
+        f"(nashconv_root {float(ref.nashconv()):.6f}; per node max_abs_err "
+        f"{err:.3g}, rtol/atol 1e-6), solution {sol['nashconv']:.3g}")
+    log(f"  wall: induction {got['seconds']:.3f} s on rank 0 (host "
+        f"preparation included), {cluster_s:.1f} s with the processes' "
+        f"start; nashconv_root on the card {one_s:.4f} s | {card}")
+    log(f"phase 10: {time.perf_counter() - t_phase:.1f} s")
+    return counts
 
 
 def check_bf16_step_against_cpu(tree, cfg, net_cfg, B=256) -> None:

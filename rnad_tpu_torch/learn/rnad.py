@@ -55,9 +55,11 @@ from ..config import NetConfig, RNaDConfig
 from ..env import engine
 from ..env.tree import GameTree
 from ..metrics import nashconv as nashconv_lib
+from ..metrics import nashconv_shard
 from ..models import common, nets
 from ..ops import obs_transform as obs_transform_lib
 from ..ops import stepping
+from ..parallel.mesh import DataGroup
 from ..utils.checkpoint import RunStore
 from ..utils.logging import MetricLogger
 from . import buffer as buffer_lib
@@ -250,10 +252,20 @@ def learner_inputs(state: TrainState, packed: stepping.PackedTables,
 def learn_loss(state: TrainState, packed: stepping.PackedTables,
                traj: engine.Trajectory, alpha: float, cfg: RNaDConfig,
                neurd_scale: float = 1.0,
-               inputs: Optional[LearnerInputs] = None
+               inputs: Optional[LearnerInputs] = None,
+               group: Optional[DataGroup] = None
                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Loss of one learner update; differentiable w.r.t. ``state.net``.
-    ``inputs`` defaults to ``learner_inputs(state, packed, traj)``."""
+    ``inputs`` defaults to ``learner_inputs(state, packed, traj)``.
+
+    Under ``group`` (``rnad_tpu``'s ``axis_name``) ``traj`` is this rank's
+    slice of the lanes: every masked mean is this rank's numerator over the
+    global valid count (``vtrace.renormalize``), so the loss returned is
+    this rank's share of the global loss and the ranks' gradients add up to
+    its gradient.  The metrics are global: the losses are summed over the
+    ranks, and the diagnostics' counts and extrema reduce over them, so
+    every metric equals its unsharded value up to summation order."""
+    gsum = group.global_sum if group is not None else None
     fuse = resolve_fuse_mode(state.net, cfg)
     if inputs is None:
         inputs = learner_inputs(state, packed, traj)
@@ -313,33 +325,54 @@ def learn_loss(state: TrainState, packed: stepping.PackedTables,
             gamma=cfg.vtrace_gamma)
 
     loss_v = vtrace.get_loss_v([v, v], [v_t2[0], v_t2[1]],
-                               [played2[0], played2[1]])
+                               [played2[0], played2[1]], gsum)
     is_vector = torch.ones_like(valid)[..., None]
     loss_nerd = vtrace.get_loss_nerd(
         [logits, logits], [pi_processed, pi_processed], [pol_t2[0], pol_t2[1]],
         valid, player_id, masks, [is_vector, is_vector],
-        clip=cfg.neurd_clip, threshold=cfg.logit_clip)
+        clip=cfg.neurd_clip, threshold=cfg.logit_clip, global_sum=gsum)
     loss = (cfg.value_loss_weight * loss_v
             + neurd_scale * cfg.neurd_loss_weight * loss_nerd)
 
     metrics = {"loss": loss.detach(), "loss_v": loss_v.detach(),
                "loss_nerd": loss_nerd.detach()}
     if not cfg.detailed_metrics:
+        if gsum is not None:  # the ranks' shares add up to the global losses
+            metrics = dict(zip(metrics, gsum(torch.stack(list(
+                metrics.values())))))
         return loss, metrics
     with torch.no_grad():
         uniform_policy = masks / torch.clamp(masks.sum(-1, keepdim=True),
                                              min=1e-30)
-        logit_mean = logits.mean()
+        klds = {"entropy": (pi, uniform_policy),
+                "entropy_target": (pi_target, uniform_policy),
+                "actor_learner_kld": (pi, traj.policy)}
+        if gsum is None:
+            logit_mean = logits.mean()
+            metrics.update({
+                "traj_len": valid.sum(0).mean(),
+                "logit_mean": logit_mean,
+                "logit_max": (logits - logit_mean).abs().max()})
+            metrics.update({k: nashconv_lib.kld(p, q, valid, masks)
+                            for k, (p, q) in klds.items()})
+            return loss, metrics
+        # one all-reduce of the losses' shares and every diagnostic's
+        # numerator and count, then one of the extremum
+        parts = [*metrics.values(), logits.sum(),
+                 logits.new_tensor(float(logits.numel())), valid.sum(),
+                 valid.new_tensor(float(B))]
+        for p, q in klds.values():
+            parts.extend(nashconv_lib.kld_sums(p, q, valid, masks))
+        sums = gsum(torch.stack(parts))
+        metrics = dict(zip(metrics, sums[:3]))
+        logit_mean = sums[3] / sums[4]
         metrics.update({
-            "traj_len": valid.sum(0).mean(),
+            "traj_len": sums[5] / sums[6],
             "logit_mean": logit_mean,
-            "logit_max": (logits - logit_mean).abs().max(),
-            "entropy": nashconv_lib.kld(pi, uniform_policy, valid, masks),
-            "entropy_target": nashconv_lib.kld(pi_target, uniform_policy,
-                                               valid, masks),
-            "actor_learner_kld": nashconv_lib.kld(pi, traj.policy, valid,
-                                                  masks),
-        })
+            "logit_max": group.global_max((logits - logit_mean).abs().max())})
+        for i, k in enumerate(klds):
+            total, count = sums[7 + 2 * i], sums[8 + 2 * i]
+            metrics[k] = total / torch.clamp(count, min=1.0)
     return loss, metrics
 
 
@@ -393,13 +426,31 @@ def rollout(state: TrainState, tree: GameTree, packed: stepping.PackedTables,
 
 
 def learn_step(state: TrainState, packed: stepping.PackedTables,
-               traj: engine.Trajectory, alpha: float, cfg: RNaDConfig
-               ) -> Dict[str, torch.Tensor]:
-    """One learner update on ``traj``: loss, gradients, clip + Adam, EMA."""
+               traj: engine.Trajectory, alpha: float, cfg: RNaDConfig,
+               group: Optional[DataGroup] = None) -> Dict[str, torch.Tensor]:
+    """One learner update on ``traj``: loss, gradients, clip + Adam, EMA.
+
+    Under ``group`` ``traj`` is this rank's slice of the lanes, and the
+    gradients are summed over the ranks (one ``all_reduce``) before the
+    gradient norm, the clip and Adam, so every rank applies the same
+    update to the same weights and they stay bitwise replicated.  This is
+    the port's form of ``rnad_tpu``'s psum-then-pmean
+    (``shard_map_step.py:66-77``): there the transpose of the in-loss psum
+    multiplies each shard's gradient by the axis size n and pmean divides
+    by n; here each rank's loss is already its numerator over the global
+    count (``learn_loss``), so the SUM is the unsharded gradient itself.
+    A ConvNet's BatchNorm statistics, moved by each rank's own lanes, are
+    then averaged over the ranks (SUM / world, ``pmean``), so every rank
+    carries the same buffers into the EMA target."""
     params = list(state.net.parameters())
     loss, metrics = learn_loss(state, packed, traj, alpha, cfg,
-                               neurd_scale_for(cfg, state.total_steps))
+                               neurd_scale_for(cfg, state.total_steps),
+                               group=group)
     grads = torch.autograd.grad(loss, params)
+    if group is not None:
+        grads = group.sum_tensors(grads)
+        group.average_([b for b in state.net.buffers()
+                        if b.is_floating_point()])
     metrics["gradient_norm"] = torch.sqrt(sum((g * g).sum() for g in grads))
     optimizer_update(cfg, params, list(grads), state.opt)
     ema_update(cfg.gamma_averaging, state.net, state.net_target)
@@ -438,15 +489,22 @@ def alpha_schedule(n: int, delta_m: int) -> float:
 
 def nashconv(tree: GameTree, net: nn.Module,
              chunk_nodes: Optional[int] = None,
-             obs_transform: Optional[obs_transform_lib.ObsTransform] = None
+             obs_transform: Optional[obs_transform_lib.ObsTransform] = None,
+             group: Optional[DataGroup] = None
              ) -> nashconv_lib.NashConvResult:
     """Exact best-response values of ``net``'s joint policy: one
     whole-tree pass, or chunked inference of ``chunk_nodes`` nodes a chunk
     where the tree has more (``rnad_tpu``'s ``nashconv_fn``).  Under
-    ``obs_transform`` the net sees each node's noise-free lift."""
+    ``obs_transform`` the net sees each node's noise-free lift.  Under
+    ``group`` a tree above the chunk threshold goes through the
+    node-sharded induction (``metrics/nashconv_shard.py``) after every rank
+    has taken the whole joint policy; below it each rank runs the
+    whole-tree pass (``rnad_tpu/learn/rnad.py:806-815``)."""
     net = nashconv_lib.lifted(net, obs_transform)
     if chunk_nodes is not None and tree.size > chunk_nodes:
         joint = nashconv_lib.joint_policy_from_net(tree, net, chunk_nodes)
+        if group is not None:
+            return nashconv_shard.nashconv_sharded(tree, joint, group)
         return nashconv_lib.nashconv_root(tree, joint)
     joint = nashconv_lib.joint_policy_all_nodes(tree, net)
     return nashconv_lib.nashconv_pure(tree, joint, compute_reach=False)
@@ -498,18 +556,35 @@ class RNaD:
     (``np.random.default_rng(seed + 1)``) in memory only, as ``rnad_tpu``
     does: neither package checkpoints them, so a resumed buffered run
     starts with an empty buffer and a re-seeded sampler, and is not the
-    straight run."""
+    straight run.
+
+    Under ``group`` (a ``parallel.mesh.DataGroup``) the run is one rank of
+    a data-parallel run on ``group.device``: it rolls out its slice of the
+    lanes from the global noise stream (``parallel/runtime.py``), and only
+    rank 0 touches the shared run directory (``params.json``, checkpoints,
+    ``best.ckpt`` and ``metrics.jsonl``), as only process 0 does in
+    ``rnad_tpu``; every rank reads it on resume.  A checkpoint holds no
+    per-rank state (the weights, Adam and the noise generator are
+    replicated), so a run saved by some number of ranks resumes on any
+    other that divides the batch.  The ConvNet and the buffered step raise
+    ``NotImplementedError`` there (``runtime.check_data_parallel``)."""
 
     def __init__(self, tree: GameTree, cfg: RNaDConfig = RNaDConfig(),
                  net_config: Optional[NetConfig] = None,
                  directory_name: Optional[str] = None,
                  runs_root: Optional[str] = None, seed: int = 0,
                  use_same_init_net_as: Optional[str] = None,
-                 use_wandb: bool = False, device="cuda"):
+                 use_wandb: bool = False, device="cuda",
+                 group: Optional[DataGroup] = None):
         if net_config is None:
             net_config = NetConfig(type="MLP", max_actions=tree.max_actions,
                                    width=256)
         check_supported(cfg, net_config)
+        if group is not None:
+            from ..parallel import runtime
+
+            runtime.check_data_parallel(cfg, group, net_config.type)
+            device = group.device
         if net_config.max_actions != tree.max_actions:
             raise ValueError(f"net max_actions {net_config.max_actions} != "
                              f"tree max_actions {tree.max_actions}")
@@ -531,8 +606,14 @@ class RNaD:
         self.use_same_init_net_as = use_same_init_net_as
         self.use_wandb = use_wandb
         self.logger: Optional[MetricLogger] = None
-        self.train_step = make_train_step(self.tree, self.packed, cfg,
-                                          self.obs_transform)
+        self.group = group
+        self._writes = group is None or group.rank == 0
+        if group is None:
+            self.train_step = make_train_step(self.tree, self.packed, cfg,
+                                              self.obs_transform)
+        else:
+            self.train_step = runtime.make_sharded_train_step(
+                self.tree, self.packed, cfg, group, self.obs_transform)
         self.m = 0
         self.n = 0
         self.state: Optional[TrainState] = None
@@ -567,15 +648,19 @@ class RNaD:
                                nets.DTYPES[self.cfg.rollout_actor_dtype])
         resolve_fuse_mode(state.net, self.cfg)
         resumed = False
-        if not self.store.exists() or self.store.latest() is None:
+        fresh = not self.store.exists() or self.store.latest() is None
+        if self.group is not None:
+            self.group.barrier()  # every rank read the store before rank 0
+        if fresh:
             logging.info("initializing R-NaD run %s", self.store.name)
-            self.store.save_params({
-                "rnad": self.cfg.to_json(),
-                "net": self.net_config.to_json(),
-                "tree_hash": self.tree.hash,
-                "seed": self.seed,
-                "directory_name": self.store.name,
-            })
+            if self._writes:
+                self.store.save_params({
+                    "rnad": self.cfg.to_json(),
+                    "net": self.net_config.to_json(),
+                    "tree_hash": self.tree.hash,
+                    "seed": self.seed,
+                    "directory_name": self.store.name,
+                })
             if self.use_same_init_net_as:
                 other = RunStore(self.use_same_init_net_as, self.runs_root)
                 loaded = other.load_checkpoint(0, 0, self._fresh_state())
@@ -598,14 +683,16 @@ class RNaD:
                          self.m, self.n)
         if self.logger is None:
             self.logger = MetricLogger(
-                directory=self.store.directory, use_wandb=self.use_wandb,
+                directory=self.store.directory if self._writes else None,
+                use_wandb=self.use_wandb and self._writes,
                 run_name=self.store.name,
                 config={"rnad": self.cfg.to_json(),
                         "net": self.net_config.to_json()},
                 resume=resumed)
 
     def save_checkpoint(self) -> None:
-        self.store.save_checkpoint(self.m, self.n, self.state)
+        if self._writes:
+            self.store.save_checkpoint(self.m, self.n, self.state)
 
     def _log(self, metrics: Dict[str, float], step: int) -> None:
         self.history.append((step, metrics))
@@ -629,7 +716,8 @@ class RNaD:
         net = self.state.net_target
         chunk = min(self.cfg.nashconv_chunk_nodes,
                     nets.inference_chunk_nodes(net, self.tree.max_actions))
-        result = nashconv(self.tree, net, chunk, self.obs_transform)
+        result = nashconv(self.tree, net, chunk, self.obs_transform,
+                          self.group)
         for depth, val in nashconv_lib.mean_nashconv_by_depth(
                 self.tree, result).items():
             logging.info("depth:%d nashconv:%f", depth, val)
@@ -654,9 +742,10 @@ class RNaD:
             self._best_nashconv = value
             # the target moves in place: keep this eval's weights
             self._best_target = _frozen_copy(self.state.net_target)
-            self.store.save_best(self.state, {"nashconv": value,
-                                              "step": step,
-                                              "m": self.m, "n": self.n})
+            if self._writes:
+                self.store.save_best(self.state, {"nashconv": value,
+                                                  "step": step,
+                                                  "m": self.m, "n": self.n})
             logging.info("new best nashconv %.6f at step %d", value, step)
 
     def _rotate_for_schedule(self) -> None:
@@ -718,6 +807,8 @@ class RNaD:
             loaded = self.store.load_best(self._fresh_state())
             if loaded is not None:  # resume-safe anchor
                 self._best_target = _frozen_copy(loaded[0].net_target)
+        if self.group is not None:
+            self.group.barrier()  # every rank read the store before rank 0
         on_policy = cfg.n_batches_per_buffer == 1 and cfg.buffer_mod == 1
         buffer = buffer_lib.TrajectoryBuffer(cfg.n_batches_per_buffer)
         last_time = time.perf_counter()

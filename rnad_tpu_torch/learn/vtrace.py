@@ -212,21 +212,32 @@ def apply_force_with_threshold(decision_outputs: torch.Tensor,
     return decision_outputs * clipped.detach()
 
 
-def renormalize(loss: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """Masked mean."""
+def renormalize(loss: torch.Tensor, mask: torch.Tensor,
+                global_sum=None) -> torch.Tensor:
+    """Masked mean.  Under ``global_sum`` (``DataGroup.global_sum``, when
+    the batch is a rank's slice of the lanes) it is this rank's numerator
+    over the global valid count: the count is summed over the ranks and
+    carries no gradient, so the ranks' losses add up to the global mean
+    and so do their gradients (``learn_step`` sums them)."""
     loss = (loss * mask).sum()
     n = mask.sum()
+    if global_sum is not None:
+        n = global_sum(n)
     return loss / (n + (n == 0.0))
 
 
 def get_loss_v(v_list: Sequence[torch.Tensor],
                v_target_list: Sequence[torch.Tensor],
-               mask_list: Sequence[torch.Tensor]) -> torch.Tensor:
-    """Masked MSE critic loss against detached targets."""
+               mask_list: Sequence[torch.Tensor],
+               global_sum=None) -> torch.Tensor:
+    """Masked MSE critic loss against detached targets; ``global_sum`` as
+    in ``renormalize``."""
     total = 0.0
     for v_n, v_target, mask in zip(v_list, v_target_list, mask_list):
         err = mask[..., None] * (v_n - v_target.detach()) ** 2
         err, n = err.sum(), mask.sum()
+        if global_sum is not None:
+            n = global_sum(n)
         total = total + err / (n + (n == 0.0))
     return total
 
@@ -237,10 +248,11 @@ def get_loss_nerd(logit_list: Sequence[torch.Tensor],
                   valid: torch.Tensor, player_ids: torch.Tensor,
                   legal_actions: torch.Tensor,
                   importance_sampling_correction: Sequence[torch.Tensor],
-                  clip: float = 100.0, threshold: float = 2.0
-                  ) -> torch.Tensor:
+                  clip: float = 100.0, threshold: float = 2.0,
+                  global_sum=None) -> torch.Tensor:
     """NeuRD policy loss.  The logit centering is a mean over ALL A entries
-    of ``logit * legal``, as in the reference."""
+    of ``logit * legal``, as in the reference; ``global_sum`` as in
+    ``renormalize``."""
     total = 0.0
     for k, (logit_pi, pi, q_vr, is_c) in enumerate(
             zip(logit_list, policy_list, q_vr_list,
@@ -254,5 +266,6 @@ def get_loss_nerd(logit_list: Sequence[torch.Tensor],
                 * apply_force_with_threshold(
                     logits, adv_pi, threshold,
                     torch.zeros_like(logits))).sum(-1)
-        total = total - renormalize(nerd, valid * (player_ids == k))
+        total = total - renormalize(nerd, valid * (player_ids == k),
+                                    global_sum)
     return total

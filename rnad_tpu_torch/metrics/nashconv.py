@@ -21,7 +21,7 @@ every internal node has exactly one parent cell (tree property).  Only the
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -181,10 +181,19 @@ def mean_nashconv_by_depth(tree: GameTree,
     return means
 
 
-def kld(p: torch.Tensor, q: torch.Tensor, valid: torch.Tensor,
-        legal_actions: torch.Tensor) -> torch.Tensor:
-    """Masked KL divergence diagnostic over (T, B, A) policies."""
+def kld_sums(p: torch.Tensor, q: torch.Tensor, valid: torch.Tensor,
+             legal_actions: torch.Tensor
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``kld``'s numerator and valid count, which data-parallel ranks sum
+    before they divide."""
     sel = (valid[..., None] * legal_actions) > 0
     safe = lambda x: torch.log(torch.clamp(x, min=1e-30))
     terms = torch.where(sel, p * (safe(p) - safe(q)), torch.zeros_like(p))
-    return terms.sum() / torch.clamp(valid.sum(), min=1.0)
+    return terms.sum(), valid.sum()
+
+
+def kld(p: torch.Tensor, q: torch.Tensor, valid: torch.Tensor,
+        legal_actions: torch.Tensor) -> torch.Tensor:
+    """Masked KL divergence diagnostic over (T, B, A) policies."""
+    total, count = kld_sums(p, q, valid, legal_actions)
+    return total / torch.clamp(count, min=1.0)

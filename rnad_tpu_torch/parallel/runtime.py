@@ -1,0 +1,200 @@
+"""Process-group set-up and the data-parallel train step.
+
+Counterpart of ``rnad_tpu/parallel/runtime.py``.  Every process is one rank
+of the data axis (``mesh.DataGroup``): it joins the others through
+``torch.distributed`` (NCCL on the card, gloo on the CPU; the backend is
+chosen by the device and never switched), holds the replicated weights on
+``cuda:(rank % device_count)`` or the CPU, and trains on its slice of the
+lanes.
+
+Determinism across rank counts: every rank draws the *global* turn noise
+from the replicated ``state.generator``, with the shapes and order of one
+device (``env/engine.py::turn_noise``), and keeps its own lanes; so a run
+samples the same episodes (equal indices, actions and rewards) whatever
+the rank count, as ``rnad_tpu``'s partitionable threefry does.  The learner
+update is the unsharded one up to summation order (``learn.rnad.
+learn_step``).  The stored behaviour policy is a softmax per lane and
+matches to float tolerance where the rank count changes the kernel's or
+the plain version's blocking.
+
+Two paths raise ``NotImplementedError`` here and are queued in ROADMAP.md:
+the ConvNet (``rnad_tpu``'s global-batch BatchNorm needs differentiable
+all-reduced BatchNorm sums; the per-rank-stream step of
+``shard_map_step.py`` runs it with per-rank BatchNorm) and the buffered
+step (its collated batch draws lanes that live on other ranks).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import datetime
+import logging
+import socket
+from typing import List, Optional, Sequence, Tuple
+
+import torch
+import torch.distributed as dist
+
+from ..config import RNaDConfig
+from ..env import engine
+from ..env.tree import GameTree
+from ..learn import rnad as rnad_lib
+from ..ops import stepping
+from ..ops.obs_transform import ObsTransform
+from . import mesh as mesh_lib
+
+host_value = mesh_lib.host_value
+
+# how long a collective, or the group's forming, may wait for a rank
+GROUP_TIMEOUT = datetime.timedelta(minutes=10)
+
+
+def default_backend(device_type: str) -> str:
+    """NCCL on the card, gloo on the CPU."""
+    return "nccl" if device_type == "cuda" else "gloo"
+
+
+def rank_device(rank: int, device_type: str) -> torch.device:
+    """Rank i's device: ``cuda:(i % device_count)``, or the CPU."""
+    if device_type == "cpu":
+        return torch.device("cpu")
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass --cpu (device_type='cpu') "
+                           "to run on the CPU")
+    return torch.device("cuda", rank % torch.cuda.device_count())
+
+
+def initialize_distributed(coordinator_address: Optional[str] = None,
+                           num_processes: Optional[int] = None,
+                           process_id: Optional[int] = None,
+                           backend: Optional[str] = None,
+                           device_type: str = "cuda") -> None:
+    """Joins this process to an ``num_processes``-rank group through the
+    coordinator ``host:port`` (rank ``process_id``; rank 0 serves the
+    store).  A no-op for a single process.  ``backend`` defaults to
+    ``default_backend(device_type)``; a caller passes another one
+    explicitly, such as gloo for ranks that share one card (NCCL refuses
+    them)."""
+    if num_processes is None or num_processes <= 1:
+        logging.info("single-process run")
+        return
+    if coordinator_address is None or process_id is None:
+        raise ValueError("a multi-process run needs --coordinator host:port "
+                         "and --process-id")
+    _init(f"tcp://{coordinator_address}", num_processes, process_id,
+          backend or default_backend(device_type), device_type)
+    logging.info("distributed: process %d/%d over %s", process_id,
+                 num_processes, dist.get_backend())
+
+
+def _init(init_method: str, world: int, rank: int, backend: str,
+          device_type: str) -> None:
+    kw = {}
+    if device_type == "cuda":
+        device = rank_device(rank, device_type)
+        torch.cuda.set_device(device)
+        if backend == "nccl":  # binds the communicator to the rank's card
+            kw["device_id"] = device
+    dist.init_process_group(backend, init_method=init_method,
+                            world_size=world, rank=rank,
+                            timeout=GROUP_TIMEOUT, **kw)
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def data_group(device_type: str = "cuda", backend: Optional[str] = None
+               ) -> mesh_lib.DataGroup:
+    """This process's rank of the data axis.  Without a process group yet
+    it forms a world of the ranks this process spans: one rank on one
+    device, over a store on a free localhost port."""
+    if not dist.is_initialized():
+        _init(f"tcp://localhost:{free_port()}", 1, 0,
+              backend or default_backend(device_type), device_type)
+    rank, world = dist.get_rank(), dist.get_world_size()
+    return mesh_lib.DataGroup(rank=rank, world=world,
+                              device=rank_device(rank, device_type))
+
+
+def shutdown() -> None:
+    """Leaves the process group, if there is one."""
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def check_data_parallel(cfg: RNaDConfig, group: mesh_lib.DataGroup,
+                        net_type: Optional[str] = None) -> None:
+    """Raises before anything runs where this path cannot run ``cfg`` (and
+    a net of ``net_type``, a ``NetConfig.type``, where given): a batch that
+    does not divide over the ranks (ValueError), the ConvNet and the
+    buffered step (NotImplementedError; module docstring)."""
+    group.lanes(cfg.batch_size)
+    if net_type == "ConvNet":
+        raise NotImplementedError(
+            "the ConvNet under the data-parallel path: rnad_tpu normalizes "
+            "its BatchNorm over the global batch, which needs "
+            "differentiable all-reduced BatchNorm sums (not ported yet; "
+            "parallel/shard_map_step.py runs it with per-rank BatchNorm)")
+    if cfg.n_batches_per_buffer > 1 or cfg.buffer_mod > 1:
+        raise NotImplementedError(
+            "the buffered step (n_batches_per_buffer or buffer_mod > 1) "
+            "under data parallelism: the collated batch draws lanes that "
+            "live on other ranks (not ported yet)")
+
+
+def local_noise(noise: Sequence[torch.Tensor], lanes: slice,
+                batch_size: int) -> Tuple[torch.Tensor, ...]:
+    """This rank's part of one turn's global noise: ``g_act`` (2B, A) and
+    the lift's ``eps`` (2B, C, A, A) are seat-major, so the rank's lanes
+    are two row ranges, one a seat block; ``g_chance`` (B, T) is one."""
+    seat_rows = lambda x: torch.cat([x[lanes], x[batch_size:][lanes]])
+    g_act, g_ch, *eps = noise
+    return (seat_rows(g_act), g_ch[lanes]) + tuple(seat_rows(e)
+                                                   for e in eps)
+
+
+def make_sharded_rollout(tree: GameTree, packed: stepping.PackedTables,
+                         cfg: RNaDConfig, group: mesh_lib.DataGroup,
+                         obs_transform: Optional[ObsTransform] = None):
+    """``rollout(state, noise=None)``: this rank's lanes of the global
+    ``cfg.batch_size``-lane rollout.  ``noise`` is the global per-turn
+    noise; None draws it from ``state.generator`` (which every rank
+    advances alike)."""
+    lanes = group.lanes(cfg.batch_size)
+    local_cfg = dataclasses.replace(cfg, batch_size=lanes.stop - lanes.start)
+    A, T = packed.max_actions, packed.max_transitions
+    channels = None if obs_transform is None else obs_transform.channels
+
+    def rollout(state: rnad_lib.TrainState, noise=None) -> engine.Trajectory:
+        if noise is None:
+            noise = [engine.turn_noise(cfg.batch_size, A, T, state.generator,
+                                       packed.rows.device, channels)
+                     for _ in range(tree.max_depth)]
+        noise: List = [local_noise(n, lanes, cfg.batch_size) for n in noise]
+        return rnad_lib.rollout(state, tree, packed, local_cfg, noise,
+                                obs_transform)
+
+    return rollout
+
+
+def make_sharded_train_step(tree: GameTree, packed: stepping.PackedTables,
+                            cfg: RNaDConfig, group: mesh_lib.DataGroup,
+                            obs_transform: Optional[ObsTransform] = None):
+    """The fused step of one rank, ``train_step(state, alpha, noise=None)``
+    (the signature of ``learn.rnad.make_train_step``'s): its lanes of the
+    global-stream rollout (kernel K1, or the generic turn), one regather
+    (K2) and the group-aware ``learn_step``; returns (state, metrics), the
+    metrics global.  Raises where ``check_data_parallel`` does."""
+    check_data_parallel(cfg, group)
+    rollout = make_sharded_rollout(tree, packed, cfg, group, obs_transform)
+
+    def train_step(state: rnad_lib.TrainState, alpha: float, noise=None):
+        check_data_parallel(cfg, group, type(state.net).__name__)
+        traj = rollout(state, noise)
+        return state, rnad_lib.learn_step(state, packed, traj, alpha, cfg,
+                                          group)
+
+    return train_step

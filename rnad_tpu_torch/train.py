@@ -6,8 +6,16 @@ hyperparameters or the DeepNash paper schedule, each overridable by flag.
 The run lives in ``saved_runs/<name>/`` under the working directory and
 the tree in ``saved_trees/``; running again with the same ``--name``
 resumes the run from its latest checkpoint.  It runs on the card unless
-``--cpu`` asks for the CPU.  Options whose values the port does not run
-yet raise ``NotImplementedError`` naming the option.
+``--cpu`` asks for the CPU.
+
+Data parallelism (``parallel/``): ``--data-parallel`` alone trains as a
+world of the ranks this process spans, one rank on one device; with
+``--coordinator host:port --num-processes N --process-id i`` each of N
+processes is one rank, on ``cuda:(i % device_count)`` over NCCL, or over
+gloo under ``--cpu``.  Every rank takes its slice of the lanes of one global
+noise stream, and only rank 0 writes the tree and the run store.  The
+ConvNet and the buffered step raise there (``runtime.
+check_data_parallel``).
 
 Examples:
   python -m rnad_tpu_torch.train --demo                 # reference demo run
@@ -28,6 +36,11 @@ Examples:
   python -m rnad_tpu_torch.train --demo --obs-lift 8 --obs-noise-sigma \\
       0.15 --net ConvNet --channels 16 --net-depth 2 \\
       --name r5-noisy-conv                              # noisy lift
+  python -m rnad_tpu_torch.train --cpu --demo --tree-depth 3 \\
+      --coordinator localhost:29500 --num-processes 2 --process-id 0 &
+  python -m rnad_tpu_torch.train --cpu --demo --tree-depth 3 \\
+      --coordinator localhost:29500 --num-processes 2 --process-id 1
+                                                        # two ranks, gloo
 
 The lift's fixed (mix, bias) pair is drawn from ``--obs-lift-seed`` by the
 port's own generator, so it differs from ``examples/train.py``'s for the
@@ -41,10 +54,14 @@ import logging
 import time
 from typing import Optional, Sequence
 
+import torch.distributed as dist
+
 from .config import (NetConfig, ObsTransformConfig, RNaDConfig, ShapingRule,
                      TreeConfig)
 from .env import tree as tree_lib
 from .learn import rnad as rnad_lib
+from .parallel import runtime
+from .parallel.mesh import DataGroup
 from .utils import checkpoint
 
 log = logging.getLogger(__name__)
@@ -150,22 +167,8 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _check_unported(args: argparse.Namespace) -> None:
-    """Raises ``NotImplementedError`` naming the first option whose value
-    the port does not run."""
-    unported = {
-        "--data-parallel": args.data_parallel,
-        "--coordinator": args.coordinator is not None,
-        "--num-processes": args.num_processes is not None,
-        "--process-id": args.process_id is not None,
-    }
-    for flag, unsupported in unported.items():
-        if unsupported:
-            raise NotImplementedError(
-                f"{flag}: the PyTorch port does not run this value yet")
-
-
-def _tree(args: argparse.Namespace, device) -> tree_lib.GameTree:
+def _tree(args: argparse.Namespace, device,
+          writes: bool = True) -> tree_lib.GameTree:
     if args.load_reference_tree:
         return checkpoint.load_reference_tree(args.load_reference_tree,
                                               device)
@@ -186,24 +189,35 @@ def _tree(args: argparse.Namespace, device) -> tree_lib.GameTree:
     log.info("tree generated in %.3f s (%s)", time.perf_counter() - t0,
              "native" if args.native_gen else "numpy")
     tree_lib.assert_index_is_tree(tree)
-    t0 = time.perf_counter()
-    checkpoint.save_tree(tree, args.name or "train_tree",
-                         config_json=tree_cfg.to_json())
-    log.info("tree stored in %.3f s", time.perf_counter() - t0)
+    if writes:  # the tree store is shared by the ranks
+        t0 = time.perf_counter()
+        checkpoint.save_tree(tree, args.name or "train_tree",
+                             config_json=tree_cfg.to_json())
+        log.info("tree stored in %.3f s", time.perf_counter() - t0)
     return tree.to(device)
 
 
 def main(argv: Optional[Sequence[str]] = None) -> rnad_lib.RNaD:
     """Parses ``argv`` (default: the command line), trains, logs the final
-    NashConv and returns the trainer."""
+    NashConv and returns the trainer.  A data-parallel run leaves its
+    process group before returning."""
     args = build_parser().parse_args(argv)
     logging.basicConfig(level=logging.INFO)
-    _check_unported(args)
     device = "cpu" if args.cpu else "cuda"
-    tree = _tree(args, device)
-    log.info("tree: size=%d depth=%d hash=%d", tree.size, tree.max_depth,
-             tree.hash)
+    if not (args.data_parallel or (args.num_processes or 1) > 1):
+        return _train(args, device)
+    runtime.initialize_distributed(args.coordinator, args.num_processes,
+                                   args.process_id, device_type=device)
+    try:
+        group = runtime.data_group(device)
+        log.info("data-parallel: rank %d/%d on %s over %s", group.rank,
+                 group.world, group.device, dist.get_backend())
+        return _train(args, group.device, group)
+    finally:
+        runtime.shutdown()
 
+
+def _config(args: argparse.Namespace) -> RNaDConfig:
     buffer_kw = dict(n_batches_per_buffer=args.n_batches_per_buffer,
                      buffer_mod=args.buffer_mod)
     if args.fuse_net_passes is not None:
@@ -214,27 +228,35 @@ def main(argv: Optional[Sequence[str]] = None) -> rnad_lib.RNaD:
             sigma=args.obs_noise_sigma, bias_scale=args.obs_lift_bias,
             seed=args.obs_lift_seed)
     if args.demo:
-        cfg = RNaDConfig(batch_size=512, eta=args.eta, bounds=(64,),
-                         delta_m=(100,), lr=1e-3, gamma_averaging=0.01,
-                         logit_clip=2.0, **buffer_kw)
-    else:
-        # DeepNash paper schedule, overridable per flag
-        override_kw = {k: v for k, v in dict(
-            bounds=tuple(args.bounds) if args.bounds else None,
-            delta_m=tuple(args.delta_m) if args.delta_m else None,
-            lr=args.lr, lr_schedule=args.lr_schedule,
-            lr_decay_steps=args.lr_decay_steps,
-            lr_final_fraction=args.lr_final_fraction,
-            policy_warmup_steps=args.policy_warmup,
-            gamma_averaging=args.gamma_avg,
-            frozen_net_dtype=args.frozen_dtype,
-            learner_layout=args.learner_layout,
-            flat_optimizer=args.flat_optimizer,
-            vtrace_mode=args.vtrace_mode,
-            reg_anchor=args.reg_anchor).items() if v is not None}
-        cfg = RNaDConfig(batch_size=args.batch_size, eta=args.eta,
-                         **buffer_kw, **override_kw)
+        return RNaDConfig(batch_size=512, eta=args.eta, bounds=(64,),
+                          delta_m=(100,), lr=1e-3, gamma_averaging=0.01,
+                          logit_clip=2.0, **buffer_kw)
+    # DeepNash paper schedule, overridable per flag
+    override_kw = {k: v for k, v in dict(
+        bounds=tuple(args.bounds) if args.bounds else None,
+        delta_m=tuple(args.delta_m) if args.delta_m else None,
+        lr=args.lr, lr_schedule=args.lr_schedule,
+        lr_decay_steps=args.lr_decay_steps,
+        lr_final_fraction=args.lr_final_fraction,
+        policy_warmup_steps=args.policy_warmup,
+        gamma_averaging=args.gamma_avg,
+        frozen_net_dtype=args.frozen_dtype,
+        learner_layout=args.learner_layout,
+        flat_optimizer=args.flat_optimizer,
+        vtrace_mode=args.vtrace_mode,
+        reg_anchor=args.reg_anchor).items() if v is not None}
+    return RNaDConfig(batch_size=args.batch_size, eta=args.eta,
+                      **buffer_kw, **override_kw)
 
+
+def _train(args: argparse.Namespace, device,
+           group: Optional[DataGroup] = None) -> rnad_lib.RNaD:
+    cfg = _config(args)
+    if group is not None:  # raises before the tree store is written
+        runtime.check_data_parallel(cfg, group, args.net)
+    tree = _tree(args, device, group is None or group.rank == 0)
+    log.info("tree: size=%d depth=%d hash=%d", tree.size, tree.max_depth,
+             tree.hash)
     net_cfg = NetConfig(type=args.net, max_actions=tree.max_actions,
                         width=args.width, depth=args.net_depth,
                         channels=args.channels,
@@ -243,7 +265,7 @@ def main(argv: Optional[Sequence[str]] = None) -> rnad_lib.RNaD:
                         compute_dtype=args.compute_dtype)
     trainer = rnad_lib.RNaD(tree, cfg, net_cfg, directory_name=args.name,
                             seed=args.seed, use_wandb=args.wandb,
-                            device=device)
+                            device=device, group=group)
     trainer.run(max_updates=args.max_updates,
                 checkpoint_mod=args.checkpoint_mod,
                 expl_mod=args.expl_mod, log_mod=args.log_mod)

@@ -5,7 +5,9 @@ append-only ``metrics.jsonl`` inside the run directory, one
 ``{"step": int, <metric>: float, ...}`` object a line; the wandb sink
 attaches on top when the package is importable and the run asks for it
 (resumable, keyed to the run name).  Where wandb is missing the logger warns
-and writes the JSONL only.
+and writes the JSONL only.  A logger without a directory and without wandb
+writes nothing: that is every data-parallel rank but rank 0's
+(``learn/rnad.py::RNaD``), as only process 0 logs in ``rnad_tpu``.
 """
 
 from __future__ import annotations

@@ -13,10 +13,12 @@ import subprocess
 import sys
 
 import pytest
+import torch
 
 from rnad_tpu.config import NetConfig, RNaDConfig
 from rnad_tpu.learn import rnad as jax_rnad
 from rnad_tpu_torch import train
+from rnad_tpu_torch.parallel import runtime
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 ARGS = ["--cpu", "--demo", "--tree-depth", "3", "--batch-size", "64",
@@ -81,17 +83,91 @@ def test_parser_has_every_option_of_examples_train():
     assert len(want) > 40 and got == want
 
 
-@pytest.mark.parametrize("argv,flag", [
-    (["--data-parallel"], "--data-parallel"),
-    (["--coordinator", "localhost:1234"], "--coordinator"),
-    (["--num-processes", "2"], "--num-processes"),
-    (["--process-id", "0"], "--process-id"),
-])
-def test_unported_options_raise(tmp_path, monkeypatch, argv, flag):
-    monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match=flag):
-        train.main(["--cpu", *argv])
-    assert not any(tmp_path.iterdir())  # raised before any work
+DP_ARGS = ["--cpu", "--demo", "--tree-depth", "3", "--max-updates", "1",
+           "--name", "dp"]
+
+
+def test_data_parallel_one_rank_equals_the_plain_run(tmp_path, monkeypatch):
+    """``--data-parallel`` alone is a one-rank gloo world: the all-reduces
+    over one rank change nothing, so the run ends on the plain run's
+    weights bitwise, with a finite final NashConv."""
+    runs = {}
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)  # the test shares the machine with others
+    try:
+        for flag in ([], ["--data-parallel"]):
+            cwd = tmp_path / ("dp" if flag else "plain")
+            cwd.mkdir()
+            monkeypatch.chdir(cwd)
+            runs[bool(flag)] = train.main(DP_ARGS + flag)
+    finally:
+        torch.set_num_threads(threads)
+    dp, plain = runs[True], runs[False]
+    assert dp.group is not None and dp.group.world == 1
+    assert plain.group is None
+    assert dp.state.total_steps == plain.state.total_steps == 100
+    for (name, a), b in zip(dp.state.net.state_dict().items(),
+                            plain.state.net.state_dict().values()):
+        assert torch.equal(a, b), name
+    values = [m["nashconv"] for _, m in dp.history if "nashconv" in m]
+    assert math.isfinite(values[-1])
+    assert values == [m["nashconv"] for _, m in plain.history
+                      if "nashconv" in m]
+
+
+def _ranks(tmp_path, argv):
+    """Two CLI processes ``argv``, ranks 0 and 1 of one gloo group, each in
+    its own working directory; returns their (returncode, stderr)."""
+    port = str(runtime.free_port())
+    env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
+    procs = []
+    for rank in (0, 1):
+        (tmp_path / f"rank{rank}").mkdir()
+        with open(tmp_path / f"rank{rank}.log", "w") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "rnad_tpu_torch.train", *argv,
+                 "--coordinator", f"localhost:{port}", "--num-processes",
+                 "2", "--process-id", str(rank)], cwd=tmp_path / f"rank{rank}",
+                env=env, stdout=subprocess.DEVNULL, stderr=log))
+    try:
+        for p in procs:
+            p.wait(timeout=300)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return [(p.returncode, (tmp_path / f"rank{r}.log").read_text())
+            for r, p in enumerate(procs)]
+
+
+def test_two_process_cli_run(tmp_path):
+    """``--coordinator --num-processes 2 --process-id {0,1}`` on the CPU:
+    both ranks end with the same finite final NashConv; only rank 0 writes
+    the tree and the run store."""
+    (rc0, log0), (rc1, log1) = _ranks(tmp_path, DP_ARGS[:-1] + ["mp"])
+    assert rc0 == 0 and rc1 == 0, log0[-3000:] + log1[-3000:]
+    final = [re.findall(r"final nashconv: (\S+)", log) for log in (log0,
+                                                                   log1)]
+    assert len(final[0]) == 1 and final[0] == final[1]
+    assert math.isfinite(float(final[0][0]))
+    assert "data-parallel: rank 0/2 on cpu over gloo" in log0
+    assert "data-parallel: rank 1/2 on cpu over gloo" in log1
+    run = tmp_path / "rank0" / "saved_runs" / "mp"
+    assert (run / "params.json").exists() and (run / "best.ckpt").exists()
+    assert (tmp_path / "rank0" / "saved_trees" / "mp").exists()
+    assert not any((tmp_path / "rank1").iterdir())  # rank 1 wrote nothing
+
+
+def test_batch_that_does_not_divide_raises(tmp_path):
+    """A batch the ranks cannot split raises on both ranks before anything
+    is written."""
+    results = _ranks(tmp_path, ["--cpu", "--tree-depth", "3",
+                                "--batch-size", "63", "--name", "odd"])
+    for rc, log in results:
+        assert rc != 0 and "must divide over 2" in log, log[-3000:]
+    assert not any((tmp_path / "rank0").iterdir())
+    assert not any((tmp_path / "rank1").iterdir())
 
 
 @pytest.mark.parametrize("argv", [
