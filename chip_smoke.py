@@ -130,7 +130,27 @@ Ten phases, and any failure exits nonzero:
    phase 5's stored flagship tree over those two ranks: an untrained
    width-256 MLP's per-node values within rtol / atol 1e-6 of
    ``nashconv_root`` on the card, the stored solution's NashConv below
-   1e-4, both wall times printed.
+   1e-4, both wall times printed; (d) r5-offpol-32k (phase 6's argv and
+   cuts) with ``--data-parallel`` (one NCCL rank: the exchange of the
+   buffered step runs), counters zeroed just before: the launches, the
+   weights and target bitwise and the final NashConv (two sharded evals)
+   equal to phase 6's plain run, then both learner steps back to back (best
+   of 2 runs, in turns) and the exchange's bytes and time (CUDA events);
+   (e) r5-noisy-conv cut to 100 steps with ``--data-parallel`` (one NCCL
+   rank: the ConvNet's BatchNorm over the global batch) against the plain
+   run: weights, target and BatchNorm statistics bitwise, 4 K2 launches a
+   step, the 23 all-reduces of one step counted (8 forward and 8 backward
+   for the 4 BatchNorms, 7 of the losses, metrics and gradients) and both
+   steps back to back; (f) two gloo ranks sharing the card
+   (``multiprocess_check.run_cluster``) for (d)'s net, tree and buffer at
+   16384 lanes a rank and (e)'s at 256, 3 steps each from a fresh buffer,
+   against one rank: the collated (or step-0) lanes' indices and actions
+   bitwise, losses within rtol 1e-4, weights and BatchNorm statistics equal
+   on both ranks; (g) flagship-3 on phase 5's stored tree cut to one update
+   period of 5 steps with ``--data-parallel`` (one NCCL rank: K3 and the
+   bf16 EquiNet under the group, the eval through ``nashconv_sharded``)
+   against the plain run: launches equal (7 of K2 and of K3 a step, K3's
+   eval chunks), weights bitwise, NashConv within 1e-6.
 
 It runs in a temporary working directory (the CLI writes ``saved_trees/``
 and ``saved_runs/`` under it).  It prints a ``{"kernels": [...]}`` line,
@@ -534,17 +554,24 @@ def main() -> int:
     s7 = slice7_phase(card, gen, tree, cfg, net_cfg)
 
     # -- phase 10: data parallelism and node-sharded NashConv -------------
-    dp = dp_phase(card, tree)
+    dp = dp_phase(card, tree, offpol)
+    # phase 10's runs: (a) phase 3's config, (d) offpol, (e) noisy-conv and
+    # (g) flagship-3, each as one data-parallel rank
+    dp_paths = {"dp": "a", "dp_offpol": "d", "dp_noisy": "e",
+                "dp_flagship": "g"}
     k1_by_path = {"mlp": k1_launches, "equinet": equi["k1"], "flagship": 0,
                   "offpol": offpol["k1"], "noisy": 0, "sweep": sweep["k1"],
-                  "slice7": s7["k1"], "dp": dp["k1"]}
+                  "slice7": s7["k1"],
+                  **{p: dp[k].get("k1", 0) for p, k in dp_paths.items()}}
     k2_by_path = {"mlp": k2_launches, "equinet": equi["k2"],
                   "flagship": flag["k2"], "offpol": offpol["k2"],
                   "noisy": noisy["k2"], "sweep": sweep["k2"],
-                  "slice7": s7["k2"], "dp": dp["k2"]}
+                  "slice7": s7["k2"],
+                  **{p: dp[k]["k2"] for p, k in dp_paths.items()}}
     k3_by_path = {"mlp": 0, "equinet": equi["k3"], "flagship": flag["k3"],
                   "offpol": 0, "noisy": 0, "sweep": sweep["k3"],
-                  "distill": s7["k3"]}
+                  "distill": s7["k3"],
+                  **{p: dp[k].get("k3", 0) for p, k in dp_paths.items()}}
     kernels = [
         {"name": "fused_turn", "route": "cuda",
          "source": "rnad_tpu_torch/csrc/fused_turn.cu",
@@ -1167,6 +1194,8 @@ def offpol_phase(card, gen):
               "k2": lookup_lib.lookup.launches,
               "k3": rmplus_lib.rmplus.launches}
     peak = torch.cuda.max_memory_allocated() / 2**30
+    # the run's end, before the timing below moves it (phase 10 (d))
+    end_weights = _weights(run)
     tree, cfg = run.tree, run.cfg
     md = tree.max_depth
     steps = run.state.total_steps
@@ -1247,7 +1276,7 @@ def offpol_phase(card, gen):
     held = buffer_lib.TrajectoryBuffer(OFFPOL_SLOTS)
     for _ in range(OFFPOL_SLOTS):
         held.append(rnad.rollout(state, tree, packed, cfg))
-    step = lambda: run._buffered_step(held, 1.0)
+    step = lambda: run.buffered_step(held, 1.0)
     step_runs = sorted(wall_ms(step, iters=10) for _ in range(3))
     step_dev_ms = device_ms(step, iters=10)
     log(f"offpol throughput: {1e3 / step_runs[1]:.6g} learner updates/s back "
@@ -1259,7 +1288,26 @@ def offpol_phase(card, gen):
     del held
     check_buffered_against_cpu(tree.to("cpu"), cfg, run.net_config)
     return {"k1": counts["k1"], "k2": counts["k2"], "fused_turn": k1,
-            "lookup": k2}
+            "lookup": k2, "weights": end_weights, "final": evals[-1],
+            "counts": counts}
+
+
+def _weights(run):
+    """Copies of the learner's and the EMA target's state dicts (weights
+    and BatchNorm statistics)."""
+    return {name: {k: v.detach().clone() for k, v in
+                   getattr(run.state, name).state_dict().items()}
+            for name in ("net", "net_target")}
+
+
+def _assert_bitwise(run, weights, what):
+    """``run``'s learner and target equal ``weights`` bit for bit."""
+    for name, tensors in weights.items():
+        for k, v in getattr(run.state, name).state_dict().items():
+            if not torch.equal(v, tensors[k]):
+                err = float((v.float() - tensors[k].float()).abs().max())
+                raise AssertionError(f"{what}: {name}.{k} differs from the "
+                                     f"plain run's ({err:.3g})")
 
 
 def check_buffered_against_cpu(tree, cfg, net_cfg) -> None:
@@ -1831,16 +1879,33 @@ DP_ARGV = ["--max-actions", "3", "--max-transitions", "2", "--tree-depth",
            "--gamma-avg", "0.01", "--bounds", "1", "--delta-m", "10",
            "--log-mod", "1"]
 DP_STEPS, DP_GLOO_STEPS = 10, 3
+# (e): r5-noisy-conv cut to one update period (the --demo schedule's 100
+# steps); (g): flagship-3 on phase 5's stored tree, phase 5's cuts but one
+# update period of 5 steps
+DP_NOISY_STEPS = 100
+DP_FLAGSHIP_CUTS = [("--bounds", ["1"]), ("--delta-m", ["5"])] + [
+    (flag, value) for flag, value, _ in FLAGSHIP_CUTS
+    if flag not in ("--bounds", "--delta-m")]
+DP_FLAGSHIP_STEPS = 5
+# the all-reduces of a data-parallel step: 7 of the losses' global counts,
+# the metrics and the gradients, and 2 forward and 2 backward a BatchNorm
+# of the ConvNet 16x2 (4 BatchNorms)
+DP_STEP_ALL_REDUCES, DP_BN_ALL_REDUCES = 7, 16
 
 
-def dp_phase(card, demo_tree):
+def dp_phase(card, demo_tree, offpol):
     """Phase 10: data parallelism.  (a) The train CLI with
     ``--data-parallel`` (one rank over NCCL) against the plain run, bitwise,
     and their back-to-back step times; (b) two ranks sharing the card over
     gloo (``multiprocess_check.run_cluster``) against one rank; (c) the
     node-sharded NashConv of phase 5's stored flagship tree over those two
-    ranks against ``nashconv_root`` on the card.  Returns the data-parallel
-    run's launch counts."""
+    ranks against ``nashconv_root`` on the card; (d) r5-offpol-32k as one
+    NCCL rank against phase 6's plain run (``offpol``, its result), and
+    the exchange; (e) r5-noisy-conv's ConvNet with its global BatchNorm as
+    one NCCL rank against the plain run; (f) (d)'s and (e)'s configs as two
+    gloo ranks sharing the card against one rank; (g) flagship-3 as one
+    NCCL rank against the plain run.  Returns the launch counts of (a),
+    (d), (e) and (g), each the run's as one data-parallel rank."""
     from rnad_tpu_torch import multiprocess_check as mpc
     from rnad_tpu_torch import train
     from rnad_tpu_torch.config import NetConfig, RNaDConfig
@@ -1985,7 +2050,8 @@ def dp_phase(card, demo_tree):
         np.save(paths[name], policy.cpu().numpy())
     t0 = time.perf_counter()
     got = mpc.run_nashconv(2, flag_dir, paths["net"],
-                           os.path.abspath("dp_values.npz"), "gloo", "cuda")
+                           os.path.abspath("dp_values.npz"), device="cuda",
+                           backend="gloo")
     cluster_s = time.perf_counter() - t0
     values = np.load("dp_values.npz")
     err = 0.0
@@ -1997,7 +2063,8 @@ def dp_phase(card, demo_tree):
                                  f"{float(off.max()) + 1e-6}")
         err = max(err, float(np.abs(values[field] - want).max()))
     sol = mpc.run_nashconv(2, flag_dir, paths["solution"],
-                           os.path.abspath("dp_sol.npz"), "gloo", "cuda")
+                           os.path.abspath("dp_sol.npz"), device="cuda",
+                           backend="gloo")
     if not abs(sol["nashconv"]) < 1e-4:
         raise AssertionError(f"sharded NashConv of the solution "
                              f"{sol['nashconv']}")
@@ -2008,8 +2075,334 @@ def dp_phase(card, demo_tree):
     log(f"  wall: induction {got['seconds']:.3f} s on rank 0 (host "
         f"preparation included), {cluster_s:.1f} s with the processes' "
         f"start; nashconv_root on the card {one_s:.4f} s | {card}")
+    d = dp_offpol(card, offpol)
+    e, noisy_dir = dp_noisy(card)
+    dp_gloo_buffered(card, flag_dir, noisy_dir)
+    g = dp_flagship(card)
     log(f"phase 10: {time.perf_counter() - t_phase:.1f} s")
+    return {"a": counts, "d": d, "e": e, "g": g}
+
+
+def _counts():
+    from rnad_tpu_torch.ops import fused_turn as fused_turn_lib
+    from rnad_tpu_torch.ops import lookup as lookup_lib
+    from rnad_tpu_torch.ops import rmplus as rmplus_lib
+
+    return {"k1": fused_turn_lib.fused_turn.launches,
+            "k2": lookup_lib.lookup.launches,
+            "k3": rmplus_lib.rmplus.launches}
+
+
+def _zero_counts():
+    from rnad_tpu_torch.ops import fused_turn as fused_turn_lib
+    from rnad_tpu_torch.ops import lookup as lookup_lib
+    from rnad_tpu_torch.ops import rmplus as rmplus_lib
+
+    fused_turn_lib.fused_turn.launches = 0
+    lookup_lib.lookup.launches = 0
+    rmplus_lib.rmplus.launches = 0
+
+
+def _in_turns(names, step, iters=10):
+    """Back-to-back ms of ``step(name)`` for the two ``names``
+    (data-parallel first), in turns dp, plain, plain, dp; returns each
+    name's list."""
+    dp, plain = names
+    times = {dp: [], plain: []}
+    for name in (dp, plain, plain, dp):
+        times[name].append(wall_ms(lambda: step(name), iters=iters))
+    return times
+
+
+def dp_offpol(card, offpol):
+    """Phase 10 (d): r5-offpol-32k with ``--data-parallel`` (one NCCL rank)
+    through the train CLI, held against phase 6's plain run with the same
+    cuts (weights bitwise, the same final NashConv), then both learner
+    steps back to back and the exchange alone.  Returns the launch
+    counts."""
+    import numpy as np
+
+    from rnad_tpu_torch import train
+    from rnad_tpu_torch.learn import buffer as buffer_lib
+    from rnad_tpu_torch.learn import rnad
+    from rnad_tpu_torch.parallel import runtime
+
+    argv = OFFPOL_RUN + ["--log-mod", "1", "--name", "offpol32k_dp",
+                         "--data-parallel"]
+    for flag, value, _ in OFFPOL_CUTS:
+        argv += [flag, *value]
+    log("data-parallel offpol (d): python -m rnad_tpu_torch.train "
+        + " ".join(argv) + " (phase 6's run with --data-parallel)")
+    _zero_counts()
+    t0 = time.perf_counter()
+    run = train.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _counts()
+    if run.group.world != 1 or run.state.total_steps != OFFPOL_STEPS:
+        raise AssertionError(f"data-parallel offpol: {run.state.total_steps}"
+                             f" steps on {run.group.world} ranks")
+    if counts != offpol["counts"]:
+        raise AssertionError(f"data-parallel offpol launches {counts}, the "
+                             f"plain run's {offpol['counts']}")
+    _assert_bitwise(run, offpol["weights"], "data-parallel offpol")
+    final = [m["nashconv"] for _, m in run.history if "nashconv" in m][-1]
+    if final != offpol["final"]:
+        raise AssertionError(f"data-parallel offpol: final NashConv {final}"
+                             f", plain {offpol['final']}")
+    log(f"data-parallel offpol (one rank, NCCL): {OFFPOL_STEPS} learner "
+        f"steps and 2 sharded evals in {wall:.2f} s; launches {counts} (the "
+        f"plain run's); weights and target bitwise equal to phase 6's plain "
+        f"run; final NashConv {final:.7f} in both")
+
+    B = run.cfg.batch_size
+    group = runtime.data_group("cuda")
+    try:
+        runs = {name: rnad.RNaD(run.tree, run.cfg, run.net_config,
+                                directory_name=name, seed=0, device="cuda",
+                                group=g)
+                for name, g in (("offpol_dp_time", group),
+                                ("offpol_plain_time", None))}
+        held = {}
+        for name, r in runs.items():
+            r.initialize()
+            held[name] = buffer_lib.TrajectoryBuffer(OFFPOL_SLOTS)
+            for _ in range(2 * OFFPOL_SLOTS):  # fills the buffer
+                r.buffered_step(held[name], 1.0)
+        times = _in_turns(list(runs), lambda name: runs[name].buffered_step(
+            held[name], 1.0))
+        rng = np.random.default_rng(0)
+        dp_buf, plain_buf = held["offpol_dp_time"], held["offpol_plain_time"]
+        exchange_ms = wall_ms(lambda: dp_buf.sample(B, rng, group))
+        collate_ms = wall_ms(lambda: plain_buf.sample(B, rng))
+        batch = dp_buf.sample(B, rng, group)
+        nbytes = sum(t.numel() * 4 for t in vars(batch).values()
+                     if t is not None)
+    finally:
+        runtime.shutdown()
+    dp_ms, plain_ms = (min(times["offpol_dp_time"]),
+                       min(times["offpol_plain_time"]))
+    log(f"data-parallel offpol learner step, back to back at {B} lanes "
+        f"(best of 2 runs of 10, in turns; a rollout every "
+        f"{run.cfg.buffer_mod}): one NCCL rank {dp_ms:.4f} ms (runs "
+        f"{times['offpol_dp_time']}), plain {plain_ms:.4f} ms (runs "
+        f"{times['offpol_plain_time']}); the exchange of {OFFPOL_SLOTS} "
+        f"slots' lanes: {nbytes} bytes ({nbytes / 1e6:.2f} MB) in one int32 "
+        f"and one float32 all-reduce, {exchange_ms:.4f} ms back to back "
+        f"(CUDA events; plan, gather, all-reduces and slicing), against "
+        f"{collate_ms:.4f} ms for the plain plan and collate | {card}")
     return counts
+
+
+def dp_noisy(card):
+    """Phase 10 (e): r5-noisy-conv (the lifted ConvNet 16x2 with its
+    BatchNorm over the global batch) with ``--data-parallel`` (one NCCL
+    rank) against the plain run, one update period each: weights and
+    BatchNorm statistics bitwise equal; then both steps back to back and
+    the all-reduces of one data-parallel step.  Returns the launch counts
+    and the tree store's directory."""
+    import torch.distributed as dist
+
+    from rnad_tpu_torch import train
+    from rnad_tpu_torch.learn import rnad
+    from rnad_tpu_torch.parallel import runtime
+
+    argv = NOISY_RUN + ["--log-mod", "20", "--max-updates", "1"]
+    log("data-parallel noisy-conv (e): python -m rnad_tpu_torch.train "
+        + " ".join(argv) + " --data-parallel, and without the flag "
+        f"(r5-noisy-conv cut to one update period, {DP_NOISY_STEPS} steps)")
+    _zero_counts()
+    t0 = time.perf_counter()
+    dp = train.main(argv + ["--name", "noisyconv_dp", "--data-parallel"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _counts()
+    plain = train.main(argv + ["--name", "noisyconv_plain"])
+    md = dp.tree.max_depth
+    if (dp.state.total_steps, plain.state.total_steps) != (DP_NOISY_STEPS,
+                                                           DP_NOISY_STEPS):
+        raise AssertionError(f"data-parallel noisy-conv: "
+                             f"{dp.state.total_steps} and "
+                             f"{plain.state.total_steps} steps")
+    want = {"k1": 0, "k2": DP_NOISY_STEPS * md, "k3": 0}
+    if counts != want:
+        raise AssertionError(f"data-parallel noisy-conv launches {counts}, "
+                             f"want {want}")
+    _assert_bitwise(dp, _weights(plain), "data-parallel noisy-conv")
+    evals = [[m["nashconv"] for _, m in r.history if "nashconv" in m]
+             for r in (dp, plain)]
+    if evals[0] != evals[1] or not math.isfinite(evals[0][-1]):
+        raise AssertionError(f"data-parallel noisy-conv evals {evals}")
+    log(f"data-parallel noisy-conv (one rank, NCCL): {DP_NOISY_STEPS} steps "
+        f"in {wall:.2f} s; launches {counts}; weights, target and BatchNorm "
+        f"statistics bitwise equal to the plain run; final NashConv "
+        f"{evals[0][-1]:.7f} in both")
+
+    group = runtime.data_group("cuda")
+    calls = [0]
+    all_reduce = dist.all_reduce
+
+    def counted(*args, **kwargs):
+        calls[0] += 1
+        return all_reduce(*args, **kwargs)
+
+    try:
+        runs = {name: rnad.RNaD(dp.tree, dp.cfg, dp.net_config,
+                                directory_name=name, seed=0, device="cuda",
+                                group=g)
+                for name, g in (("noisy_dp_time", group),
+                                ("noisy_plain_time", None))}
+        for r in runs.values():
+            r.initialize()
+        dist.all_reduce = counted
+        try:
+            runs["noisy_dp_time"].train_step(runs["noisy_dp_time"].state,
+                                             1.0)
+            torch.cuda.synchronize()
+        finally:
+            dist.all_reduce = all_reduce
+        times = _in_turns(list(runs), lambda name: runs[name].train_step(
+            runs[name].state, 1.0), iters=20)
+    finally:
+        runtime.shutdown()
+    want = DP_STEP_ALL_REDUCES + DP_BN_ALL_REDUCES
+    if calls[0] != want:
+        raise AssertionError(f"a data-parallel ConvNet step issued "
+                             f"{calls[0]} all-reduces, want {want}")
+    dp_ms, plain_ms = (min(times["noisy_dp_time"]),
+                       min(times["noisy_plain_time"]))
+    log(f"data-parallel noisy-conv step, back to back at "
+        f"{dp.cfg.batch_size} lanes (best of 2 runs of 20, in turns): one "
+        f"NCCL rank {dp_ms:.4f} ms (runs {times['noisy_dp_time']}), plain "
+        f"{plain_ms:.4f} ms (runs {times['noisy_plain_time']}); "
+        f"{calls[0]} all-reduces a step ({DP_BN_ALL_REDUCES} of the 4 "
+        f"BatchNorms: 8 forward, 8 backward; {DP_STEP_ALL_REDUCES} of the "
+        f"losses, diagnostics and gradients) add {dp_ms - plain_ms:.4f} ms "
+        f"| {card}")
+    return counts, os.path.abspath(os.path.join("saved_trees",
+                                                "noisyconv_dp"))
+
+
+def dp_gloo_buffered(card, offpol_tree_dir, noisy_tree_dir):
+    """Phase 10 (f): two gloo ranks sharing the card
+    (``multiprocess_check.run_cluster``) for (d)'s config (the width-256
+    MLP on phase 5's tree, 16384 lanes a rank, buffer 4, mod 2: 3 learner
+    steps on a fresh buffer, the third on 2 slots, so the exchange runs)
+    and (e)'s (the lifted ConvNet 16x2, 256 lanes a rank, 3 steps), each
+    against one rank: the collated (or rolled-out) lanes' indices and
+    actions bitwise, losses within rtol 1e-4, the weights and BatchNorm
+    statistics equal on both ranks.  The worker's R-NaD hyperparameters
+    (eta 0.2, lr 1e-3, gamma_avg 0.01) are the CLI's demo's."""
+    import numpy as np
+
+    from rnad_tpu_torch import multiprocess_check as mpc
+
+    configs = {
+        "offpol": dict(batch_size=B_MAIN, width=256, tree_dir=offpol_tree_dir,
+                       n_batches_per_buffer=OFFPOL_SLOTS,
+                       buffer_mod=OFFPOL_MOD),
+        "noisy-conv": dict(batch_size=512, tree_dir=noisy_tree_dir,
+                           net="ConvNet", channels=16, net_depth=2,
+                           obs_lift=8, obs_noise_sigma=0.15)}
+    # a rank's launches in 3 steps: offpol rolls out at steps 0 and 2 (6
+    # K1 a rollout on the depth-6 tree) and regathers once a learner step;
+    # the noisy ConvNet looks up once a turn (4 a step on the depth-4 tree)
+    launches = {"offpol": {"k1": 12, "k2": DP_GLOO_STEPS, "k3": 0},
+                "noisy-conv": {"k1": 0, "k2": 4 * DP_GLOO_STEPS, "k3": 0}}
+    step_ms = lambda res: "/".join(f"{1e3 * s:.2f}" for s in res["step_s"])
+    for name, kw in configs.items():
+        dirs = {n: os.path.abspath(f"dp_{name}_{n}") for n in (1, 2)}
+        common = dict(steps=DP_GLOO_STEPS, seed=0, backend="gloo",
+                      device="cuda", timeout=600, **kw)
+        t0 = time.perf_counter()
+        single = mpc.run_single(traj_out=dirs[1], **common)
+        t1 = time.perf_counter()
+        multi = mpc.run_cluster(2, traj_out=dirs[2], **common)
+        t2 = time.perf_counter()
+        whole = np.load(os.path.join(dirs[1], "rank0.npz"))
+        lanes = kw["batch_size"] // 2
+        for r in range(2):
+            part = np.load(os.path.join(dirs[2], f"rank{r}.npz"))
+            cut = slice(r * lanes, (r + 1) * lanes)
+            for field in ("indices", "actions"):
+                if not np.array_equal(part[field], whole[field][..., cut]):
+                    raise AssertionError(f"gloo {name} rank {r}: {field} "
+                                         "differ from one rank's lanes")
+        for a, b in zip(multi["losses"], single["losses"], strict=True):
+            if not abs(a - b) <= 1e-6 + 1e-4 * abs(b):
+                raise AssertionError(f"gloo {name} losses {multi['losses']}"
+                                     f" vs one rank {single['losses']}")
+        if len({r["param_digest"] for r in multi["ranks"]}) != 1:
+            raise AssertionError(f"gloo {name}: the ranks hold different "
+                                 "weights or BatchNorm statistics")
+        for res in (single, *multi["ranks"]):
+            if res["launches"] != launches[name]:
+                raise AssertionError(f"gloo {name}: rank launches "
+                                     f"{res['launches']}, want "
+                                     f"{launches[name]}")
+        which = "every step's collated" if name == "offpol" else "step-0"
+        log(f"two gloo ranks on one card, {name} ({lanes} lanes each, "
+            f"{DP_GLOO_STEPS} steps): {which} lanes' indices and actions "
+            f"equal to one rank's; losses "
+            f"{multi['losses']} vs {single['losses']}; weights and "
+            f"BatchNorm statistics equal on both ranks (one SHA-256 of the "
+            f"state dict); launches a rank {multi['launches']}, one rank "
+            f"{single['launches']}")
+        log(f"  per-step wall ms (host clock, synchronized; the ranks share "
+            f"the card's SMs): rank 0 {step_ms(multi)}, rank 1 "
+            f"{step_ms(multi['ranks'][1])}; one rank {step_ms(single)}; "
+            f"cluster wall {t2 - t1:.1f} s, one rank {t1 - t0:.1f} s | "
+            f"{card}")
+
+
+def dp_flagship(card):
+    """Phase 10 (g): flagship-3 with ``--data-parallel`` (one NCCL rank) on
+    phase 5's stored tree, cut to one update period of 5 steps, against the
+    plain run with the same cuts: K3 and the bf16 EquiNet under the group,
+    the final eval through ``nashconv_sharded`` (the tree is above the
+    chunk threshold).  Weights bitwise equal, NashConv within 1e-6.
+    Returns the launch counts."""
+    from rnad_tpu_torch import train
+
+    argv = ["--load-tree", "flagship3"] + FLAGSHIP_RUN + ["--log-mod", "1"]
+    for flag, value in DP_FLAGSHIP_CUTS:
+        argv += [flag, *value]
+    log("data-parallel flagship (g): python -m rnad_tpu_torch.train "
+        + " ".join(argv) + " --data-parallel, and without the flag "
+        "(phase 5's cuts, but one update period of "
+        f"{DP_FLAGSHIP_STEPS} steps)")
+    runs, counts, walls = {}, {}, {}
+    for name, flag in (("dp", ["--data-parallel"]), ("plain", [])):
+        _zero_counts()
+        t0 = time.perf_counter()
+        runs[name] = train.main(argv + ["--name", f"flag_{name}"] + flag)
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+        counts[name] = _counts()
+    dp, plain = runs["dp"], runs["plain"]
+    if (dp.state.total_steps, plain.state.total_steps) != (
+            DP_FLAGSHIP_STEPS, DP_FLAGSHIP_STEPS):
+        raise AssertionError(f"data-parallel flagship: "
+                             f"{dp.state.total_steps} and "
+                             f"{plain.state.total_steps} steps")
+    md = dp.tree.max_depth
+    if (counts["dp"] != counts["plain"] or counts["dp"]["k1"] != 0
+            or counts["dp"]["k2"] != DP_FLAGSHIP_STEPS * (md + 1)
+            or counts["dp"]["k3"] <= DP_FLAGSHIP_STEPS * (md + 1)):
+        raise AssertionError(f"data-parallel flagship launches "
+                             f"{counts['dp']}, plain {counts['plain']}")
+    _assert_bitwise(dp, _weights(plain), "data-parallel flagship")
+    got, want = (r.history[-1][1]["nashconv"] for r in (dp, plain))
+    if not abs(got - want) <= 1e-6:
+        raise AssertionError(f"data-parallel flagship: NashConv {got} "
+                             f"(sharded), plain {want}")
+    log(f"data-parallel flagship (one rank, NCCL): {DP_FLAGSHIP_STEPS} "
+        f"steps and the final eval in {walls['dp']:.2f} s (plain "
+        f"{walls['plain']:.2f} s); launches {counts['dp']} (the plain "
+        f"run's); weights and target bitwise equal; NashConv {got:.7f} "
+        f"through nashconv_sharded, {want:.7f} through nashconv_root "
+        f"(|diff| {abs(got - want):.3g}) | {card}")
+    return counts["dp"]
 
 
 def check_bf16_step_against_cpu(tree, cfg, net_cfg, B=256) -> None:

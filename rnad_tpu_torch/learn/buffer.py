@@ -14,6 +14,7 @@ on-policy step, which bypasses the buffer.
 from __future__ import annotations
 
 import dataclasses
+import math
 from collections import deque
 from typing import Optional, Sequence
 
@@ -55,12 +56,34 @@ class TrajectoryBuffer:
         self.slots.clear()
 
     def sample(self, batch_size: int,
-               rng: Optional[np.random.Generator] = None) -> Trajectory:
-        """Exactly ``batch_size`` lanes, collated (see ``plan``)."""
-        slots, lanes = self.plan(batch_size, rng)
-        if lanes is None:
-            return slots[0]
-        return collate_slots(slots, lanes)
+               rng: Optional[np.random.Generator] = None,
+               group=None) -> Trajectory:
+        """Exactly ``batch_size`` lanes, collated (see ``plan``).
+
+        Under ``group`` (a ``parallel.mesh.DataGroup``) each slot holds this
+        rank's lanes of one global rollout (global lane L on rank L // (B /
+        world), B the rollout's global lanes) and the result is this rank's
+        positions of the global collated batch, ``group.lanes(batch_size)``:
+        every rank draws the global plan from an equal ``rng``, writes the
+        rows it owns into a zero-filled collated global batch, one flat
+        buffer per dtype (int32: ``indices``, ``actions``; float32:
+        ``policy``, ``rewards``, ``values`` and stored ``obs``), all-reduces
+        (SUM) each and keeps its own positions.  Each position is written by
+        one rank, so the sum is exact (gloo has no ``all_gather`` of CUDA
+        tensors, and one path serves both backends, as in ``metrics/
+        nashconv_shard.py``); the one change is that -0.0 arrives as +0.0,
+        which ``torch.equal`` counts as equal.  At A = 5 a lane carries 36
+        bytes a half-step (``indices``, ``actions``, ``rewards``,
+        ``values`` and five policy floats): 14.2 MB a learner step at
+        r5-offpol-32k's B = 32768 and T = 12; a lift's stored ``obs`` adds
+        (C + 1) * A * A * 4 bytes a half-step.  Over one rank the exchange
+        is the identity: ``collate_slots``'s batch."""
+        if group is None:
+            slots, lanes = self.plan(batch_size, rng)
+            if lanes is None:
+                return slots[0]
+            return collate_slots(slots, lanes)
+        return self._exchange(batch_size, rng, group)
 
     def plan(self, batch_size: int,
              rng: Optional[np.random.Generator] = None):
@@ -73,29 +96,95 @@ class TrajectoryBuffer:
         deficit.  Lane index tensors go to the slot's device, copied from
         pinned memory without a wait, so planning does not stall the
         card."""
-        n = len(self.slots)
-        if n == 0:
-            raise ValueError("sampling from an empty buffer")
-        if n == 1 and self.slots[0].batch_size == batch_size:
+        used, lanes_list = _draw([t.batch_size for t in self.slots],
+                                 batch_size, rng)
+        if lanes_list is None:
             return (self.slots[0],), None
-        rng = rng or np.random.default_rng()
-        sizes = np.array([t.batch_size for t in self.slots], dtype=np.int64)
-        counts = np.full((n,), batch_size // n, np.int64)
-        counts[:batch_size % n] += 1
-        used, lanes_list = [], []
-        for traj, count, size in zip(self.slots, counts, sizes):
-            if count == 0:
-                continue
-            take = min(int(count), int(size))
-            lanes = rng.choice(size, size=take, replace=False)
-            if take < count:  # slot smaller than its share: replacement
-                lanes = np.concatenate(
-                    [lanes, rng.choice(size, size=int(count) - take,
-                                       replace=True)])
-            used.append(traj)
-            lanes = torch.from_numpy(lanes)
-            if traj.indices.is_cuda:
-                lanes = lanes.pin_memory().to(traj.indices.device,
-                                              non_blocking=True)
-            lanes_list.append(lanes)
-        return tuple(used), tuple(lanes_list)
+        slots = tuple(self.slots[i] for i in used)
+        return slots, tuple(_to(t.indices.device, lanes)
+                            for t, lanes in zip(slots, lanes_list))
+
+    def _exchange(self, batch_size: int, rng: Optional[np.random.Generator],
+                  group) -> Trajectory:
+        """``sample`` under ``group``: the global plan, then one all-reduce
+        per dtype of the collated global batch."""
+        world, rank = group.world, group.rank
+        local = [t.batch_size for t in self.slots]
+        used, lanes_list = _draw([n * world for n in local], batch_size, rng)
+        if lanes_list is None:  # one full slot: this rank's lanes already
+            return self.slots[0]
+        first = self.slots[0]
+        T, device = first.num_half_steps, first.indices.device
+        names = [f.name for f in dataclasses.fields(Trajectory)
+                 if getattr(first, f.name) is not None]
+        ints = [n for n in names if n in _INT_FIELDS]
+        floats = [n for n in names if n not in _INT_FIELDS]
+        width = lambda n: math.prod(getattr(first, n).shape[2:])
+        packed = {torch.int32: (ints, torch.zeros(
+                      (T, batch_size, sum(map(width, ints))),
+                      dtype=torch.int32, device=device)),
+                  torch.float32: (floats, torch.zeros(
+                      (T, batch_size, sum(map(width, floats))),
+                      dtype=torch.float32, device=device))}
+        start = 0
+        for i, lanes in zip(used, lanes_list):
+            mine = np.flatnonzero(lanes // local[i] == rank)
+            pos = _to(device, start + mine)
+            rows = _to(device, lanes[mine] - rank * local[i])
+            slot = self.slots[i]
+            for dtype, (fields, buf) in packed.items():
+                buf[:, pos] = torch.cat(
+                    [getattr(slot, n)[:, rows].reshape(T, len(mine), width(n))
+                     .to(dtype) for n in fields], dim=2)
+            start += len(lanes)
+        mine = group.lanes(batch_size)
+        out = {}
+        for dtype, (fields, buf) in packed.items():
+            buf = group.global_sum(buf)[:, mine]
+            for n, part in zip(fields, buf.split(list(map(width, fields)),
+                                                 dim=2)):
+                ref = getattr(first, n)
+                out[n] = part.reshape((T, part.shape[1]) + ref.shape[2:]).to(
+                    ref.dtype).contiguous()
+        return Trajectory(**out)
+
+
+_INT_FIELDS = ("indices", "actions")
+
+
+def _to(device: torch.device, lanes: np.ndarray) -> torch.Tensor:
+    """Host lane indices on ``device``; to the card from pinned memory
+    without a wait, so planning does not stall the card's queue."""
+    lanes = torch.from_numpy(lanes)
+    if device.type == "cuda":
+        return lanes.pin_memory().to(device, non_blocking=True)
+    return lanes
+
+
+def _draw(sizes: Sequence[int], batch_size: int,
+          rng: Optional[np.random.Generator] = None):
+    """``TrajectoryBuffer.plan``'s draws in numpy, for slots of ``sizes``
+    lanes: (the slots drawn from, by position, and their lanes), or
+    ``((0,), None)`` where one slot holds exactly ``batch_size``.  The
+    numpy calls are ``rnad_tpu``'s, in its order."""
+    n = len(sizes)
+    if n == 0:
+        raise ValueError("sampling from an empty buffer")
+    if n == 1 and sizes[0] == batch_size:
+        return (0,), None
+    rng = rng or np.random.default_rng()
+    counts = np.full((n,), batch_size // n, np.int64)
+    counts[:batch_size % n] += 1
+    used, lanes_list = [], []
+    for i, (count, size) in enumerate(zip(counts, sizes)):
+        if count == 0:
+            continue
+        take = min(int(count), int(size))
+        lanes = rng.choice(size, size=take, replace=False)
+        if take < count:  # slot smaller than its share: replacement
+            lanes = np.concatenate(
+                [lanes, rng.choice(size, size=int(count) - take,
+                                   replace=True)])
+        used.append(i)
+        lanes_list.append(lanes)
+    return tuple(used), tuple(lanes_list)

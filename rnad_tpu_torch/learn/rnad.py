@@ -27,7 +27,12 @@ half-steps and moves the running averages; the rollout actor, the frozen
 passes and NashConv read running averages (the mode is an argument of each
 forward, so no module state carries from one phase into the next).  The EMA
 target averages the BatchNorm statistics with the weights; Adam sees the
-weights only.
+weights only.  Under data parallelism the learner's BatchNorm has two
+semantics, named by ``learn_step``'s ``batch_norm``: "global" (the
+global-stream path, ``rnad_tpu``'s GSPMD step: statistics over the global
+batch) and "per_rank" (the per-rank-stream path, ``rnad_tpu``'s non-sync
+shard_map step: each rank's own statistics, the running averages then
+averaged over the ranks).
 
 With ``n_batches_per_buffer`` or ``buffer_mod`` above 1, ``RNaD.run`` keeps
 a replay buffer (``learn/buffer.py``): a fresh rollout when the buffer is
@@ -253,7 +258,8 @@ def learn_loss(state: TrainState, packed: stepping.PackedTables,
                traj: engine.Trajectory, alpha: float, cfg: RNaDConfig,
                neurd_scale: float = 1.0,
                inputs: Optional[LearnerInputs] = None,
-               group: Optional[DataGroup] = None
+               group: Optional[DataGroup] = None,
+               batch_norm: str = "global"
                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Loss of one learner update; differentiable w.r.t. ``state.net``.
     ``inputs`` defaults to ``learner_inputs(state, packed, traj)``.
@@ -264,7 +270,10 @@ def learn_loss(state: TrainState, packed: stepping.PackedTables,
     this rank's share of the global loss and the ranks' gradients add up to
     its gradient.  The metrics are global: the losses are summed over the
     ranks, and the diagnostics' counts and extrema reduce over them, so
-    every metric equals its unsharded value up to summation order."""
+    every metric equals its unsharded value up to summation order.  A
+    ConvNet's BatchNorm normalizes over the global batch where
+    ``batch_norm`` is "global" and over this rank's lanes where it is
+    "per_rank" (``learn_step``)."""
     gsum = group.global_sum if group is not None else None
     fuse = resolve_fuse_mode(state.net, cfg)
     if inputs is None:
@@ -278,9 +287,9 @@ def learn_loss(state: TrainState, packed: stepping.PackedTables,
     alpha_f32 = np.float32(alpha)
     alpha, one_minus_alpha = float(alpha_f32), float(np.float32(1) - alpha_f32)
 
-    logits, v_raw = nets.forward_train(state.net, obs_flat,
-                                       valid.reshape(T * B),
-                                       inputs.solver_feats)
+    logits, v_raw = nets.forward_train(
+        state.net, obs_flat, valid.reshape(T * B), inputs.solver_feats,
+        group if batch_norm == "global" else None)
     logits = logits.reshape(T, B, A)
     v = v_raw.reshape(T, B)[..., None]
     pi = common.masked_policy(logits, masks)
@@ -427,7 +436,8 @@ def rollout(state: TrainState, tree: GameTree, packed: stepping.PackedTables,
 
 def learn_step(state: TrainState, packed: stepping.PackedTables,
                traj: engine.Trajectory, alpha: float, cfg: RNaDConfig,
-               group: Optional[DataGroup] = None) -> Dict[str, torch.Tensor]:
+               group: Optional[DataGroup] = None,
+               batch_norm: str = "global") -> Dict[str, torch.Tensor]:
     """One learner update on ``traj``: loss, gradients, clip + Adam, EMA.
 
     Under ``group`` ``traj`` is this rank's slice of the lanes, and the
@@ -439,18 +449,34 @@ def learn_step(state: TrainState, packed: stepping.PackedTables,
     multiplies each shard's gradient by the axis size n and pmean divides
     by n; here each rank's loss is already its numerator over the global
     count (``learn_loss``), so the SUM is the unsharded gradient itself.
-    A ConvNet's BatchNorm statistics, moved by each rank's own lanes, are
-    then averaged over the ranks (SUM / world, ``pmean``), so every rank
-    carries the same buffers into the EMA target."""
+
+    ``batch_norm`` names a ConvNet's BatchNorm semantic under ``group``
+    (the caller's choice; it changes nothing without a group or a
+    BatchNorm):
+
+    * "global" (``parallel/runtime.py``, ``rnad_tpu``'s GSPMD step): the
+      statistics are the global batch's (``MaskedBatchNorm`` under a
+      group), so every rank moves its running averages alike and they are
+      left as they are: averaging equal buffers, (x + x + x) / 3, need not
+      round back to x.
+    * "per_rank" (``parallel/shard_map_step.py``, ``rnad_tpu``'s non-sync
+      shard_map step): each rank normalizes by its own lanes, and the
+      running averages are then averaged over the ranks (SUM / world,
+      ``pmean``), so every rank carries the same buffers into the EMA
+      target."""
+    if batch_norm not in ("global", "per_rank"):
+        raise ValueError(f"unknown batch_norm {batch_norm!r}; expected "
+                         "'global' or 'per_rank'")
     params = list(state.net.parameters())
     loss, metrics = learn_loss(state, packed, traj, alpha, cfg,
                                neurd_scale_for(cfg, state.total_steps),
-                               group=group)
+                               group=group, batch_norm=batch_norm)
     grads = torch.autograd.grad(loss, params)
     if group is not None:
         grads = group.sum_tensors(grads)
-        group.average_([b for b in state.net.buffers()
-                        if b.is_floating_point()])
+        if batch_norm == "per_rank":
+            group.average_([b for b in state.net.buffers()
+                            if b.is_floating_point()])
     metrics["gradient_norm"] = torch.sqrt(sum((g * g).sum() for g in grads))
     optimizer_update(cfg, params, list(grads), state.opt)
     ema_update(cfg.gamma_averaging, state.net, state.net_target)
@@ -566,8 +592,12 @@ class RNaD:
     ``rnad_tpu``; every rank reads it on resume.  A checkpoint holds no
     per-rank state (the weights, Adam and the noise generator are
     replicated), so a run saved by some number of ranks resumes on any
-    other that divides the batch.  The ConvNet and the buffered step raise
-    ``NotImplementedError`` there (``runtime.check_data_parallel``)."""
+    other that divides the batch.  A ConvNet's BatchNorm normalizes over
+    the global batch (``learn_step``'s "global").  The buffered step keeps
+    this rank's lanes of each rollout in its buffer, and every rank draws
+    the global sampling plan from its own copy of the sampler (seeded
+    alike); the lanes a rank's collated positions need from other ranks
+    come in one all-reduce per dtype (``TrajectoryBuffer.sample``)."""
 
     def __init__(self, tree: GameTree, cfg: RNaDConfig = RNaDConfig(),
                  net_config: Optional[NetConfig] = None,
@@ -583,7 +613,7 @@ class RNaD:
         if group is not None:
             from ..parallel import runtime
 
-            runtime.check_data_parallel(cfg, group, net_config.type)
+            runtime.check_data_parallel(cfg, group)
             device = group.device
         if net_config.max_actions != tree.max_actions:
             raise ValueError(f"net max_actions {net_config.max_actions} != "
@@ -611,8 +641,13 @@ class RNaD:
         if group is None:
             self.train_step = make_train_step(self.tree, self.packed, cfg,
                                               self.obs_transform)
+            self._rollout = lambda state: rollout(
+                state, self.tree, self.packed, cfg,
+                obs_transform=self.obs_transform)
         else:
             self.train_step = runtime.make_sharded_train_step(
+                self.tree, self.packed, cfg, group, self.obs_transform)
+            self._rollout = runtime.make_sharded_rollout(
                 self.tree, self.packed, cfg, group, self.obs_transform)
         self.m = 0
         self.n = 0
@@ -779,18 +814,21 @@ class RNaD:
         self._maybe_save_best(value, step)
         return value
 
-    def _buffered_step(self, buffer: buffer_lib.TrajectoryBuffer,
-                       alpha: float) -> Dict[str, torch.Tensor]:
+    def buffered_step(self, buffer: buffer_lib.TrajectoryBuffer,
+                      alpha: float) -> Dict[str, torch.Tensor]:
         """One buffered learner step: a fresh rollout into ``buffer`` when it
         is empty (a resume at a step count off the ``buffer_mod`` grid) or
         the step count is a multiple of ``buffer_mod``, then ``learn_step``
-        on the lanes the buffer samples (``learn_jit.sampled``)."""
+        on the lanes the buffer samples (``learn_jit.sampled``).  Under a
+        group the rollout is this rank's lanes, the sample is the group's
+        exchange, and ``total_steps``, replicated, makes every rank take
+        the same branch and so issue the same collectives."""
         cfg = self.cfg
         if len(buffer) == 0 or self.state.total_steps % cfg.buffer_mod == 0:
-            buffer.append(rollout(self.state, self.tree, self.packed, cfg,
-                                  obs_transform=self.obs_transform))
-        traj = buffer.sample(cfg.batch_size, self._np_rng)
-        return learn_step(self.state, self.packed, traj, alpha, cfg)
+            buffer.append(self._rollout(self.state))
+        traj = buffer.sample(cfg.batch_size, self._np_rng, self.group)
+        return learn_step(self.state, self.packed, traj, alpha, cfg,
+                          self.group, batch_norm="global")
 
     def run(self, max_updates: int = 10**6, checkpoint_mod: int = 1000,
             expl_mod: int = 1, log_mod: int = 20) -> None:
@@ -832,7 +870,7 @@ class RNaD:
                 if on_policy:
                     _, metrics = self.train_step(self.state, alpha)
                 else:
-                    metrics = self._buffered_step(buffer, alpha)
+                    metrics = self.buffered_step(buffer, alpha)
                 if self.n % log_mod == 0:
                     row = {k: float(v) for k, v in metrics.items()}
                     now = time.perf_counter()

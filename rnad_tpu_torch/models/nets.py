@@ -302,13 +302,26 @@ class MaskedBatchNorm(nn.Module):
     masked samples (``rnad_tpu``'s ``MaskedBatchNorm``).
 
     Train mode normalizes by the batch's two-pass population statistics,
-    weighted by a per-sample 0/1 ``mask`` over N * H * W cells with
-    ``denom = max(sum(mask) * H * W, 1)``, and moves the running averages
-    in place with flax's convention ``ra = 0.99 ra + 0.01 batch`` (outside
-    autograd).  Eval mode normalizes by the running averages.  The mode is
-    an argument of each call, never the module's ``training`` flag.  The
-    statistics and the normalization are float32; the output is cast to
-    ``dtype``."""
+    weighted by a per-sample 0/1 ``mask`` over N * H * W cells (no mask:
+    every sample) with ``denom = max(sum(mask) * H * W, 1)``, and moves the
+    running averages in place with flax's convention ``ra = 0.99 ra + 0.01
+    batch`` (outside autograd).  Eval mode normalizes by the running
+    averages.  The mode is an argument of each call, never the module's
+    ``training`` flag.  The statistics and the normalization are float32;
+    the output is cast to ``dtype``.
+
+    Under ``group`` (a ``parallel.mesh.DataGroup``; train mode only) ``x``
+    is this rank's slice of the batch and the statistics are those of the
+    global batch, as ``rnad_tpu``'s GSPMD path computes them over a sharded
+    lane axis: one differentiable all-reduce (``global_sum_grad``) of [the
+    per-channel sums of w * x, sum(w)], ``denom`` clamped after that sum
+    (so a rank whose own samples are all masked gets the same statistics),
+    and one of the per-channel sums of w * (x - mean)^2.  The running
+    averages move from the global statistics, so they are equal on every
+    rank.  Over one rank the all-reduces change nothing, and the ops are
+    the plain path's in its order: a one-rank run is the plain run,
+    bitwise.  Not ``torch.nn.SyncBatchNorm``, which has no per-sample mask
+    and another variance formula."""
 
     momentum = 0.99
     epsilon = 1e-5
@@ -322,22 +335,24 @@ class MaskedBatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor, train: bool = False,
                 mask: Optional[torch.Tensor] = None,
-                dtype: torch.dtype = torch.float32) -> torch.Tensor:
+                dtype: torch.dtype = torch.float32,
+                group=None) -> torch.Tensor:
         view = lambda v: v.reshape(1, -1, 1, 1)
         x = x.float()
         if not train:
             mean, var = self.mean, self.var
         else:
             axes = (0, 2, 3)
-            if mask is None:
-                mean = x.mean(dim=axes)
-                var = ((x - view(mean)) ** 2).mean(dim=axes)
-            else:
-                w = mask.float().reshape(-1, 1, 1, 1)
-                per_sample = float(x.shape[2] * x.shape[3])
-                denom = torch.clamp(w.sum() * per_sample, min=1.0)
-                mean = (x * w).sum(dim=axes) / denom
-                var = (((x - view(mean)) ** 2) * w).sum(dim=axes) / denom
+            total = (group.global_sum_grad if group is not None
+                     else lambda t: t)
+            w = (torch.ones(x.shape[0], device=x.device) if mask is None
+                 else mask.float()).reshape(-1, 1, 1, 1)
+            per_sample = float(x.shape[2] * x.shape[3])
+            sums = total(torch.cat([(x * w).sum(dim=axes),
+                                    w.sum().reshape(1)]))
+            denom = torch.clamp(sums[-1] * per_sample, min=1.0)
+            mean = sums[:-1] / denom
+            var = total((((x - view(mean)) ** 2) * w).sum(dim=axes)) / denom
             with torch.no_grad():
                 m = self.momentum
                 self.mean.copy_(m * self.mean + (1.0 - m) * mean)
@@ -362,12 +377,13 @@ class ConvResBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, train: bool = False,
                 mask: Optional[torch.Tensor] = None,
-                dtype: torch.dtype = torch.float32) -> torch.Tensor:
+                dtype: torch.dtype = torch.float32,
+                group=None) -> torch.Tensor:
         h = x
         for i in range(2):
             h = torch.relu(getattr(self, f"conv{i}")(h, dtype))
             if self.batch_norm:
-                h = getattr(self, f"bn{i}")(h, train, mask, dtype)
+                h = getattr(self, f"bn{i}")(h, train, mask, dtype, group)
         return x + h
 
 
@@ -377,10 +393,11 @@ class ConvNet(nn.Module):
     logits) and ``value`` heads over the (A, A, C) flattening in flax's
     channels-last order, in float32 or bfloat16.
 
-    ``forward(obs, solver_feats=None, train=False, mask=None)``: train mode
-    normalizes by the batch's statistics (leaving out samples whose ``mask``
-    is 0) and moves the BatchNorm running averages; eval mode, the default,
-    reads them."""
+    ``forward(obs, solver_feats=None, train=False, mask=None, group=None)``:
+    train mode normalizes by the batch's statistics (leaving out samples
+    whose ``mask`` is 0; over the global batch under a data-parallel
+    ``group``) and moves the BatchNorm running averages; eval mode, the
+    default, reads them."""
 
     def __init__(self, max_actions: int, channels: int = 16, depth: int = 1,
                  batch_norm: bool = True, in_channels: int = 2,
@@ -406,7 +423,7 @@ class ConvNet(nn.Module):
 
     def forward(self, obs: torch.Tensor, solver_feats=None,
                 train: bool = False, mask: Optional[torch.Tensor] = None,
-                dtype: Optional[torch.dtype] = None
+                dtype: Optional[torch.dtype] = None, group=None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """(N, C, A, A) observations -> (logits (N, A), values (N,))."""
         del solver_feats
@@ -415,7 +432,7 @@ class ConvNet(nn.Module):
             mask = mask.reshape(-1)
         x = self.pre(obs.to(dtype), dtype)
         for i in range(self.depth):
-            x = getattr(self, f"block{i}")(x, train, mask, dtype)
+            x = getattr(self, f"block{i}")(x, train, mask, dtype, group)
         flat = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)  # flax's NHWC
         return (_dense(self.policy, flat, dtype).float(),
                 _dense(self.value, flat, dtype)[:, 0].float())
@@ -423,12 +440,14 @@ class ConvNet(nn.Module):
 
 def forward_train(net: nn.Module, obs: torch.Tensor,
                   mask: Optional[torch.Tensor] = None,
-                  solver_feats=None) -> Tuple[torch.Tensor, torch.Tensor]:
+                  solver_feats=None, group=None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The learner's pass (``rnad_tpu``'s ``apply_train``): a ConvNet in
     train mode with the per-sample ``mask`` (its BatchNorm running averages
-    move); any other net as its plain forward."""
+    move), its statistics over the global batch under ``group``; any other
+    net as its plain forward."""
     if isinstance(net, ConvNet):
-        return net(obs, train=True, mask=mask)
+        return net(obs, train=True, mask=mask, group=group)
     return net(obs, solver_feats)
 
 

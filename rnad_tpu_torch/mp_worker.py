@@ -2,27 +2,38 @@
 ``tools/mp_worker.py``).
 
 Each process runs this program: it joins the group through
-``parallel.runtime.initialize_distributed`` (gloo by default, so that
-ranks may share one card), builds the tree and the trainer from the shared
-seed, and runs the global-stream fused step (``runtime.py``) with its
-slice of the lanes; the only communication is ``torch.distributed``'s.
-Every rank prints one JSON line: its losses, the parameter checksum after
-each step (the sum of |w| over the learner's weights), a SHA-256 of the
-weights' bytes (equal on every rank when the weights are replicated) and
-the wall time of each step; rank 0 also writes it to ``--out``.
+``parallel.runtime.initialize_distributed`` (on the card over NCCL unless
+``--cpu`` or ``--backend`` says otherwise; ranks that share one card need
+``--backend gloo``, since NCCL refuses them), builds the tree and the
+trainer from the shared seed, and runs the global-stream fused step
+(``runtime.py``) with its slice of the lanes, or with
+``--n-batches-per-buffer`` / ``--buffer-mod`` the buffered step from a
+fresh buffer; the only communication is ``torch.distributed``'s.  The net
+is an MLP (``--width``) or, with ``--net``, the EquiNet or the ConvNet
+(``--channels``, ``--net-depth``), on raw observations or under the lift
+(``--obs-lift C``).  Every rank prints one JSON line: its losses, the
+parameter checksum after each step (the sum of |w| over the learner's
+weights), a SHA-256 of the learner's state dict (weights and BatchNorm
+statistics; equal on every rank when they are replicated), the wall time
+of each step and the kernels' launches over the steps (0 on the CPU,
+where the wrappers run their plain versions); rank 0 also writes it to
+``--out``.
 
-The train task (default) optionally saves its step-0 trajectory lanes
-(``--traj-out DIR``: ``DIR/rank<i>.npz``), checkpoints at its end
-(``--save``) or resumes (``--resume``) in ``--run-dir``, whatever the rank
-count that saved it.  ``--task nashconv`` runs the node-sharded NashConv
-(``metrics/nashconv_shard.py``) of a stored tree (``--tree-dir``) under the
-joint policy in ``--policy`` (an (S, 2A) ``.npy``) and writes rank 0's
-per-node values to ``--out`` (``.npz``).
+The train task (default) optionally saves trajectory lanes (``--traj-out
+DIR``: ``DIR/rank<i>.npz``): the on-policy step's step-0 rollout, or the
+buffered step's collated batch of every step (stacked on a leading step
+axis).  It checkpoints at its end (``--save``) or resumes (``--resume``)
+in ``--run-dir``, whatever the rank count that saved it.  ``--task
+nashconv`` runs the node-sharded NashConv (``metrics/nashconv_shard.py``)
+of a stored tree (``--tree-dir``) under the joint policy in ``--policy``
+(an (S, 2A) ``.npy``) and writes rank 0's per-node values to ``--out``
+(``.npz``).
 
-Spawned by ``rnad_tpu_torch/multiprocess_check.py``:
+Spawned by ``rnad_tpu_torch/multiprocess_check.py``; two ranks sharing one
+card:
 
-    python -m rnad_tpu_torch.mp_worker --process-id I --num-processes N \\
-        --port P [--device cpu|cuda] [--backend gloo|nccl] [--steps S]
+    python -m rnad_tpu_torch.mp_worker --process-id I --num-processes 2 \\
+        --port P --backend gloo [--steps S] [--net ConvNet] ...
 """
 
 from __future__ import annotations
@@ -38,10 +49,12 @@ import time
 import numpy as np
 import torch
 
-from .config import NetConfig, RNaDConfig, TreeConfig
+from .config import NetConfig, ObsTransformConfig, RNaDConfig, TreeConfig
 from .env import tree as tree_lib
+from .learn import buffer as buffer_lib
 from .learn import rnad as rnad_lib
 from .metrics import nashconv_shard
+from .ops import fused_turn, lookup, rmplus
 from .parallel import runtime
 from .utils import checkpoint
 
@@ -51,15 +64,28 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--process-id", type=int, required=True)
     p.add_argument("--num-processes", type=int, required=True)
     p.add_argument("--port", type=int, required=True)
-    p.add_argument("--device", choices=["cpu", "cuda"], default="cpu")
-    p.add_argument("--backend", default="gloo")
+    p.add_argument("--cpu", dest="device", action="store_const",
+                   const="cpu", default="cuda",
+                   help="run on the CPU instead of the card")
+    p.add_argument("--backend", default=None,
+                   help="nccl on the card, gloo on the CPU by default")
     p.add_argument("--task", choices=["train", "nashconv"], default="train")
     p.add_argument("--out", default=None,
                    help="rank 0's result (JSON, or .npz for nashconv)")
     p.add_argument("--steps", type=int, default=4)
     p.add_argument("--batch-size", type=int, default=64)
     p.add_argument("--seed", type=int, default=7)
+    p.add_argument("--net", choices=["MLP", "ConvNet", "EquiNet"],
+                   default="MLP")
     p.add_argument("--width", type=int, default=32)
+    p.add_argument("--channels", type=int, default=16,
+                   help="ConvNet / EquiNet only")
+    p.add_argument("--net-depth", type=int, default=1)
+    p.add_argument("--obs-lift", type=int, default=None, metavar="C",
+                   help="noisy observation transform with C lifted channels")
+    p.add_argument("--obs-noise-sigma", type=float, default=0.1)
+    p.add_argument("--n-batches-per-buffer", type=int, default=1)
+    p.add_argument("--buffer-mod", type=int, default=1)
     p.add_argument("--tree-depth", type=int, default=3)
     p.add_argument("--tree-dir", default=None,
                    help="a stored tree (tree.npz, meta.json) in place of "
@@ -82,10 +108,11 @@ def _tree(args, device):
 
 
 def param_digest(net: torch.nn.Module) -> str:
-    """SHA-256 of the weights' bytes, in ``parameters()`` order."""
+    """SHA-256 of the state dict's bytes (the weights and any BatchNorm
+    statistics), in its order."""
     h = hashlib.sha256()
-    for p in net.parameters():
-        h.update(p.detach().cpu().numpy().tobytes())
+    for t in net.state_dict().values():
+        h.update(t.detach().cpu().numpy().tobytes())
     return h.hexdigest()
 
 
@@ -93,13 +120,36 @@ def checksum(net: torch.nn.Module) -> float:
     return float(sum(p.detach().abs().sum() for p in net.parameters()))
 
 
+class _RecordingBuffer(buffer_lib.TrajectoryBuffer):
+    """A replay buffer that keeps each collated batch it samples."""
+
+    def __init__(self, max_size: int):
+        super().__init__(max_size)
+        self.samples = []
+
+    def sample(self, *args, **kwargs):
+        traj = super().sample(*args, **kwargs)
+        self.samples.append(traj)
+        return traj
+
+
+TRAJ_FIELDS = ("indices", "policy", "actions", "rewards")
+
+
 def train(args, group) -> dict:
     tree = _tree(args, group.device)
+    lift = ({} if args.obs_lift is None else dict(
+        obs_transform=ObsTransformConfig(kind="lift", channels=args.obs_lift,
+                                         sigma=args.obs_noise_sigma)))
     cfg = RNaDConfig(batch_size=args.batch_size, eta=0.2, bounds=(10,),
                      delta_m=(100,), lr=1e-3, gamma_averaging=0.01,
-                     logit_clip=2.0)
-    net_cfg = NetConfig(type="MLP", max_actions=tree.max_actions,
-                        width=args.width)
+                     logit_clip=2.0,
+                     n_batches_per_buffer=args.n_batches_per_buffer,
+                     buffer_mod=args.buffer_mod, **lift)
+    net_cfg = NetConfig(type=args.net, max_actions=tree.max_actions,
+                        width=args.width, channels=args.channels,
+                        depth=args.net_depth)
+    on_policy = cfg.n_batches_per_buffer == 1 and cfg.buffer_mod == 1
     with tempfile.TemporaryDirectory() as scratch:
         root, name = os.path.split(os.path.normpath(args.run_dir or
                                                     os.path.join(scratch,
@@ -110,33 +160,49 @@ def train(args, group) -> dict:
             raise RuntimeError(f"no checkpoint to resume in {args.run_dir}")
         trainer.initialize()
         state = trainer.state
-        if args.traj_out:  # the rollout of step 0, generator restored
+        saved = None
+        if args.traj_out and on_policy:  # step 0's rollout, noise restored
             before = state.generator.get_state()
-            traj = runtime.make_sharded_rollout(trainer.tree, trainer.packed,
-                                                cfg, group)(state)
+            traj = runtime.make_sharded_rollout(
+                trainer.tree, trainer.packed, cfg, group,
+                trainer.obs_transform)(state)
             state.generator.set_state(before)
-            os.makedirs(args.traj_out, exist_ok=True)
-            np.savez(os.path.join(args.traj_out, f"rank{group.rank}.npz"),
-                     **{k: getattr(traj, k).cpu().numpy() for k in
-                        ("indices", "policy", "actions", "rewards")})
+            saved = {k: getattr(traj, k).cpu().numpy() for k in TRAJ_FIELDS}
+        buffer = _RecordingBuffer(cfg.n_batches_per_buffer)
+        step = ((lambda: trainer.train_step(state, 0.5)[1]) if on_policy
+                else (lambda: trainer.buffered_step(buffer, 0.5)))
         sync = (torch.cuda.synchronize if group.device.type == "cuda"
                 else lambda: None)
         losses, checksums, step_s = [], [], []
+        fused_turn.fused_turn.launches = lookup.lookup.launches = 0
+        rmplus.rmplus.launches = 0
         for _ in range(args.steps):
             sync()
             t0 = time.perf_counter()
-            _, metrics = trainer.train_step(state, 0.5)
+            metrics = step()
             sync()
             step_s.append(time.perf_counter() - t0)
             losses.append(runtime.host_value(metrics["loss"]))
             checksums.append(checksum(state.net))
+        launches = {"k1": fused_turn.fused_turn.launches,
+                    "k2": lookup.lookup.launches,
+                    "k3": rmplus.rmplus.launches}
+        if args.traj_out and not on_policy:  # every step's collated lanes
+            saved = {k: np.stack([getattr(t, k).cpu().numpy()
+                                  for t in buffer.samples])
+                     for k in TRAJ_FIELDS}
+        if saved is not None:
+            os.makedirs(args.traj_out, exist_ok=True)
+            np.savez(os.path.join(args.traj_out, f"rank{group.rank}.npz"),
+                     **saved)
         if args.save:
             trainer.m, trainer.n = 0, state.total_steps
             trainer.save_checkpoint()
             group.barrier()  # the checkpoint is written before any rank exits
     return {"losses": losses, "param_checksum": checksums[-1],
             "checksums": checksums, "param_digest": param_digest(state.net),
-            "total_steps": state.total_steps, "step_s": step_s}
+            "total_steps": state.total_steps, "step_s": step_s,
+            "launches": launches}
 
 
 def nashconv(args, group) -> dict:
@@ -156,16 +222,17 @@ def nashconv(args, group) -> dict:
 def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
     torch.set_num_threads(1)  # ranks may share the host's cores
+    backend = args.backend or runtime.default_backend(args.device)
     runtime.initialize_distributed(f"localhost:{args.port}",
                                    args.num_processes, args.process_id,
-                                   args.backend, args.device)
+                                   backend, args.device)
     try:
-        group = runtime.data_group(args.device, args.backend)
+        group = runtime.data_group(args.device, backend)
         result = (train if args.task == "train" else nashconv)(args, group)
     finally:
         runtime.shutdown()
     result.update(process_id=group.rank, num_processes=group.world,
-                  device=str(group.device), backend=args.backend)
+                  device=str(group.device), backend=backend)
     print(json.dumps(result), flush=True)
     if args.out and group.rank == 0 and args.task == "train":
         with open(args.out, "w") as f:

@@ -2,16 +2,22 @@
 ``tools/multiprocess_check.py``).
 
 Spawns N processes (``rnad_tpu_torch/mp_worker.py``) that form one
-``torch.distributed`` group over localhost and run the global-stream fused
-step on their slices of the lanes, and holds the per-step losses and the
-final parameter checksum against a one-process run of the same seed: the
-run samples the same episodes whatever the rank count
-(``parallel/runtime.py``), so the numbers agree up to summation order.
+``torch.distributed`` group over localhost and run the global-stream step
+on their slices of the lanes (the fused on-policy step, or the buffered
+step with ``--n-batches-per-buffer`` / ``--buffer-mod``; an MLP, or the
+ConvNet or EquiNet with ``--net``, under the lift with ``--obs-lift``), and
+holds the per-step losses and the final parameter checksum against a
+one-process run of the same seed: the run samples the same episodes
+whatever the rank count (``parallel/runtime.py``), so the numbers agree up
+to summation order.  It runs on the card (NCCL) unless ``--cpu`` asks for
+the CPU (gloo); ranks that share one card need ``--backend gloo``, since
+NCCL refuses two ranks on one card.
 
-    python -m rnad_tpu_torch.multiprocess_check                  # 2 ranks
-    python -m rnad_tpu_torch.multiprocess_check --num-processes 4
-    python -m rnad_tpu_torch.multiprocess_check --device cuda    # one card,
-                                                  # ranks sharing it over gloo
+    python -m rnad_tpu_torch.multiprocess_check --cpu            # 2 ranks
+    python -m rnad_tpu_torch.multiprocess_check --cpu --num-processes 4 \\
+        --net ConvNet --channels 8 --net-depth 2 --obs-lift 8
+    python -m rnad_tpu_torch.multiprocess_check --backend gloo   # one card,
+                                                  # ranks sharing it
 
 Every child has a time limit; a rank that fails or hangs fails the check
 and the others are killed.
@@ -34,12 +40,13 @@ REPO = os.path.dirname(os.path.dirname(os.path.realpath(__file__)))
 
 
 def spawn(num_processes: int, worker_args: Sequence[str], timeout: float,
-          backend: str = "gloo", device: str = "cpu",
+          *, device: str, backend: Optional[str] = None,
           module: str = "rnad_tpu_torch.mp_worker") -> List[dict]:
-    """Runs ``num_processes`` ranks of ``python -m module`` (each told its
-    ``--process-id``, ``--num-processes``, ``--port``, ``--backend`` and
-    ``--device``) to their end; returns the JSON object each printed last.
-    Raises if a rank fails or passes ``timeout`` seconds."""
+    """Runs ``num_processes`` ranks of ``python -m module`` on ``device``
+    ("cuda" or "cpu"; each told its ``--process-id``, ``--num-processes``,
+    ``--port``, ``--cpu`` on the CPU and ``--backend`` where given) to
+    their end; returns the JSON object each printed last.  Raises if a
+    rank fails or passes ``timeout`` seconds."""
     port = free_port()
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [REPO] + [p for p in os.environ.get("PYTHONPATH", "").split(
@@ -50,7 +57,8 @@ def spawn(num_processes: int, worker_args: Sequence[str], timeout: float,
     procs = [subprocess.Popen(
         [sys.executable, "-m", module,
          "--process-id", str(i), "--num-processes", str(num_processes),
-         "--port", str(port), "--backend", backend, "--device", device,
+         "--port", str(port), *(["--cpu"] if device == "cpu" else []),
+         *(["--backend", backend] if backend else []),
          *worker_args], env=env, stdout=out, stderr=err, text=True)
         for i, (out, err) in enumerate(logs)]
     deadline = time.monotonic() + timeout
@@ -79,22 +87,32 @@ def spawn(num_processes: int, worker_args: Sequence[str], timeout: float,
 
 
 def run_cluster(num_processes: int, steps: int, batch_size: int, seed: int,
-                backend: str = "gloo", device: str = "cpu",
+                *, device: str, backend: Optional[str] = None,
                 timeout: float = 600, run_dir: Optional[str] = None,
                 save: bool = False, resume: bool = False,
                 width: int = 32, tree_dir: Optional[str] = None,
-                traj_out: Optional[str] = None) -> dict:
-    """Runs ``num_processes`` ranks of the global-stream step for
-    ``steps`` steps; returns rank 0's result with ``ranks``, every rank's
-    (their ``param_digest`` agree when the weights stayed replicated)."""
+                traj_out: Optional[str] = None, net: str = "MLP",
+                channels: int = 16, net_depth: int = 1,
+                obs_lift: Optional[int] = None, obs_noise_sigma: float = 0.1,
+                n_batches_per_buffer: int = 1, buffer_mod: int = 1) -> dict:
+    """Runs ``num_processes`` ranks of the global-stream step (the
+    buffered one where ``n_batches_per_buffer`` or ``buffer_mod`` > 1) for
+    ``steps`` steps on ``device``; returns rank 0's result with ``ranks``,
+    every rank's (their ``param_digest`` agree when the weights and
+    BatchNorm statistics stayed replicated)."""
     args = ["--steps", str(steps), "--batch-size", str(batch_size),
-            "--seed", str(seed), "--width", str(width)]
+            "--seed", str(seed), "--width", str(width), "--net", net,
+            "--channels", str(channels), "--net-depth", str(net_depth),
+            "--obs-noise-sigma", str(obs_noise_sigma),
+            "--n-batches-per-buffer", str(n_batches_per_buffer),
+            "--buffer-mod", str(buffer_mod)]
     for flag, value in (("--run-dir", run_dir), ("--tree-dir", tree_dir),
-                        ("--traj-out", traj_out)):
-        if value:
-            args += [flag, value]
+                        ("--traj-out", traj_out), ("--obs-lift", obs_lift)):
+        if value is not None:
+            args += [flag, str(value)]
     args += ["--save"] * save + ["--resume"] * resume
-    ranks = spawn(num_processes, args, timeout, backend, device)
+    ranks = spawn(num_processes, args, timeout, device=device,
+                  backend=backend)
     return dict(ranks[0], ranks=ranks)
 
 
@@ -120,7 +138,7 @@ def run_resume_across(procs_a: int, steps_a: int, procs_b: int,
 
 
 def run_nashconv(num_processes: int, tree_dir: str, policy: str, out: str,
-                 backend: str = "gloo", device: str = "cpu",
+                 *, device: str, backend: Optional[str] = None,
                  timeout: float = 600) -> dict:
     """The node-sharded NashConv of the stored tree ``tree_dir`` under the
     joint policy ``policy`` (.npy) over ``num_processes`` ranks; rank 0's
@@ -128,20 +146,39 @@ def run_nashconv(num_processes: int, tree_dir: str, policy: str, out: str,
     ``ranks``."""
     ranks = spawn(num_processes, ["--task", "nashconv", "--tree-dir",
                                    tree_dir, "--policy", policy, "--out",
-                                   out], timeout, backend, device)
+                                   out], timeout, device=device,
+                   backend=backend)
     return dict(ranks[0], ranks=ranks)
 
 
-def main(argv=None) -> int:
+def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--num-processes", type=int, default=2)
     p.add_argument("--steps", type=int, default=4)
     p.add_argument("--batch-size", type=int, default=64)
     p.add_argument("--seed", type=int, default=7)
-    p.add_argument("--device", choices=["cpu", "cuda"], default="cpu")
-    args = p.parse_args(argv)
+    p.add_argument("--cpu", dest="device", action="store_const",
+                   const="cpu", default="cuda",
+                   help="run on the CPU instead of the card")
+    p.add_argument("--backend", default=None,
+                   help="nccl on the card, gloo on the CPU by default")
+    p.add_argument("--net", choices=["MLP", "ConvNet", "EquiNet"],
+                   default="MLP")
+    p.add_argument("--channels", type=int, default=16)
+    p.add_argument("--net-depth", type=int, default=1)
+    p.add_argument("--obs-lift", type=int, default=None, metavar="C")
+    p.add_argument("--n-batches-per-buffer", type=int, default=1)
+    p.add_argument("--buffer-mod", type=int, default=1)
+    return p
 
-    kw = dict(device=args.device)
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    kw = dict(device=args.device, backend=args.backend, net=args.net,
+              channels=args.channels, net_depth=args.net_depth,
+              obs_lift=args.obs_lift,
+              n_batches_per_buffer=args.n_batches_per_buffer,
+              buffer_mod=args.buffer_mod)
     multi = run_cluster(args.num_processes, args.steps, args.batch_size,
                         args.seed, **kw)
     single = run_single(args.steps, args.batch_size, args.seed, **kw)

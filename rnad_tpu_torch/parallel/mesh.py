@@ -7,7 +7,9 @@ over that axis combine gradients and metrics.  Here a process is one rank
 of the data axis: it holds the replicated weights on its own device and a
 contiguous slice of the lanes, and ``DataGroup`` is its handle on the
 axis.  ``global_sum`` is the counterpart of ``jax.lax.psum`` over
-``DATA_AXIS``, ``global_max`` of ``pmax``.
+``DATA_AXIS``, ``global_max`` of ``pmax``, and ``global_sum_grad`` of a
+``psum`` that autograd differentiates (the ConvNet's BatchNorm sums over
+the global batch).
 
 Every collective is an ``all_reduce`` (or a ``barrier``): the gloo backend
 runs ``all_reduce`` and ``broadcast`` on CUDA tensors but not
@@ -26,6 +28,24 @@ from typing import Iterable, List, Optional
 
 import torch
 import torch.distributed as dist
+
+
+class _GlobalSum(torch.autograd.Function):
+    """``all_reduce(SUM)`` forward and backward (``DataGroup.
+    global_sum_grad``)."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, group) -> torch.Tensor:
+        ctx.group = group
+        out = x.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        grad = grad.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(grad, op=dist.ReduceOp.SUM, group=ctx.group)
+        return grad, None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,6 +73,24 @@ class DataGroup:
         out = x.detach().clone()
         dist.all_reduce(out, op=dist.ReduceOp.SUM, group=self.group)
         return out
+
+    def global_sum_grad(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum of ``x`` over the ranks, differentiable: the backward
+        all-reduces (SUM) the incoming gradient, so every rank receives the
+        gradient of the *global* loss with respect to the sum.
+
+        Why that is the unsharded gradient under the port's convention
+        (``learn.rnad.learn_step``): each rank's loss L_r is its numerator
+        over the global count, and ``learn_step`` sums the parameter
+        gradients over the ranks.  With s = sum_r' x_r', rank r' receives
+        sum_r dL_r/ds and goes on through its own x_r', so the summed
+        gradients are d(sum_r L_r)/d(theta): what one rank computes on the
+        whole batch.  An identity backward would give each rank only
+        dL_r'/ds and lose the other ranks' shares.  Every rank must run the
+        backward (the graphs are the same on every rank, so autograd issues
+        the all-reduces in the same order).  The only collective here with
+        a gradient."""
+        return _GlobalSum.apply(x, self.group)
 
     def global_max(self, x: torch.Tensor) -> torch.Tensor:
         """The maximum of ``x`` over the ranks, as a new tensor without

@@ -17,11 +17,20 @@ learn_step``).  The stored behaviour policy is a softmax per lane and
 matches to float tolerance where the rank count changes the kernel's or
 the plain version's blocking.
 
-Two paths raise ``NotImplementedError`` here and are queued in ROADMAP.md:
-the ConvNet (``rnad_tpu``'s global-batch BatchNorm needs differentiable
-all-reduced BatchNorm sums; the per-rank-stream step of
-``shard_map_step.py`` runs it with per-rank BatchNorm) and the buffered
-step (its collated batch draws lanes that live on other ranks).
+Every configuration of the one-device trainer runs here:
+
+* A ConvNet's BatchNorm normalizes over the global batch, as GSPMD does
+  over ``rnad_tpu``'s sharded lane axis: two differentiable all-reduces
+  (``DataGroup.global_sum_grad``) a BatchNorm in the forward and two in the
+  backward (``models/nets.py::MaskedBatchNorm``), and no averaging of the
+  running statistics afterwards (``learn_step``'s "global").  The
+  per-rank-stream step of ``shard_map_step.py`` keeps ``rnad_tpu``'s
+  non-sync per-rank BatchNorm.
+* The buffered step keeps this rank's lanes of each rollout in its buffer;
+  every rank draws the same global sampling plan, and the lanes its
+  collated positions need from other ranks arrive in one all-reduce per
+  dtype (``learn/buffer.py::TrajectoryBuffer.sample``), the exchange
+  ``rnad_tpu``'s GSPMD inserts for ``learn_jit.sampled``.
 """
 
 from __future__ import annotations
@@ -125,24 +134,10 @@ def shutdown() -> None:
         dist.destroy_process_group()
 
 
-def check_data_parallel(cfg: RNaDConfig, group: mesh_lib.DataGroup,
-                        net_type: Optional[str] = None) -> None:
-    """Raises before anything runs where this path cannot run ``cfg`` (and
-    a net of ``net_type``, a ``NetConfig.type``, where given): a batch that
-    does not divide over the ranks (ValueError), the ConvNet and the
-    buffered step (NotImplementedError; module docstring)."""
+def check_data_parallel(cfg: RNaDConfig, group: mesh_lib.DataGroup) -> None:
+    """Raises ValueError before anything runs where the batch does not
+    divide over the ranks."""
     group.lanes(cfg.batch_size)
-    if net_type == "ConvNet":
-        raise NotImplementedError(
-            "the ConvNet under the data-parallel path: rnad_tpu normalizes "
-            "its BatchNorm over the global batch, which needs "
-            "differentiable all-reduced BatchNorm sums (not ported yet; "
-            "parallel/shard_map_step.py runs it with per-rank BatchNorm)")
-    if cfg.n_batches_per_buffer > 1 or cfg.buffer_mod > 1:
-        raise NotImplementedError(
-            "the buffered step (n_batches_per_buffer or buffer_mod > 1) "
-            "under data parallelism: the collated batch draws lanes that "
-            "live on other ranks (not ported yet)")
 
 
 def local_noise(noise: Sequence[torch.Tensor], lanes: slice,
@@ -186,15 +181,15 @@ def make_sharded_train_step(tree: GameTree, packed: stepping.PackedTables,
     """The fused step of one rank, ``train_step(state, alpha, noise=None)``
     (the signature of ``learn.rnad.make_train_step``'s): its lanes of the
     global-stream rollout (kernel K1, or the generic turn), one regather
-    (K2) and the group-aware ``learn_step``; returns (state, metrics), the
-    metrics global.  Raises where ``check_data_parallel`` does."""
+    (K2) and the group-aware ``learn_step`` (a ConvNet's BatchNorm over the
+    global batch); returns (state, metrics), the metrics global.  Raises
+    where ``check_data_parallel`` does."""
     check_data_parallel(cfg, group)
     rollout = make_sharded_rollout(tree, packed, cfg, group, obs_transform)
 
     def train_step(state: rnad_lib.TrainState, alpha: float, noise=None):
-        check_data_parallel(cfg, group, type(state.net).__name__)
         traj = rollout(state, noise)
         return state, rnad_lib.learn_step(state, packed, traj, alpha, cfg,
-                                          group)
+                                          group, batch_norm="global")
 
     return train_step

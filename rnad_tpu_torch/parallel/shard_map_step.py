@@ -75,7 +75,7 @@ def make_shard_map_train_step(tree: GameTree, cfg: RNaDConfig,
             obs_dtype=rnad_lib.obs_storage_dtype(state.net, cfg),
             actor_dtype=rnad_lib.nets.DTYPES[cfg.rollout_actor_dtype])
         return state, rnad_lib.learn_step(state, packed, traj, alpha, cfg,
-                                          group)
+                                          group, batch_norm="per_rank")
 
     return train_step
 
@@ -104,6 +104,6 @@ def make_shard_map_learn_step(tree: GameTree, cfg: RNaDConfig,
             raise ValueError(f"the trajectory has {traj.batch_size} lanes, "
                              f"the config {cfg.batch_size}")
         return rnad_lib.learn_step(state, packed, lane_slice(traj, lanes),
-                                   alpha, cfg, group)
+                                   alpha, cfg, group, batch_norm="per_rank")
 
     return learn

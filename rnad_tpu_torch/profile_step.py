@@ -95,7 +95,7 @@ def _buffered(run: rnad.RNaD) -> bool:
 
 def _phases(run: rnad.RNaD, alpha: float, buffer=None):
     """One train step as (name, thunk) phases, in train_step's order; with
-    a ``buffer``, the buffered step's (``RNaD._buffered_step``)."""
+    a ``buffer``, the buffered step's (``RNaD.buffered_step``)."""
     state, cfg = run.state, run.cfg
     box = {}
 
@@ -178,7 +178,7 @@ def main() -> None:
     buffer = None
     if _buffered(run):
         buffer = buffer_lib.TrajectoryBuffer(cfg.n_batches_per_buffer)
-        train_step = lambda: run._buffered_step(buffer, 1.0)
+        train_step = lambda: run.buffered_step(buffer, 1.0)
     else:
         train_step = lambda: run.train_step(run.state, 1.0)
     for _ in range(2 * cfg.n_batches_per_buffer * cfg.buffer_mod):

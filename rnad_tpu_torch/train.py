@@ -13,9 +13,10 @@ world of the ranks this process spans, one rank on one device; with
 ``--coordinator host:port --num-processes N --process-id i`` each of N
 processes is one rank, on ``cuda:(i % device_count)`` over NCCL, or over
 gloo under ``--cpu``.  Every rank takes its slice of the lanes of one global
-noise stream, and only rank 0 writes the tree and the run store.  The
-ConvNet and the buffered step raise there (``runtime.
-check_data_parallel``).
+noise stream, and only rank 0 writes the tree and the run store.  Every
+configuration runs there: a ConvNet's BatchNorm normalizes over the global
+batch, and the buffered step (``--n-batches-per-buffer``, ``--buffer-mod``)
+samples global lanes from the ranks' buffers (``parallel/runtime.py``).
 
 Examples:
   python -m rnad_tpu_torch.train --demo                 # reference demo run
@@ -253,7 +254,7 @@ def _train(args: argparse.Namespace, device,
            group: Optional[DataGroup] = None) -> rnad_lib.RNaD:
     cfg = _config(args)
     if group is not None:  # raises before the tree store is written
-        runtime.check_data_parallel(cfg, group, args.net)
+        runtime.check_data_parallel(cfg, group)
     tree = _tree(args, device, group is None or group.rank == 0)
     log.info("tree: size=%d depth=%d hash=%d", tree.size, tree.max_depth,
              tree.hash)

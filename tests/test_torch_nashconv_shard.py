@@ -53,7 +53,7 @@ def _sharded(tree_dir, policy, tmp_path):
     np.save(tmp_path / "policy.npy", policy)
     out = tmp_path / "values.npz"
     result = mpc.run_nashconv(RANKS, tree_dir, str(tmp_path / "policy.npy"),
-                              str(out), timeout=240)
+                              str(out), device="cpu", timeout=240)
     assert [r["num_processes"] for r in result["ranks"]] == [RANKS] * RANKS
     # every rank holds the whole result
     assert len({r["nashconv"] for r in result["ranks"]}) == 1

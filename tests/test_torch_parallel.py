@@ -16,7 +16,9 @@ each, a time limit on every cluster; ``multiprocess_check.spawn``):
   ranks and resumed on 4 against the straight one-rank run;
 * the per-rank-stream step (weights identical on every rank) and a
   ConvNet's per-rank BatchNorm under it (running statistics the mean of
-  the lane slices'), and the two paths that raise.
+  the lane slices').  The global-stream path's global BatchNorm and its
+  buffered step are tests/test_torch_parallel_global.py's and tests/
+  test_torch_parallel_buffered.py's.
 
 The EquiNet's policy head shifts every logit of a row alike (the bias, and
 its weights on pooled inputs equal across a row), which the loss does not
@@ -152,7 +154,7 @@ def learn_cases(small_tree, tmp_path_factory):
         out.mkdir()
         torch.save({n: cases[n] for n in names}, out / "cases.pt")
         mpc.spawn(world, ["--cases", str(out / "cases.pt"), "--out",
-                          str(out)], TIMEOUT,
+                          str(out)], TIMEOUT, device="cpu",
                   module="tests.torch_dist_worker")
         clusters[world] = [torch.load(out / f"rank{r}.pt",
                                       weights_only=True)
@@ -247,7 +249,7 @@ def test_convnet_batchnorm_statistics_combined(learn_cases, small_tree):
 def one_rank_run(tmp_path_factory):
     """The straight one-rank global-stream run: 4 steps, step 0's lanes."""
     traj_dir = tmp_path_factory.mktemp("single_traj")
-    return mpc.run_single(4, B, 7, timeout=TIMEOUT,
+    return mpc.run_single(4, B, 7, device="cpu", timeout=TIMEOUT,
                           traj_out=str(traj_dir)), traj_dir
 
 
@@ -257,7 +259,7 @@ def test_global_stream_two_ranks_equal_one(one_rank_run, tmp_path):
     equal), and 3 steps give its losses and checksum within rtol 1e-4 on
     weights that are bitwise equal on both ranks."""
     single, single_dir = one_rank_run
-    multi = mpc.run_cluster(2, 3, B, 7, timeout=TIMEOUT,
+    multi = mpc.run_cluster(2, 3, B, 7, device="cpu", timeout=TIMEOUT,
                             traj_out=str(tmp_path))
     assert multi["num_processes"] == 2
     whole = np.load(single_dir / "rank0.npz")
@@ -279,7 +281,7 @@ def test_resume_across_rank_counts(one_rank_run):
     """Saved by 2 ranks after 2 steps, resumed by 4 for 2 more: the
     losses are the straight one-rank run's within rtol 1e-4."""
     single, _ = one_rank_run
-    phase1, phase2 = mpc.run_resume_across(2, 2, 4, 2, B, 7,
+    phase1, phase2 = mpc.run_resume_across(2, 2, 4, 2, B, 7, device="cpu",
                                            timeout=TIMEOUT)
     assert phase1["num_processes"] == 2 and phase2["num_processes"] == 4
     assert phase2["total_steps"] == 4
@@ -292,28 +294,6 @@ def test_resume_across_rank_counts(one_rank_run):
 
 
 GROUP = torch_mesh.DataGroup(rank=0, world=2, device=torch.device("cpu"))
-
-
-@pytest.mark.parametrize("net,extra,match", [
-    ("ConvNet", {}, "the ConvNet under the data-parallel path"),
-    ("MLP", dict(n_batches_per_buffer=4, buffer_mod=2), "the buffered step"),
-])
-def test_unported_paths_raise_before_writing(small_tree, tmp_path, net,
-                                             extra, match):
-    """The ConvNet under the global-stream path and the buffered step
-    under a group raise NotImplementedError naming themselves, before the
-    run store is touched (no collective runs before the check)."""
-    tree = torch_tree(small_tree)
-    cfg = torch_config.RNaDConfig(**CFG, **extra)
-    with pytest.raises(NotImplementedError, match=match):
-        torch_rnad.RNaD(tree, cfg, torch_config.NetConfig(
-            type=net, max_actions=A, channels=4),
-            runs_root=str(tmp_path), group=GROUP)
-    assert not any(tmp_path.iterdir())
-    if net == "MLP":
-        with pytest.raises(NotImplementedError, match=match):
-            runtime.make_sharded_train_step(
-                tree, torch_stepping.make_packed_tables(tree), cfg, GROUP)
 
 
 def test_lanes_must_divide():
