@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Ten phases, and any failure exits nonzero:
+Eleven phases, and any failure exits nonzero:
 
 1. Build the three CUDA kernels from ``rnad_tpu_torch/csrc`` (one nvcc
    each, started together) and print the build time and ptxas's registers
@@ -151,6 +151,24 @@ Ten phases, and any failure exits nonzero:
    bf16 EquiNet under the group, the eval through ``nashconv_sharded``)
    against the plain run: launches equal (7 of K2 and of K3 a step, K3's
    eval chunks), weights bitwise, NashConv within 1e-6.
+11. Drive the model axis (``parallel/tensor_parallel.py`` on
+   ``runtime.grid``): (a) phase 3's config through ``RNaD`` on a 1 x 1
+   grid (one NCCL rank: the nets tensor-parallel over a model axis of one,
+   the rollout on the gathered actor) for one update period of 10 steps
+   and the final eval, counters zeroed just before (4 K1 and 1 K2 launch a
+   step), against the plain run: weights, target and NashConv bitwise,
+   the all-reduces of a step counted on each axis, both steps back to
+   back; (b) that config as model 2 on two gloo ranks sharing the card
+   (``parallel/dryrun.py::spawn_specs``, 3 steps) and (c)
+   ``dryrun_multichip``'s families at full width as 4 gloo ranks at data
+   2 x model 2 (2 steps each): flagship-3's bf16 EquiNet 64x2 s128 on its
+   tree at 1024 lanes, r5-noisy-conv's ConvNet 16x2 on its tree at 512
+   and the MLP 512x3 on the flagship tree at 4096 (the cuts printed),
+   each against one NCCL rank in this process on the same spec: losses
+   and the gathered learner's checksum within rtol 1e-4 (1e-3 for the
+   bf16 EquiNet), the learner equal on every rank, each rank's K1, K2 and
+   K3 launches and every step's all-reduces as predicted
+   (``MP_COLLECTIVES``), the per-step wall times printed.
 
 It runs in a temporary working directory (the CLI writes ``saved_trees/``
 and ``saved_runs/`` under it).  It prints a ``{"kernels": [...]}`` line,
@@ -559,19 +577,26 @@ def main() -> int:
     # (g) flagship-3, each as one data-parallel rank
     dp_paths = {"dp": "a", "dp_offpol": "d", "dp_noisy": "e",
                 "dp_flagship": "g"}
+
+    # -- phase 11: the model axis -----------------------------------------
+    mp = mp_phase(card, tree)
+    mp_paths = {"mp": "a", "mp_model2_rank0": "b", "mp_2x2_rank0": "c"}
     k1_by_path = {"mlp": k1_launches, "equinet": equi["k1"], "flagship": 0,
                   "offpol": offpol["k1"], "noisy": 0, "sweep": sweep["k1"],
                   "slice7": s7["k1"],
-                  **{p: dp[k].get("k1", 0) for p, k in dp_paths.items()}}
+                  **{p: dp[k].get("k1", 0) for p, k in dp_paths.items()},
+                  **{p: mp[k]["k1"] for p, k in mp_paths.items()}}
     k2_by_path = {"mlp": k2_launches, "equinet": equi["k2"],
                   "flagship": flag["k2"], "offpol": offpol["k2"],
                   "noisy": noisy["k2"], "sweep": sweep["k2"],
                   "slice7": s7["k2"],
-                  **{p: dp[k]["k2"] for p, k in dp_paths.items()}}
+                  **{p: dp[k]["k2"] for p, k in dp_paths.items()},
+                  **{p: mp[k]["k2"] for p, k in mp_paths.items()}}
     k3_by_path = {"mlp": 0, "equinet": equi["k3"], "flagship": flag["k3"],
                   "offpol": 0, "noisy": 0, "sweep": sweep["k3"],
                   "distill": s7["k3"],
-                  **{p: dp[k].get("k3", 0) for p, k in dp_paths.items()}}
+                  **{p: dp[k].get("k3", 0) for p, k in dp_paths.items()},
+                  **{p: mp[k]["k3"] for p, k in mp_paths.items()}}
     kernels = [
         {"name": "fused_turn", "route": "cuda",
          "source": "rnad_tpu_torch/csrc/fused_turn.cu",
@@ -2403,6 +2428,225 @@ def dp_flagship(card):
         f"through nashconv_sharded, {want:.7f} through nashconv_root "
         f"(|diff| {abs(got - want):.3g}) | {card}")
     return counts["dp"]
+
+
+# phase 11: the model axis.  (a) phase 3's config on a 1 x 1 grid (one NCCL
+# rank) and plain, one update period of 10 steps and the final eval; (b)
+# that config as model 2 on two gloo ranks sharing the card, 3 steps; (c)
+# dryrun_multichip's three families at full width as 4 gloo ranks at data
+# 2 x model 2, 2 steps each, their lanes cut as far as the phase's time
+# forces (each cut printed)
+MP_STEPS, MP_GLOO_STEPS, MP_FAMILY_STEPS = 10, 3, 2
+# the all-reduces of a step on each axis: data, 7 (the losses' global
+# counts, the metrics, the gradients) and 2 forward and 2 backward a
+# BatchNorm; model, the actor's gather and the global norm, and the
+# tensor-parallel layers' (parallel/tensor_parallel.py): the MLP's row
+# layers' reduces in 6 head passes, and its even hidden layers' input
+# copies in the learner's backward; the EquiNet's and the ConvNet's
+# gathers in 4 forwards, and their copies in the learner's backward
+MP_COLLECTIVES = {
+    "a": {"model": 2, "data": 7},  # one rank: only the gather and the norm
+    "b": {"model": 8, "data": 7},  # MLP 256x1: fc1's reduce a head pass
+    "EquiNet": {"model": 11, "data": 7},  # 4 x 2 gathers, 1 copy
+    "ConvNet": {"model": 26, "data": 23},  # 4 x 5 gathers, 4 copies
+    "MLP": {"model": 16, "data": 7},  # 6 x 2 reduces, 2 copies
+}
+# losses and the learner's checksum against one rank: phase 10's
+# multi-rank tolerance; the bf16 EquiNet's, phase 8's bf16 card-vs-CPU rtol
+MP_RTOL = {"EquiNet": 1e-3, "ConvNet": 1e-4, "MLP": 1e-4, "b": 1e-4}
+
+
+def _mp_family_specs(flag_dir, noisy_dir):
+    """dryrun_multichip's families at full width: flagship-3's EquiNet on
+    its tree (docs/runs/r4-flagship3.params.json), r5-noisy-conv's ConvNet
+    on its tree (docs/runs/r5-noisy-conv.params.json) and the distillation
+    floor's MLP 512x3 on the flagship tree with phase 3's R-NaD flags;
+    returns (specs, cuts, expected launches a rank)."""
+    from rnad_tpu_torch.config import NetConfig, RNaDConfig
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    params = lambda name: json.load(open(os.path.join(
+        repo, "docs", "runs", f"{name}.params.json")))
+    flag, noisy = params("r4-flagship3"), params("r5-noisy-conv")
+    mlp_cfg = RNaDConfig(batch_size=4096, eta=0.2, bounds=(3,),
+                         delta_m=(10,), lr=1e-3, gamma_averaging=0.01,
+                         logit_clip=2.0)
+    flag_cfg = dataclasses.replace(RNaDConfig.from_json(flag["rnad"]),
+                                   batch_size=1024)
+    mlp_net = NetConfig(type="MLP", max_actions=5, width=512, depth=3)
+    families = [("EquiNet", flag["net"], flag_cfg.to_json(), flag_dir),
+                ("ConvNet", noisy["net"], noisy["rnad"], noisy_dir),
+                ("MLP", mlp_net.to_json(), mlp_cfg.to_json(), flag_dir)]
+    specs = [{"name": name, "net": net, "rnad": rnad, "tree_dir": tree_dir,
+              "seed": 0, "steps": MP_FAMILY_STEPS}
+             for name, net, rnad, tree_dir in families]
+    cuts = {"EquiNet": "--batch-size 1024 (flagship-3: 32768)",
+            "ConvNet": "none (r5-noisy-conv's 512 lanes)",
+            "MLP": "--batch-size 4096 (phase 3: 32768)"}
+    n = MP_FAMILY_STEPS
+    launches = {"EquiNet": {"k1": 0, "k2": 7 * n, "k3": 7 * n},
+                "ConvNet": {"k1": 0, "k2": 4 * n, "k3": 0},
+                "MLP": {"k1": 0, "k2": 7 * n, "k3": 0}}
+    return specs, cuts, launches
+
+
+def _check_against_one_rank(name, ranks, one, rtol, launches, collectives,
+                            card):
+    """The ranks' report of run ``name`` against one rank's: losses and the
+    gathered learner's checksum within ``rtol`` (atol 1e-6), the learner
+    equal on every rank, each rank's launches and every step's all-reduces
+    as predicted; logs the per-step wall times."""
+    runs = [r["runs"][name] for r in ranks]
+    for a, b in zip(runs[0]["losses"] + [runs[0]["checksum"]],
+                    one["losses"] + [one["checksum"]], strict=True):
+        if not abs(a - b) <= 1e-6 + rtol * abs(b):
+            raise AssertionError(f"model axis {name}: losses "
+                                 f"{runs[0]['losses']} and checksum "
+                                 f"{runs[0]['checksum']} vs one rank's "
+                                 f"{one['losses']}, {one['checksum']}")
+    if len({r["digest"] for r in runs}) != 1:
+        raise AssertionError(f"model axis {name}: the ranks' gathered "
+                             "learners differ")
+    for r, run in enumerate(runs):
+        if run["launches"] != launches:
+            raise AssertionError(f"model axis {name}: rank {r} launches "
+                                 f"{run['launches']}, want {launches}")
+        if any(c != collectives for c in run["collectives"]):
+            raise AssertionError(f"model axis {name}: rank {r} all-reduces "
+                                 f"{run['collectives']}, want {collectives} "
+                                 "a step")
+    ms = lambda run: "/".join(f"{1e3 * s:.2f}" for s in run["step_s"])
+    log(f"  {name}: losses {runs[0]['losses']} vs one rank "
+        f"{one['losses']} (rtol {rtol:g}); learner checksum "
+        f"{runs[0]['checksum']:.6f} vs {one['checksum']:.6f}, equal on every"
+        f" rank; launches a rank {launches}; all-reduces a step "
+        f"{collectives} of {runs[0]['bytes'][-1]} bytes a rank")
+    log(f"  {name} per-step wall ms (host clock, synchronized; gloo ranks "
+        f"share the card's SMs and move data through the host): "
+        + ", ".join(f"rank {r} {ms(run)}" for r, run in enumerate(runs))
+        + f"; one NCCL rank {ms(one)} | {card}")
+
+
+def mp_phase(card, demo_tree):
+    """Phase 11: the model axis.  (a) Phase 3's config through ``RNaD``
+    on a 1 x 1 grid (one NCCL rank) against the plain run, bitwise, their
+    back-to-back step times and the all-reduces of a step; (b) that config
+    as model 2 on two gloo ranks sharing the card against one rank; (c)
+    ``dryrun_multichip``'s families at full width as 4 gloo ranks at data
+    2 x model 2 against one rank.  Returns the launch counts of (a) and of
+    rank 0's runs in (b) and (c)."""
+    import torch.distributed as dist
+
+    from rnad_tpu_torch.config import NetConfig, RNaDConfig
+    from rnad_tpu_torch.learn import rnad
+    from rnad_tpu_torch.parallel import dryrun, runtime
+    from rnad_tpu_torch.utils import checkpoint
+
+    t_phase = time.perf_counter()
+    cfg = RNaDConfig(batch_size=B_MAIN, eta=0.2, bounds=(1,),
+                     delta_m=(MP_STEPS,), lr=1e-3, gamma_averaging=0.01,
+                     logit_clip=2.0)
+    net_cfg = NetConfig(type="MLP", max_actions=3, width=256)
+    log(f"model axis (a): phase 3's config (B = {B_MAIN}, MLP 256) through "
+        f"RNaD on a 1 x 1 grid (one NCCL rank) and plain, one update period "
+        f"of {MP_STEPS} steps and the final eval")
+    grid = runtime.grid(1, "cuda")
+    try:
+        runs = {}
+        for name, g in (("mp_grid", grid), ("mp_plain", None)):
+            _zero_counts()
+            runs[name] = rnad.RNaD(demo_tree, cfg, net_cfg,
+                                   directory_name=name, seed=0,
+                                   device="cuda", group=g)
+            runs[name].run(log_mod=1)
+            runs[name].final_eval()
+            torch.cuda.synchronize()
+            if name == "mp_grid":
+                counts = _counts()
+        want = {"k1": demo_tree.max_depth * MP_STEPS, "k2": MP_STEPS, "k3": 0}
+        if counts != want:
+            raise AssertionError(f"model axis (a) launches {counts}, want "
+                                 f"{want}")
+        _assert_bitwise(runs["mp_grid"], _weights(runs["mp_plain"]),
+                        "model axis (a)")
+        evals = [[m["nashconv"] for _, m in r.history if "nashconv" in m]
+                 for r in runs.values()]
+        if evals[0] != evals[1] or not math.isfinite(evals[0][-1]):
+            raise AssertionError(f"model axis (a) evals {evals}")
+        calls = {}
+        all_reduce = dist.all_reduce
+
+        def counted(tensor, *args, **kwargs):
+            group = kwargs.get("group")
+            axis = ("model" if group is grid.model.group else "data"
+                    if group is grid.data.group else "world")
+            calls[axis] = calls.get(axis, 0) + 1
+            return all_reduce(tensor, *args, **kwargs)
+
+        dist.all_reduce = counted
+        try:
+            runs["mp_grid"].train_step(runs["mp_grid"].state, 1.0)
+            torch.cuda.synchronize()
+        finally:
+            dist.all_reduce = all_reduce
+        if calls != MP_COLLECTIVES["a"]:
+            raise AssertionError(f"model axis (a): all-reduces {calls}, "
+                                 f"want {MP_COLLECTIVES['a']}")
+        times = _in_turns(list(runs), lambda name: runs[name].train_step(
+            runs[name].state, 1.0))
+        grid_ms, plain_ms = (min(times["mp_grid"]), min(times["mp_plain"]))
+        log(f"model axis (a): launches {counts}; weights, target and the "
+            f"final NashConv {evals[0][-1]:.7f} bitwise the plain run's; "
+            f"all-reduces a step {calls}; back to back (best of 2 runs of "
+            f"10, in turns): 1 x 1 grid {grid_ms:.4f} ms (runs "
+            f"{times['mp_grid']}), plain {plain_ms:.4f} ms (runs "
+            f"{times['mp_plain']}) | {card}")
+        del runs
+
+        # one rank's reports for (b) and (c), on this 1 x 1 grid
+        demo_dir = checkpoint.save_tree(demo_tree, "mp_demo")
+        spec_b = {"name": "b", "net": net_cfg.to_json(),
+                  "rnad": cfg.to_json(), "tree_dir": demo_dir, "seed": 0,
+                  "steps": MP_GLOO_STEPS}
+        flag_dir = os.path.abspath(os.path.join("saved_trees", "flagship3"))
+        noisy_dir = os.path.abspath(os.path.join("saved_trees", "noisyconv"))
+        specs, cuts, launches = _mp_family_specs(flag_dir, noisy_dir)
+        one = {spec["name"]: dryrun.run_spec(spec, grid)
+               for spec in [spec_b] + specs}
+    finally:
+        runtime.shutdown()
+
+    log(f"model axis (b): phase 3's config as model 2 on two gloo ranks "
+        f"sharing the card, {MP_GLOO_STEPS} steps, against one rank")
+    t0 = time.perf_counter()
+    ranks = dryrun.spawn_specs(2, [spec_b], device="cuda", backend="gloo",
+                               model_parallel=2, timeout=600)
+    log(f"  two ranks: {time.perf_counter() - t0:.1f} s with the processes' "
+        "start")
+    k1 = {"k1": demo_tree.max_depth * MP_GLOO_STEPS, "k2": MP_GLOO_STEPS,
+          "k3": 0}
+    _check_against_one_rank("b", ranks, one["b"], MP_RTOL["b"], k1,
+                            MP_COLLECTIVES["b"], card)
+    counts_b = ranks[0]["runs"]["b"]["launches"]
+
+    log(f"model axis (c): dryrun_multichip's families at full width as 4 "
+        f"gloo ranks at data 2 x model 2, {MP_FAMILY_STEPS} steps each, "
+        f"against one rank; cuts: " + "; ".join(f"{k} {v}"
+                                                 for k, v in cuts.items()))
+    t0 = time.perf_counter()
+    ranks = dryrun.spawn_specs(4, specs, device="cuda", backend="gloo",
+                               model_parallel=2, timeout=900)
+    log(f"  four ranks: {time.perf_counter() - t0:.1f} s with the processes'"
+        " start")
+    counts_c = {"k1": 0, "k2": 0, "k3": 0}
+    for spec in specs:
+        name = spec["name"]
+        _check_against_one_rank(name, ranks, one[name], MP_RTOL[name],
+                                launches[name], MP_COLLECTIVES[name], card)
+        for k, v in ranks[0]["runs"][name]["launches"].items():
+            counts_c[k] += v
+    log(f"phase 11: {time.perf_counter() - t_phase:.1f} s")
+    return {"a": counts, "b": counts_b, "c": counts_c}
 
 
 def check_bf16_step_against_cpu(tree, cfg, net_cfg, B=256) -> None:

@@ -50,7 +50,7 @@ import dataclasses
 import logging
 import math
 import time
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -64,7 +64,8 @@ from ..metrics import nashconv_shard
 from ..models import common, nets
 from ..ops import obs_transform as obs_transform_lib
 from ..ops import stepping
-from ..parallel.mesh import DataGroup
+from ..parallel import tensor_parallel
+from ..parallel.mesh import DataGroup, Grid
 from ..utils.checkpoint import RunStore
 from ..utils.logging import MetricLogger
 from . import buffer as buffer_lib
@@ -133,19 +134,35 @@ def learning_rate(cfg: RNaDConfig, count: int) -> float:
 
 @torch.no_grad()
 def optimizer_update(cfg: RNaDConfig, params: List[torch.Tensor],
-                     grads: List[torch.Tensor], opt: AdamState) -> None:
+                     grads: List[torch.Tensor], opt: AdamState,
+                     g_norm: Optional[torch.Tensor] = None) -> None:
     """optax ``chain(clip_by_global_norm, adam)`` written out, in place.
 
-    The global norm is the optax per-leaf sum of squares; a norm at or
-    above the clip scales by ``clip / norm`` (no epsilon, unlike
-    ``clip_grad_norm_``).  Adam is ``mu_hat / (sqrt(nu_hat) + eps)`` with
-    optax's bias correction computed in float32, scaled by
-    ``learning_rate`` at the count before this update."""
-    g_norm = torch.sqrt(sum((g * g).sum() for g in grads))
+    The global norm (``g_norm``, default ``global_norm(grads)``) is the
+    optax per-leaf sum of squares; a norm at or above the clip scales by
+    ``clip / norm`` (no epsilon, unlike ``clip_grad_norm_``).  Adam is
+    ``mu_hat / (sqrt(nu_hat) + eps)`` with optax's bias correction
+    computed in float32, scaled by ``learning_rate`` at the count before
+    this update."""
+    if g_norm is None:
+        g_norm = global_norm(grads)
     clip = cfg.grad_clip
     grads = [torch.where(g_norm < clip, g, g / g_norm * clip) for g in grads]
     adam_update(params, grads, opt, learning_rate(cfg, opt.count),
                 cfg.b1_adam, cfg.b2_adam, cfg.epsilon_adam)
+
+
+@torch.no_grad()
+def global_norm(grads: List[torch.Tensor],
+                net: Optional[nn.Module] = None) -> torch.Tensor:
+    """optax's global norm: the square root of the per-leaf sums of
+    squares, added in leaf order.  For a tensor-parallel ``net`` (whose
+    parameters ``grads`` are) each sharded leaf's sum is first summed over
+    the model axis, and each replicated leaf counted once."""
+    squares = [(g * g).sum() for g in grads]
+    if net is not None:
+        squares = tensor_parallel.model_sums(net, squares)
+    return torch.sqrt(sum(squares))
 
 
 @torch.no_grad()
@@ -300,7 +317,7 @@ def learn_loss(state: TrainState, packed: stepping.PackedTables,
         if fuse == "heads":
             # the target contributes its value, the reg pair their
             # policies; the target's policy feeds one diagnostic only
-            head = lambda net, h: nets.mlp_head_eval(net, obs_flat, h, dtype)
+            head = lambda net, h: net.head(obs_flat, h, dtype)
             values_target = head(state.net_target, "value")
             logits_reg = head(state.net_reg, "policy")
             logits_reg_prev = head(state.net_reg_, "policy")
@@ -450,6 +467,16 @@ def learn_step(state: TrainState, packed: stepping.PackedTables,
     by n; here each rank's loss is already its numerator over the global
     count (``learn_loss``), so the SUM is the unsharded gradient itself.
 
+    With tensor-parallel nets (``parallel/tensor_parallel.py``) ``group``
+    is the data axis of the grid: each rank holds its shards of the
+    weights and of Adam's moments, every rank of a model row computes the
+    same loss, and autograd gives it its shards' gradients and the whole
+    gradients of the replicated weights (equal across the row).  They are
+    summed over the data axis only (a sum over the world would count each
+    model row m times), and the global norm sums the sharded leaves'
+    squares over the model axis (``global_norm``).  Adam and the EMA act
+    elementwise on the shards.
+
     ``batch_norm`` names a ConvNet's BatchNorm semantic under ``group``
     (the caller's choice; it changes nothing without a group or a
     BatchNorm):
@@ -477,8 +504,8 @@ def learn_step(state: TrainState, packed: stepping.PackedTables,
         if batch_norm == "per_rank":
             group.average_([b for b in state.net.buffers()
                             if b.is_floating_point()])
-    metrics["gradient_norm"] = torch.sqrt(sum((g * g).sum() for g in grads))
-    optimizer_update(cfg, params, list(grads), state.opt)
+    metrics["gradient_norm"] = g_norm = global_norm(grads, state.net)
+    optimizer_update(cfg, params, list(grads), state.opt, g_norm)
     ema_update(cfg.gamma_averaging, state.net, state.net_target)
     state.total_steps += 1
     return metrics
@@ -597,7 +624,18 @@ class RNaD:
     this rank's lanes of each rollout in its buffer, and every rank draws
     the global sampling plan from its own copy of the sampler (seeded
     alike); the lanes a rank's collated positions need from other ranks
-    come in one all-reduce per dtype (``TrajectoryBuffer.sample``)."""
+    come in one all-reduce per dtype (``TrajectoryBuffer.sample``).
+
+    Under ``group`` a ``parallel.mesh.Grid`` (``runtime.grid``) the run is
+    one rank of a (data, model) grid, as under ``rnad_tpu``'s
+    ``make_sharded_rnad_fns(model_parallel_mlp=True)``: the data axis as
+    above, and the four nets and Adam's moments in the family's
+    tensor-parallel layout over the model axis
+    (``parallel/tensor_parallel.py``).  The rollout reads the learner's
+    whole weights, gathered once a step; NashConv gathers the target's.
+    Checkpoints and ``best.ckpt`` hold whole tensors, gathered from the
+    shards by every rank, so a run resumes under any layout; only world
+    rank 0 writes."""
 
     def __init__(self, tree: GameTree, cfg: RNaDConfig = RNaDConfig(),
                  net_config: Optional[NetConfig] = None,
@@ -605,11 +643,15 @@ class RNaD:
                  runs_root: Optional[str] = None, seed: int = 0,
                  use_same_init_net_as: Optional[str] = None,
                  use_wandb: bool = False, device="cuda",
-                 group: Optional[DataGroup] = None):
+                 group: Optional[Union[DataGroup, Grid]] = None):
         if net_config is None:
             net_config = NetConfig(type="MLP", max_actions=tree.max_actions,
                                    width=256)
         check_supported(cfg, net_config)
+        grid = group if isinstance(group, Grid) else None
+        self._world = group  # the world's rank and barrier
+        if grid is not None:
+            group = grid.data
         if group is not None:
             from ..parallel import runtime
 
@@ -637,7 +679,8 @@ class RNaD:
         self.use_wandb = use_wandb
         self.logger: Optional[MetricLogger] = None
         self.group = group
-        self._writes = group is None or group.rank == 0
+        self.model = None if grid is None else grid.model
+        self._writes = group is None or self._world.rank == 0
         if group is None:
             self.train_step = make_train_step(self.tree, self.packed, cfg,
                                               self.obs_transform)
@@ -646,9 +689,11 @@ class RNaD:
                 obs_transform=self.obs_transform)
         else:
             self.train_step = runtime.make_sharded_train_step(
-                self.tree, self.packed, cfg, group, self.obs_transform)
+                self.tree, self.packed, cfg, self._world, self.obs_transform,
+                model_parallel=grid is not None)
             self._rollout = runtime.make_sharded_rollout(
-                self.tree, self.packed, cfg, group, self.obs_transform)
+                self.tree, self.packed, cfg, self._world, self.obs_transform,
+                model_parallel=grid is not None)
         self.m = 0
         self.n = 0
         self.state: Optional[TrainState] = None
@@ -671,6 +716,19 @@ class RNaD:
         generator.manual_seed(self.seed + 1)
         return init_train_state(net.to(self.device), generator)
 
+    def _place(self, state: TrainState) -> TrainState:
+        """A whole state, sliced into this rank's shards under a grid."""
+        if self.model is None:
+            return state
+        return tensor_parallel.shard_train_state(state, self.model)
+
+    def _whole(self, state: TrainState) -> TrainState:
+        """The state with whole nets and moments, what a checkpoint holds
+        (under a grid every rank takes part in the gather)."""
+        if self.model is None:
+            return state
+        return tensor_parallel.gather_train_state(state)
+
     def initialize(self) -> None:
         """Starts the run fresh (writes ``params.json`` and checkpoint
         (0, 0)) or resumes it from its latest checkpoint; the rollout route
@@ -684,8 +742,8 @@ class RNaD:
         resolve_fuse_mode(state.net, self.cfg)
         resumed = False
         fresh = not self.store.exists() or self.store.latest() is None
-        if self.group is not None:
-            self.group.barrier()  # every rank read the store before rank 0
+        if self._world is not None:
+            self._world.barrier()  # every rank read the store before rank 0
         if fresh:
             logging.info("initializing R-NaD run %s", self.store.name)
             if self._writes:
@@ -702,7 +760,7 @@ class RNaD:
                 state = self._fresh_state(loaded.net)
                 logging.info("loaded init net from run %s",
                              self.use_same_init_net_as)
-            self.state = state
+            self.state = self._place(state)
             self.m, self.n = 0, 0
             self.save_checkpoint()
         else:
@@ -712,7 +770,8 @@ class RNaD:
                     "resume tree hash mismatch: run was trained on a "
                     "different tree")
             self.m, self.n = self.store.latest()
-            self.state = self.store.load_checkpoint(self.m, self.n, state)
+            self.state = self._place(
+                self.store.load_checkpoint(self.m, self.n, state))
             resumed = True
             logging.info("resumed run %s at m=%d n=%d", self.store.name,
                          self.m, self.n)
@@ -726,8 +785,9 @@ class RNaD:
                 resume=resumed)
 
     def save_checkpoint(self) -> None:
+        state = self._whole(self.state)
         if self._writes:
-            self.store.save_checkpoint(self.m, self.n, self.state)
+            self.store.save_checkpoint(self.m, self.n, state)
 
     def _log(self, metrics: Dict[str, float], step: int) -> None:
         self.history.append((step, metrics))
@@ -747,8 +807,11 @@ class RNaD:
     def nashconv(self) -> float:
         """NashConv of the EMA target net.  Above ``nashconv_chunk_nodes``
         nodes, capped by the net's activation footprint
-        (``nets.inference_chunk_nodes``), inference runs in chunks."""
+        (``nets.inference_chunk_nodes``), inference runs in chunks.  Under a
+        grid it evaluates the target's whole weights."""
         net = self.state.net_target
+        if self.model is not None:
+            net = tensor_parallel.gather_module(net)
         chunk = min(self.cfg.nashconv_chunk_nodes,
                     nets.inference_chunk_nodes(net, self.tree.max_actions))
         result = nashconv(self.tree, net, chunk, self.obs_transform,
@@ -777,8 +840,9 @@ class RNaD:
             self._best_nashconv = value
             # the target moves in place: keep this eval's weights
             self._best_target = _frozen_copy(self.state.net_target)
+            whole = self._whole(self.state)
             if self._writes:
-                self.store.save_best(self.state, {"nashconv": value,
+                self.store.save_best(whole, {"nashconv": value,
                                                   "step": step,
                                                   "m": self.m, "n": self.n})
             logging.info("new best nashconv %.6f at step %d", value, step)
@@ -844,9 +908,10 @@ class RNaD:
                 and not hasattr(self, "_best_target")):
             loaded = self.store.load_best(self._fresh_state())
             if loaded is not None:  # resume-safe anchor
-                self._best_target = _frozen_copy(loaded[0].net_target)
-        if self.group is not None:
-            self.group.barrier()  # every rank read the store before rank 0
+                self._best_target = _frozen_copy(
+                    self._place(loaded[0]).net_target)
+        if self._world is not None:
+            self._world.barrier()  # every rank read the store before rank 0
         on_policy = cfg.n_batches_per_buffer == 1 and cfg.buffer_mod == 1
         buffer = buffer_lib.TrajectoryBuffer(cfg.n_batches_per_buffer)
         last_time = time.perf_counter()

@@ -97,8 +97,13 @@ class MLP(nn.Module):
         ``solver_feats`` is the EquiNet's; the MLP takes none."""
         del solver_feats
         x = obs.reshape(obs.shape[0], -1)
-        logits = mlp_head_eval(self, x, "policy", dtype)
-        return logits, mlp_head_eval(self, x, "value", dtype)
+        return self.head(x, "policy", dtype), self.head(x, "value", dtype)
+
+    def head(self, obs_flat: torch.Tensor, head: str,
+             dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+        """One head's forward (``mlp_head_eval``); the tensor-parallel MLP
+        (``parallel/tensor_parallel.py``) computes it on its shards."""
+        return mlp_head_eval(self, obs_flat, head, dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -1,11 +1,14 @@
-"""Process-group set-up and the data-parallel train step.
+"""Process-group set-up and the sharded train step.
 
 Counterpart of ``rnad_tpu/parallel/runtime.py``.  Every process is one rank
-of the data axis (``mesh.DataGroup``): it joins the others through
-``torch.distributed`` (NCCL on the card, gloo on the CPU; the backend is
-chosen by the device and never switched), holds the replicated weights on
-``cuda:(rank % device_count)`` or the CPU, and trains on its slice of the
-lanes.
+of the world: it joins the others through ``torch.distributed`` (NCCL on
+the card, gloo on the CPU; the backend is chosen by the device and never
+switched) and works on ``cuda:(rank % device_count)`` or the CPU.  Its
+handle is the data axis (``data_group``: the world is one data axis, the
+weights replicated) or a (data, model) grid (``grid``,
+``mesh.make_grid``): it trains on its data coordinate's slice of the lanes
+and, under ``model_parallel``, holds its model coordinate's shards of the
+weights (``tensor_parallel.py``).
 
 Determinism across rank counts: every rank draws the *global* turn noise
 from the replicated ``state.generator``, with the shapes and order of one
@@ -31,6 +34,16 @@ Every configuration of the one-device trainer runs here:
   collated positions need from other ranks arrive in one all-reduce per
   dtype (``learn/buffer.py::TrajectoryBuffer.sample``), the exchange
   ``rnad_tpu``'s GSPMD inserts for ``learn_jit.sampled``.
+
+Under ``model_parallel`` (``rnad_tpu``'s ``model_parallel_mlp``) the
+rollout's route is: once a step every rank gathers the learner's whole
+weights, without gradient, into a whole actor net (``tensor_parallel.
+gather_module``, one all-reduce over its model row) and rolls out with it
+on the one-device path: kernel K1 for the depth-1 float32 MLP (K1 reads
+whole weights, ``ops/fused_turn.py::fits``), the generic turn otherwise
+(K2, and K3 for a solver EquiNet).  Every model rank of a data row cuts
+the same lanes and noise by its data coordinate, so their trajectories
+are bitwise equal; the learner then runs on the shards.
 """
 
 from __future__ import annotations
@@ -39,7 +52,7 @@ import dataclasses
 import datetime
 import logging
 import socket
-from typing import List, Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.distributed as dist
@@ -51,6 +64,7 @@ from ..learn import rnad as rnad_lib
 from ..ops import stepping
 from ..ops.obs_transform import ObsTransform
 from . import mesh as mesh_lib
+from . import tensor_parallel
 
 host_value = mesh_lib.host_value
 
@@ -115,17 +129,31 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def data_group(device_type: str = "cuda", backend: Optional[str] = None
-               ) -> mesh_lib.DataGroup:
-    """This process's rank of the data axis.  Without a process group yet
-    it forms a world of the ranks this process spans: one rank on one
-    device, over a store on a free localhost port."""
+def _join(device_type: str, backend: Optional[str]) -> None:
+    """Without a process group yet, forms a world of the ranks this process
+    spans: one rank on one device, over a store on a free localhost
+    port."""
     if not dist.is_initialized():
         _init(f"tcp://localhost:{free_port()}", 1, 0,
               backend or default_backend(device_type), device_type)
+
+
+def data_group(device_type: str = "cuda", backend: Optional[str] = None
+               ) -> mesh_lib.DataGroup:
+    """This process's rank of the world as one data axis."""
+    _join(device_type, backend)
     rank, world = dist.get_rank(), dist.get_world_size()
     return mesh_lib.DataGroup(rank=rank, world=world,
                               device=rank_device(rank, device_type))
+
+
+def grid(model_parallelism: int = 1, device_type: str = "cuda",
+         backend: Optional[str] = None) -> mesh_lib.Grid:
+    """This process's place on the (world / m, m) grid of the world, m =
+    ``model_parallelism`` (``mesh.make_grid``; every rank calls it)."""
+    _join(device_type, backend)
+    return mesh_lib.make_grid(model_parallelism,
+                              rank_device(dist.get_rank(), device_type))
 
 
 def shutdown() -> None:
@@ -151,19 +179,40 @@ def local_noise(noise: Sequence[torch.Tensor], lanes: slice,
                                                    for e in eps)
 
 
+def _data_axis(group: Union[mesh_lib.DataGroup, mesh_lib.Grid],
+          model_parallel: bool) -> mesh_lib.DataGroup:
+    """The data axis of ``group``; raises where ``model_parallel`` asks
+    for a model axis that ``group`` lacks."""
+    if isinstance(group, mesh_lib.Grid):
+        return group.data
+    if model_parallel:
+        raise ValueError("model_parallel needs a (data, model) grid "
+                         "(runtime.grid), not a data group")
+    return group
+
+
 def make_sharded_rollout(tree: GameTree, packed: stepping.PackedTables,
-                         cfg: RNaDConfig, group: mesh_lib.DataGroup,
-                         obs_transform: Optional[ObsTransform] = None):
-    """``rollout(state, noise=None)``: this rank's lanes of the global
-    ``cfg.batch_size``-lane rollout.  ``noise`` is the global per-turn
-    noise; None draws it from ``state.generator`` (which every rank
-    advances alike)."""
-    lanes = group.lanes(cfg.batch_size)
+                         cfg: RNaDConfig,
+                         group: Union[mesh_lib.DataGroup, mesh_lib.Grid],
+                         obs_transform: Optional[ObsTransform] = None,
+                         model_parallel: bool = False):
+    """``rollout(state, noise=None)``: this rank's lanes (of its data
+    coordinate) of the global ``cfg.batch_size``-lane rollout.  ``noise``
+    is the global per-turn noise; None draws it from ``state.generator``
+    (which every rank advances alike).  Under ``model_parallel`` the
+    state's nets are tensor-parallel and the rollout reads the learner's
+    whole weights, gathered into an actor net (module docstring)."""
+    data = _data_axis(group, model_parallel)
+    lanes = data.lanes(cfg.batch_size)
     local_cfg = dataclasses.replace(cfg, batch_size=lanes.stop - lanes.start)
     A, T = packed.max_actions, packed.max_transitions
     channels = None if obs_transform is None else obs_transform.channels
+    actor = []  # the whole actor net under model_parallel, made once
 
     def rollout(state: rnad_lib.TrainState, noise=None) -> engine.Trajectory:
+        if model_parallel:
+            actor[:] = [tensor_parallel.gather_module(state.net, *actor)]
+            state = dataclasses.replace(state, net=actor[0])
         if noise is None:
             noise = [engine.turn_noise(cfg.batch_size, A, T, state.generator,
                                        packed.rows.device, channels)
@@ -176,20 +225,30 @@ def make_sharded_rollout(tree: GameTree, packed: stepping.PackedTables,
 
 
 def make_sharded_train_step(tree: GameTree, packed: stepping.PackedTables,
-                            cfg: RNaDConfig, group: mesh_lib.DataGroup,
-                            obs_transform: Optional[ObsTransform] = None):
+                            cfg: RNaDConfig,
+                            group: Union[mesh_lib.DataGroup, mesh_lib.Grid],
+                            obs_transform: Optional[ObsTransform] = None,
+                            model_parallel: bool = False):
     """The fused step of one rank, ``train_step(state, alpha, noise=None)``
     (the signature of ``learn.rnad.make_train_step``'s): its lanes of the
     global-stream rollout (kernel K1, or the generic turn), one regather
-    (K2) and the group-aware ``learn_step`` (a ConvNet's BatchNorm over the
-    global batch); returns (state, metrics), the metrics global.  Raises
-    where ``check_data_parallel`` does."""
-    check_data_parallel(cfg, group)
-    rollout = make_sharded_rollout(tree, packed, cfg, group, obs_transform)
+    (K2) and the group-aware ``learn_step`` over the data axis (a
+    ConvNet's BatchNorm over the global batch); returns (state, metrics),
+    the metrics global.  ``group`` is the data axis or a grid; under
+    ``model_parallel`` (``rnad_tpu``'s ``make_sharded_rnad_fns(
+    model_parallel_mlp=True)``) the state is tensor-parallel over the
+    grid's model axis (``tensor_parallel.shard_train_state``), otherwise
+    its weights are replicated on every rank.  Raises where
+    ``check_data_parallel`` does, and under ``model_parallel`` without a
+    grid."""
+    data = _data_axis(group, model_parallel)
+    check_data_parallel(cfg, data)
+    rollout = make_sharded_rollout(tree, packed, cfg, group, obs_transform,
+                                   model_parallel)
 
     def train_step(state: rnad_lib.TrainState, alpha: float, noise=None):
         traj = rollout(state, noise)
         return state, rnad_lib.learn_step(state, packed, traj, alpha, cfg,
-                                          group, batch_norm="global")
+                                          data, batch_norm="global")
 
     return train_step

@@ -32,7 +32,8 @@ from ..env import tree as tree_lib
 
 # best.ckpt container format marker (see RunStore.save_best).
 _BEST_MAGIC = b"RNADBEST1\n"
-_NETS = ("net", "net_target", "net_reg", "net_reg_")
+# the four nets of a TrainState
+NETS = ("net", "net_target", "net_reg", "net_reg_")
 
 
 def _default_root(sub: str) -> str:
@@ -114,7 +115,7 @@ def load_reference_tree(path: str, device="cuda") -> tree_lib.GameTree:
 
 def state_bytes(state) -> bytes:
     """``torch.save`` bytes of a ``learn/rnad.py::TrainState``."""
-    payload = {name: getattr(state, name).state_dict() for name in _NETS}
+    payload = {name: getattr(state, name).state_dict() for name in NETS}
     payload.update(mu=list(state.opt.mu), nu=list(state.opt.nu),
                    count=int(state.opt.count),
                    total_steps=int(state.total_steps),
@@ -130,7 +131,7 @@ def load_state_bytes(template, data: bytes):
     place, on the template's devices, and returns it."""
     payload = torch.load(io.BytesIO(data), map_location="cpu",
                          weights_only=True)
-    for name in _NETS:
+    for name in NETS:
         getattr(template, name).load_state_dict(payload[name])
     for dst, src in zip(template.opt.mu + template.opt.nu,
                         payload["mu"] + payload["nu"]):
