@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Eleven phases, and any failure exits nonzero:
+Twelve phases, and any failure exits nonzero:
 
 1. Build the three CUDA kernels from ``rnad_tpu_torch/csrc`` (one nvcc
    each, started together) and print the build time and ptxas's registers
@@ -169,6 +169,20 @@ Eleven phases, and any failure exits nonzero:
    bf16 EquiNet), the learner equal on every rank, each rank's K1, K2 and
    K3 launches and every step's all-reduces as predicted
    (``MP_COLLECTIVES``), the per-step wall times printed.
+12. (a) The port's half of ``tools/validate_vs_reference.py``'s curves
+   (``rnad_tpu_torch/validate_curves.py`` at the tool's defaults: 8 update
+   periods of 100 steps at 512 lanes on the depth-3 tree) for the
+   committed seed ``CURVES_SEED``, counters zeroed just before: the tree's
+   hash and the initial weights equal the committed ones
+   (``docs/port_runs/curves/``), update 0's NashConv lies within 1e-5 of
+   ``rnad_tpu``'s on that tree and those weights, every eval is finite, K1
+   launches max_depth and K2 1 a step; the curve printed beside
+   ``rnad_tpu``'s committed one.  (b) ``profile_step.py``'s phase timing
+   of the ``mlp`` config (phase 3's tree) and the ``offpol`` config
+   (phase 5's stored tree) with each phase's bound on the H100 SXM's
+   published peaks (``roofline.py``), which side binds and its share of
+   the measured time, and the step's bound against its device and
+   back-to-back times: every share must lie in (0, 100 %].
 
 It runs in a temporary working directory (the CLI writes ``saved_trees/``
 and ``saved_runs/`` under it).  It prints a ``{"kernels": [...]}`` line,
@@ -192,9 +206,11 @@ import time
 
 import torch
 
-# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, f32 CUDA-core FLOP/s.
-HBM_BYTES_PER_S = 3.35e12
-F32_FLOPS = 67e12
+from rnad_tpu_torch.roofline import H100_SXM
+
+HBM_BYTES_PER_S = H100_SXM.hbm_bytes_per_s
+F32_FLOPS = H100_SXM.flops_f32  # the CUDA cores
+BF16_FLOPS = H100_SXM.flops_bf16  # the tensor cores' dense rate
 B_MAIN = 32768
 N_REGATHER = 131072
 STEPS = 30
@@ -260,7 +276,6 @@ DISTILL_STEPS, NODE_BATCH, SKYLINE_ITERS, SKYLINE_CHUNK = 300, 8192, 2000, \
 # from it (RM+ has no random init; float32 RM+ in another order parts
 # on ~0.6 % of the tree's games)
 SKYLINE_NASHCONV, SKYLINE_ATOL = 0.001115, 2e-4
-BF16_FLOPS = 989e12  # H100 SXM dense bf16 on the tensor cores
 
 
 def log(msg: str) -> None:
@@ -581,22 +596,31 @@ def main() -> int:
     # -- phase 11: the model axis -----------------------------------------
     mp = mp_phase(card, tree)
     mp_paths = {"mp": "a", "mp_model2_rank0": "b", "mp_2x2_rank0": "c"}
+
+    # -- phase 12: the curves against rnad_tpu, the MLP steps' roofline --
+    t_phase = time.perf_counter()
+    curves = curves_phase(card)
+    roofline_phase(card, tree)
+    log(f"phase 12: {time.perf_counter() - t_phase:.1f} s")
     k1_by_path = {"mlp": k1_launches, "equinet": equi["k1"], "flagship": 0,
                   "offpol": offpol["k1"], "noisy": 0, "sweep": sweep["k1"],
                   "slice7": s7["k1"],
                   **{p: dp[k].get("k1", 0) for p, k in dp_paths.items()},
-                  **{p: mp[k]["k1"] for p, k in mp_paths.items()}}
+                  **{p: mp[k]["k1"] for p, k in mp_paths.items()},
+                  "curves": curves["k1"]}
     k2_by_path = {"mlp": k2_launches, "equinet": equi["k2"],
                   "flagship": flag["k2"], "offpol": offpol["k2"],
                   "noisy": noisy["k2"], "sweep": sweep["k2"],
                   "slice7": s7["k2"],
                   **{p: dp[k]["k2"] for p, k in dp_paths.items()},
-                  **{p: mp[k]["k2"] for p, k in mp_paths.items()}}
+                  **{p: mp[k]["k2"] for p, k in mp_paths.items()},
+                  "curves": curves["k2"]}
     k3_by_path = {"mlp": 0, "equinet": equi["k3"], "flagship": flag["k3"],
                   "offpol": 0, "noisy": 0, "sweep": sweep["k3"],
                   "distill": s7["k3"],
                   **{p: dp[k].get("k3", 0) for p, k in dp_paths.items()},
-                  **{p: mp[k]["k3"] for p, k in mp_paths.items()}}
+                  **{p: mp[k]["k3"] for p, k in mp_paths.items()},
+                  "curves": curves["k3"]}
     kernels = [
         {"name": "fused_turn", "route": "cuda",
          "source": "rnad_tpu_torch/csrc/fused_turn.cu",
@@ -1104,23 +1128,17 @@ def k1_bound_of(fused_turn_lib, args, actions, A, T):
     ``fused_turn``), whose lanes played ``actions`` (2, B): the larger of
     its operations over the peak rate of its weights' type (the f32 CUDA
     cores, or the tensor cores' dense bf16) and the bytes it must move over
-    the HBM rate.  The bytes count each lane's index and noise and its
-    outputs, each distinct state's two observations and masks (2 din + 2 A
-    floats), each distinct (state, joint cell) played's T log-chances,
-    child and value (T + 2 floats), and the weights (in their own type)
-    and biases once."""
+    the HBM rate (``fused_turn.io_bytes`` on the lanes' distinct states
+    and played (state, joint cell) pairs)."""
     table, w0, b0, w1, b1, idx, g_act, g_ch = args
-    B, H, din = idx.shape[0], w0.shape[1], 2 * A * A
+    B, H = idx.shape[0], w0.shape[1]
     rows = int(torch.unique(idx).numel())
     cells = int(torch.unique(idx.long() * A * A + actions[0].long() * A
                              + actions[1].long()).numel())
     peak = BF16_FLOPS if w0.dtype == torch.bfloat16 else F32_FLOPS
     flops = 2.0 * B * fused_turn_lib.operations(A, H)
-    nbytes = (4.0 * (B + rows * (2 * din + 2 * A) + cells * (T + 2)
-                     + H + A + 1  # biases
-                     + 2 * B * A + B * T  # noise
-                     + B + 2 * B * A + 2 * B + B + 2 * B)  # outputs
-              + w0.element_size() * (w0.numel() + w1.numel()))
+    nbytes = float(fused_turn_lib.io_bytes(B, A, T, H, rows, cells,
+                                           w0.element_size()))
     by = "operations" if flops / peak > nbytes / HBM_BYTES_PER_S else "bytes"
     return (max(flops / peak, nbytes / HBM_BYTES_PER_S) * 1e3, by, flops,
             nbytes)
@@ -2451,6 +2469,10 @@ MP_COLLECTIVES = {
     "ConvNet": {"model": 26, "data": 23},  # 4 x 5 gathers, 4 copies
     "MLP": {"model": 16, "data": 7},  # 6 x 2 reduces, 2 copies
 }
+# phase 12: the committed seed of docs/port_runs/curves/ that (a) runs, and
+# how far update 0's NashConv (same tree, same weights) may lie from
+# rnad_tpu's on the CPU
+CURVES_SEED, CURVES_ATOL = 0, 1e-5
 # losses and the learner's checksum against one rank: phase 10's
 # multi-rank tolerance; the bf16 EquiNet's, phase 8's bf16 card-vs-CPU rtol
 MP_RTOL = {"EquiNet": 1e-3, "ConvNet": 1e-4, "MLP": 1e-4, "b": 1e-4}
@@ -2647,6 +2669,106 @@ def mp_phase(card, demo_tree):
             counts_c[k] += v
     log(f"phase 11: {time.perf_counter() - t_phase:.1f} s")
     return {"a": counts, "b": counts_b, "c": counts_c}
+
+
+def curves_phase(card):
+    """Phase 12 (a): the port's half of the curves for ``CURVES_SEED``
+    against the committed halves; returns its launch counts."""
+    import numpy as np
+
+    from rnad_tpu_torch import validate_curves
+
+    committed = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "docs", "port_runs", "curves")
+    name = f"curves-s{CURVES_SEED}"
+    with open(os.path.join(committed, f"{name}.rnad_tpu.json")) as f:
+        ref = json.load(f)
+    argv = ["--seed", str(CURVES_SEED), "--out", "curves"]
+    log("curves (a): python -m rnad_tpu_torch.validate_curves "
+        + " ".join(argv) + " (tools/validate_vs_reference.py's defaults)")
+    _zero_counts()
+    rec = validate_curves.main(argv)
+    counts = _counts()
+    curve, want = rec["curve"], ref["curve"]
+    steps = rec["options"]["updates"] * rec["options"]["delta_m"]
+    log(f"curves (a): {rec['tree']['size']}-node tree, hash "
+        f"{rec['tree']['hash']}, {steps} steps in {rec['wall_s']:.2f} s on "
+        f"{rec['device']}; K1 {counts['k1']}, K2 {counts['k2']} launches")
+    log("| update | rnad_tpu (committed, " + ref["device"] + ") | port |")
+    for i, (a, b) in enumerate(zip(want, curve)):
+        log(f"| {i} | {a:.6f} | {b:.6f} |")
+    if rec["tree"]["hash"] != ref["tree"]["hash"]:
+        raise AssertionError(f"curves: tree hash {rec['tree']['hash']}, "
+                             f"committed {ref['tree']['hash']}")
+    with np.load(os.path.join("curves", f"{name}.init.npz")) as got, \
+            np.load(os.path.join(committed, f"{name}.init.npz")) as cm:
+        if sorted(got.files) != sorted(cm.files) or not all(
+                np.array_equal(got[k], cm[k]) for k in cm.files):
+            raise AssertionError("curves: the initial weights differ from "
+                                 "the committed ones")
+    if not all(math.isfinite(v) for v in curve) or len(curve) != len(want):
+        raise AssertionError(f"curves: evals {curve}")
+    if not abs(curve[0] - want[0]) <= CURVES_ATOL:
+        raise AssertionError(f"curves: update 0's NashConv {curve[0]} is "
+                             f"{abs(curve[0] - want[0])} from rnad_tpu's "
+                             f"{want[0]} (atol {CURVES_ATOL})")
+    depth = rec["tree"]["max_depth"]
+    if counts["k1"] != depth * steps or counts["k2"] != steps \
+            or counts["k3"]:
+        raise AssertionError(f"curves: launches {counts}, want K1 "
+                             f"{depth * steps}, K2 {steps}, K3 0")
+    log(f"curves (a): update 0 within {abs(curve[0] - want[0]):.3g} of "
+        f"rnad_tpu's (atol {CURVES_ATOL}); K1 {counts['k1'] / steps:g} and "
+        f"K2 {counts['k2'] / steps:g} launches a step")
+    return counts
+
+
+def roofline_phase(card, demo_tree):
+    """Phase 12 (b): ``profile_step.py``'s phases of the ``mlp`` config on
+    phase 3's tree and of the ``offpol`` config on phase 5's stored tree,
+    each beside its bound."""
+    from rnad_tpu_torch import profile_step, roofline
+    from rnad_tpu_torch.learn import buffer as buffer_lib
+    from rnad_tpu_torch.learn import rnad
+    from rnad_tpu_torch.utils import checkpoint
+
+    trees = {"mlp": demo_tree,
+             "offpol": checkpoint.load_tree("flagship3", device="cuda")}
+    for net in ("mlp", "offpol"):
+        _, net_cfg, cfg = profile_step.CONFIGS[net]
+        run = rnad.RNaD(trees[net], cfg, net_cfg,
+                        directory_name=f"roofline_{net}", device="cuda")
+        run.initialize()
+        buffer = None
+        step_fn = lambda: run.train_step(run.state, 1.0)
+        if profile_step._buffered(run):
+            buffer = buffer_lib.TrajectoryBuffer(cfg.n_batches_per_buffer)
+            step_fn = lambda: run.buffered_step(buffer, 1.0)
+        for _ in range(2 * cfg.n_batches_per_buffer * cfg.buffer_mod):
+            step_fn()  # warm-up; fills the buffer
+        phases, counts = profile_step.phase_ms(run, buffer=buffer)
+        rows, work = profile_step.roofline_rows(run, phases, counts)
+        step = sum(phases.values())
+        back_to_back = wall_ms(step_fn)
+        log(f"roofline (b) {net}: B = {cfg.batch_size}, {net_cfg.width}-wide"
+            f" MLP on a {run.tree.size}-node tree; distinct rows a rollout "
+            f"{counts.rollout_rows:.1f}, cells {counts.rollout_cells:.1f}, "
+            f"learner rows {counts.learner_rows:.1f} | {card}")
+        for name, ms in phases.items():
+            r = rows[name]
+            log(f"  {name:40s} {ms:9.4f} ms; bound {r['bound_ms']:.6f} ms "
+                f"({r['bound']}), {r['pct_of_roof']:.3f} % of it")
+            if not 0.0 < r["pct_of_roof"] <= 100.0:
+                raise AssertionError(f"roofline {net} {name}: share "
+                                     f"{r['pct_of_roof']} %")
+        whole = [roofline.annotate(work, t) for t in (step, back_to_back)]
+        log(f"  step: bound {whole[0]['bound_ms']:.6f} ms "
+            f"({whole[0]['bound']}; {whole[0]['gflops']:.6g} GFLOP, "
+            f"{whole[0]['gbytes']:.6g} GB): {whole[0]['pct_of_roof']:.3f} % "
+            f"of the {step:.4f} ms device time, {whole[1]['pct_of_roof']:.3f}"
+            f" % of the {back_to_back:.4f} ms back-to-back time")
+        del run, buffer
+        torch.cuda.empty_cache()
 
 
 def check_bf16_step_against_cpu(tree, cfg, net_cfg, B=256) -> None:

@@ -223,6 +223,23 @@ def operations(A: int, H: int) -> int:
     return 2 * (2 * A * A * H + H // 2 * (A + 1))
 
 
+def io_bytes(B: int, A: int, T: int, H: int, rows: int, cells: int,
+             weight_bytes: int = 4) -> int:
+    """Bytes that must cross device memory for ``B`` lanes' turns whose
+    states take ``rows`` distinct packed rows and whose played joint
+    cells are ``cells`` distinct (state, cell) pairs: each lane's index
+    and noise read and its outputs written once, each distinct state's
+    two observations and masks (2 din + 2 A floats), each distinct played
+    cell's T log-chances, child and value (T + 2 floats), and the weights
+    (``weight_bytes`` an element) and biases once."""
+    din = 2 * A * A
+    return (4 * (B + rows * (2 * din + 2 * A) + cells * (T + 2)
+                 + H + A + 1  # biases
+                 + 2 * B * A + B * T  # noise
+                 + B + 2 * B * A + 2 * B + B + 2 * B)  # outputs
+            + weight_bytes * (din * H + H * (A + 1)))
+
+
 def smem_bytes(A: int, H: int, dtype: torch.dtype = torch.float32) -> int:
     """Shared memory the kernel's layout takes at (A, H) with weights of
     ``dtype``; builds the library on first use (the card's machine

@@ -25,6 +25,14 @@ enqueue time; the buffered step rolls out on every second step, so its rollout
 phase is the mean over steps with and without one.  Then it traces a few
 steps with ``torch.profiler`` and prints the device time by kernel.  Needs
 a CUDA card; prints the card's name and power limit beside the numbers.
+
+For the MLP configurations (``mlp`` and ``offpol``) it prints beside each
+phase its bound on the H100 SXM's published peaks (``roofline.py``: the
+work of the phase's function from its shapes and from the distinct rows
+and cells of the timed steps' trajectories), which side binds and the
+share of the bound in the measured time; then the whole step's bound
+against its device time and its back-to-back time.  The other nets have
+no roofline model, as in ``tools/roofline.py``.
 """
 
 from __future__ import annotations
@@ -36,6 +44,7 @@ import time
 
 import torch
 
+from . import roofline
 from .config import (NetConfig, ObsTransformConfig, RNaDConfig, ShapingRule,
                      TreeConfig)
 from .env import tree as tree_lib
@@ -95,18 +104,21 @@ def _buffered(run: rnad.RNaD) -> bool:
 
 def _phases(run: rnad.RNaD, alpha: float, buffer=None):
     """One train step as (name, thunk) phases, in train_step's order; with
-    a ``buffer``, the buffered step's (``RNaD.buffered_step``)."""
+    a ``buffer``, the buffered step's (``RNaD.buffered_step``).  Also
+    returns the dict in which the phases leave the step's rollout
+    ("rollout", where the step rolled out) and learner batch ("traj")."""
     state, cfg = run.state, run.cfg
     box = {}
 
     def roll():
         traj = rnad.rollout(state, run.tree, run.packed, cfg,
                             obs_transform=run.obs_transform)
-        box["traj"] = traj
+        box["traj"] = box["rollout"] = traj
 
     def roll_if_due():
         if state.total_steps % cfg.buffer_mod == 0:
-            buffer.append(rnad.rollout(state, run.tree, run.packed, cfg))
+            box["rollout"] = rnad.rollout(state, run.tree, run.packed, cfg)
+            buffer.append(box["rollout"])
 
     def collate():
         box["traj"] = buffer.sample(cfg.batch_size, run._np_rng)
@@ -134,18 +146,22 @@ def _phases(run: rnad.RNaD, alpha: float, buffer=None):
     return first + [
             ("regather (K2), EquiNet solve (K3)", inputs),
             ("learner + frozen passes, v-trace, loss", loss),
-            ("backward", backward), ("clip + Adam + EMA", update)]
+            ("backward", backward), ("clip + Adam + EMA", update)], box
 
 
 def phase_ms(run: rnad.RNaD, iters: int = 10, buffer=None):
-    """Device ms of each phase, mean over ``iters`` steps."""
-    names = [n for n, _ in _phases(run, 1.0, buffer)]
+    """Device ms of each phase, mean over ``iters`` steps, and the steps'
+    mean ``roofline.Counts`` (the rollouts' over the steps that rolled
+    out)."""
+    names = [n for n, _ in _phases(run, 1.0, buffer)[0]]
     total = {n: 0.0 for n in names}
+    rolls, learner_rows = [], []
     for _ in range(iters):
         # a sleep before each phase: the launch queue holds about a
         # thousand kernels, fewer than a whole step of the small nets
         # launches, so one sleep per step would not hide the host
-        for name, fn in _phases(run, 1.0, buffer):
+        phases, box = _phases(run, 1.0, buffer)
+        for name, fn in phases:
             torch.cuda.synchronize()
             torch.cuda._sleep(200_000_000)  # ~0.1 s: covers the enqueue
             start = torch.cuda.Event(enable_timing=True)
@@ -155,7 +171,32 @@ def phase_ms(run: rnad.RNaD, iters: int = 10, buffer=None):
             end.record()
             torch.cuda.synchronize()
             total[name] += start.elapsed_time(end) / iters
-    return total
+        if "rollout" in box:
+            rolls.append(roofline.Counts.of(box["rollout"]))
+        learner_rows.append(
+            roofline.Counts.of(box["traj"]).learner_rows)
+    mean = lambda xs: sum(xs) / len(xs)
+    counts = roofline.Counts(mean([c.rollout_rows for c in rolls]),
+                             mean([c.rollout_cells for c in rolls]),
+                             mean(learner_rows))
+    return total, counts
+
+
+def roofline_rows(run: rnad.RNaD, phases, counts: roofline.Counts):
+    """``roofline.annotate`` of each phase's work against its measured ms
+    (``phases``, as ``phase_ms`` returns them), and the step's whole work;
+    raises ValueError for a net the roofline does not model."""
+    tree = run.tree
+    step = roofline.MLPStep.of(run.cfg, run.net_config, tree.max_actions,
+                               tree.max_transitions, tree.max_depth)
+    works = roofline.step_phases(step, counts)
+    if len(works) != len(phases) or not all(
+            name.startswith(w) for name, (w, _) in zip(phases, works)):
+        raise AssertionError(f"roofline phases {[w for w, _ in works]} "
+                             f"are not the step's {list(phases)}")
+    rows = {name: roofline.annotate(work, phases[name])
+            for name, (_, work) in zip(phases, works)}
+    return rows, roofline.total(works)
 
 
 def main() -> None:
@@ -185,15 +226,25 @@ def main() -> None:
         train_step()  # warm-up; fills the buffer
     torch.cuda.synchronize()
 
-    phases = phase_ms(run, buffer=buffer)
+    phases, counts = phase_ms(run, buffer=buffer)
     step = sum(phases.values())
+    bounds, work = {}, None
+    if net_cfg.type == "MLP" and cfg.obs_transform.kind == "none":
+        bounds, work = roofline_rows(run, phases, counts)
     print(f"train step at B={cfg.batch_size}, {net_cfg}, obs_transform "
           f"{cfg.obs_transform.kind}, buffer {cfg.n_batches_per_buffer} "
           f"slots / mod {cfg.buffer_mod}: {step:.4f} ms device time; peak "
           f"memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB | "
           f"{card}")
+    if work is None:
+        print("no roofline model (tools/roofline.py models the MLP towers "
+              "only)")
     for name, ms in phases.items():
-        print(f"  {name:40s} {ms:9.4f} ms  {100 * ms / step:5.1f} %")
+        bound = bounds.get(name)
+        print(f"  {name:40s} {ms:9.4f} ms  {100 * ms / step:5.1f} %" + (
+            "" if bound is None else
+            f"  bound {bound['bound_ms']:.6f} ms ({bound['bound']}), "
+            f"{bound['pct_of_roof']:.3f} % of it"))
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     runs = []
@@ -209,6 +260,16 @@ def main() -> None:
           + "/".join(f"{r:.4f}" for r in runs) + " ms), so the device idles "
           f"{100 * (1 - step / back_to_back):.1f} % of it waiting for the "
           "host's launches")
+    if work is not None:
+        on_device = roofline.annotate(work, step)
+        print(f"roofline: the step's bound {on_device['bound_ms']:.6f} ms "
+              f"({on_device['bound']}; {on_device['gflops']:.6g} GFLOP, "
+              f"{on_device['gbytes']:.6g} GB; distinct rows a rollout "
+              f"{counts.rollout_rows:.1f}, cells {counts.rollout_cells:.1f},"
+              f" learner rows {counts.learner_rows:.1f}) is "
+              f"{on_device['pct_of_roof']:.3f} % of the device time and "
+              f"{roofline.annotate(work, back_to_back)['pct_of_roof']:.3f} %"
+              f" of the back-to-back time | {card}")
 
     steps = 6  # a whole number of buffer_mod periods
     with timing.trace() as prof:
