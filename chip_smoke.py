@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Twelve phases, and any failure exits nonzero:
+Thirteen phases, and any failure exits nonzero:
 
 1. Build the three CUDA kernels from ``rnad_tpu_torch/csrc`` (one nvcc
    each, started together) and print the build time and ptxas's registers
@@ -183,6 +183,18 @@ Twelve phases, and any failure exits nonzero:
    published peaks (``roofline.py``), which side binds and its share of
    the measured time, and the step's bound against its device and
    back-to-back times: every share must lie in (0, 100 %].
+13. The benchmark programs: ``rnad_tpu_torch.bench.main()`` at its
+   defaults (the demo tree's rollout at 32768 and 131072 lanes, K1 a
+   turn; bench.py's bf16 product step at 32768 lanes, K2 a turn and one a
+   step) and ``bench_suite.main`` on ``SUITE_RUNS`` (32768 lanes: the demo
+   MLP with the fused-turn row, the big tree with the bf16 actor, the
+   ConvNet 16x1), counters zeroed just before each and read just after:
+   the launches of K1, its bf16 variant and K2 equal the code's count
+   (``suite_launches``), the bench's self-checks hold, every number is
+   finite and positive and every MLP row's share of its bound lies in (0,
+   100 %].  Then the synchronizing calls of one product step (where in the
+   port each is made), and last the bench's rollouts behind a sleep and
+   under a short profiler window (the device's idle share).
 
 It runs in a temporary working directory (the CLI writes ``saved_trees/``
 and ``saved_runs/`` under it).  It prints a ``{"kernels": [...]}`` line,
@@ -602,25 +614,30 @@ def main() -> int:
     curves = curves_phase(card)
     roofline_phase(card, tree)
     log(f"phase 12: {time.perf_counter() - t_phase:.1f} s")
+
+    # -- phase 13: the benchmark programs ---------------------------------
+    bench = bench_phase(card)
     k1_by_path = {"mlp": k1_launches, "equinet": equi["k1"], "flagship": 0,
                   "offpol": offpol["k1"], "noisy": 0, "sweep": sweep["k1"],
                   "slice7": s7["k1"],
                   **{p: dp[k].get("k1", 0) for p, k in dp_paths.items()},
                   **{p: mp[k]["k1"] for p, k in mp_paths.items()},
-                  "curves": curves["k1"]}
+                  "curves": curves["k1"], "bench": bench["bench"]["k1"],
+                  "bench_suite": bench["suite"]["k1"]}
     k2_by_path = {"mlp": k2_launches, "equinet": equi["k2"],
                   "flagship": flag["k2"], "offpol": offpol["k2"],
                   "noisy": noisy["k2"], "sweep": sweep["k2"],
                   "slice7": s7["k2"],
                   **{p: dp[k]["k2"] for p, k in dp_paths.items()},
                   **{p: mp[k]["k2"] for p, k in mp_paths.items()},
-                  "curves": curves["k2"]}
+                  "curves": curves["k2"], "bench": bench["bench"]["k2"],
+                  "bench_suite": bench["suite"]["k2"]}
     k3_by_path = {"mlp": 0, "equinet": equi["k3"], "flagship": flag["k3"],
                   "offpol": 0, "noisy": 0, "sweep": sweep["k3"],
                   "distill": s7["k3"],
                   **{p: dp[k].get("k3", 0) for p, k in dp_paths.items()},
                   **{p: mp[k]["k3"] for p, k in mp_paths.items()},
-                  "curves": curves["k3"]}
+                  "curves": curves["k3"], "bench": 0, "bench_suite": 0}
     kernels = [
         {"name": "fused_turn", "route": "cuda",
          "source": "rnad_tpu_torch/csrc/fused_turn.cu",
@@ -688,8 +705,10 @@ def main() -> int:
         *({"name": name, "route": "cuda",
            "source": "rnad_tpu_torch/csrc/fused_turn.cu",
            "replaces": "rnad_tpu/ops/pallas_turn.py:79",
-           "launches": s7["k1_bf16"],
-           "launches_by_path": {"mlp_bf16_actor": s7["k1_bf16"]}, **entry}
+           "launches": s7["k1_bf16"] + bench["suite"]["k1_bf16"],
+           "launches_by_path": {"mlp_bf16_actor": s7["k1_bf16"],
+                                "bench_suite": bench["suite"]["k1_bf16"]},
+           **entry}
           for name, entry in s7["bf16"].items()),
         *({"name": name, "route": "cuda",
            "source": "rnad_tpu_torch/csrc/rmplus.cu",
@@ -2142,6 +2161,7 @@ def _zero_counts():
     from rnad_tpu_torch.ops import rmplus as rmplus_lib
 
     fused_turn_lib.fused_turn.launches = 0
+    fused_turn_lib.fused_turn.launches_bf16 = 0
     lookup_lib.lookup.launches = 0
     rmplus_lib.rmplus.launches = 0
 
@@ -3070,6 +3090,203 @@ def check_against_cpu(tree, cfg, net_cfg) -> None:
         raise AssertionError(f"card vs CPU step: weights differ by {err}")
     log(f"card vs CPU: one train step at 256 lanes agrees (episodes equal, "
         f"weights max_abs_err {err:.3g})")
+
+
+# phase 13: the benchmark programs.  bench.py's counterpart at its
+# defaults, then tools/bench_suite.py's at 32768 lanes on three paths: the
+# demo tree's MLP with the fused-turn row, the big tree with the bf16
+# actor, the ConvNet
+SUITE_RUNS = [["--batches", "32768", "--fused-turn"],
+              ["--tree", "big", "--batches", "32768", "--actor-dtype",
+               "bfloat16"],
+              ["--net", "conv", "--batches", "32768"]]
+
+
+def suite_rows(argv):
+    """The metrics a bench_suite run of ``argv`` prints, in order."""
+    from rnad_tpu_torch import bench_suite
+
+    args = bench_suite.build_parser().parse_args(argv)
+    fused = ["rollout_fused_turn_env_steps_per_s"] * args.fused_turn
+    per_batch = (["rollout_env_steps_per_s"] + fused
+                 + [m + s for s in ("", "_bf16")
+                    for m in ("train_steps_per_s", "train_env_steps_per_s")])
+    return (["tree_generation"] + per_batch * len(args.batches)
+            + ["nashconv_eval"])
+
+
+def suite_launches(argv, rows):
+    """The launches of K1, the bf16 K1 and K2 that the code makes for a
+    bench_suite run's rows, warm calls included.  A rollout of ``levels``
+    turns launches ``levels`` of K1 (the float32 MLP, and every turn of
+    the fused-turn row), of the bf16 K1 (the MLP under ``--actor-dtype
+    bfloat16``) or of K2 (the generic turn: the ConvNet); a train step
+    launches its rollout's (the bfloat16 MLP rolls out through the generic
+    turn, since K1 computes in float32; the train rows keep the float32
+    actor) and one K2, the regather."""
+    from rnad_tpu_torch import bench, bench_suite
+
+    conv = bench_suite.build_parser().parse_args(argv).net == "conv"
+    levels = rows[0]["max_depth"]
+    want = {"k1": 0, "k1_bf16": 0, "k2": 0}
+    for r in rows:
+        if r["metric"].startswith("rollout_"):
+            calls = bench.WARM_ROLLOUTS + r["iters"]
+            kernel = ("k2" if conv else "k1_bf16" if r.get("actor_dtype")
+                      == "bfloat16" else "k1")
+            want[kernel] += levels * calls
+        elif r["metric"].startswith("train_steps_per_s"):
+            calls = bench.WARM_STEPS + r["iters"]
+            generic = conv or r["dtype"] == "bfloat16"
+            want["k2" if generic else "k1"] += levels * calls
+            want["k2"] += calls
+    return want
+
+
+def _bench_counts():
+    from rnad_tpu_torch.ops import fused_turn as fused_turn_lib
+
+    return {**_counts(), "k1_bf16": fused_turn_lib.fused_turn.launches_bf16}
+
+
+def bench_phase(card):
+    """Phase 13: ``rnad_tpu_torch.bench.main()`` at its defaults and
+    ``bench_suite.main`` on ``SUITE_RUNS``, each with the launch counters
+    zeroed just before and read just after and held to the code's count;
+    every number finite and positive, every share of the bound in (0,
+    100 %].  First K1 against its plain version at each of the bench's
+    rollout batches, on its tree and actor; after the programs, one product
+    step must make no synchronizing call, and last the device's idle share
+    of the bench's rollouts.  Returns each program's launches."""
+    import traceback
+    import warnings
+
+    from rnad_tpu_torch import bench, bench_suite
+    from rnad_tpu_torch.env import engine
+    from rnad_tpu_torch.env import tree as tree_lib
+    from rnad_tpu_torch.models import nets
+    from rnad_tpu_torch.ops import fused_turn as fused_turn_lib
+    from rnad_tpu_torch.ops import stepping
+
+    t_phase = time.perf_counter()
+    tree = tree_lib.generate_tree(bench.TREE_CONFIG, seed=0, device="cuda")
+    turns = tree.max_depth
+    packed = stepping.make_packed_tables(tree)
+    A, T = tree.max_actions, tree.max_transitions
+    S = packed.rows.shape[0]
+    weights = [w.detach().contiguous()
+               for w in nets.mlp_fused_weights(bench.actor_net("cuda"))]
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    for batch in bench.ROLLOUT_BATCHES:
+        idx = torch.randint(0, S, (batch,), generator=gen, device="cuda",
+                            dtype=torch.int32)
+        g_act, g_ch = engine.turn_noise(batch, A, T, gen, "cuda")
+        check_fused_turn(fused_turn_lib,
+                         [packed.rows, *weights, idx, g_act, g_ch], A, T)
+    del idx, g_act, g_ch
+    _zero_counts()
+    line = bench.main([])
+    bench_got = _bench_counts()
+    want = {"k1": turns * sum(bench.WARM_ROLLOUTS + bench.rollout_iters(b)
+                              for b in bench.ROLLOUT_BATCHES),
+            "k1_bf16": 0, "k2": (turns + 1) * (bench.WARM_STEPS
+                                               + bench.TRAIN_STEPS),
+            "k3": 0}
+    if bench_got != want:
+        raise AssertionError(f"bench: launches {bench_got}, want {want} (K1 "
+                             f"{turns} a rollout, K2 {turns + 1} a step)")
+    rates = [line["value"], line["train_updates_per_s"],
+             line["train_env_steps_per_s"], *line["rollout_rates"].values()]
+    keys = {"metric", "value", "unit", "rollout_batch", "rollout_rates",
+            "train_updates_per_s", "train_env_steps_per_s", "device",
+            "power_limit_w"}
+    if set(line) != keys or not all(math.isfinite(r) and r > 0
+                                    for r in rates) \
+            or line["device"] != torch.cuda.get_device_name(0) \
+            or not line["power_limit_w"] > 0:
+        raise AssertionError(f"bench: line {line}")
+    log(f"bench: self-checks held (lane diversity > 0, |mean return| <= 1, "
+        f"finite losses); K1 {bench_got['k1']} ({turns} a rollout), K2 "
+        f"{bench_got['k2']} ({turns + 1} a step) as predicted; "
+        f"{time.perf_counter() - t_phase:.1f} s | {card}")
+
+    # the product step must not wait for the device: each synchronizing
+    # call is recorded with its innermost frame in the port; the mode is
+    # set before the hook goes in, so only the step's own calls count
+    state, train_step = bench.train_setup(tree, packed)
+    train_step(state, bench.ALPHA)
+    torch.cuda.synchronize()
+    syncs = []
+
+    def record(message, *args, **kw):
+        port = [f for f in traceback.extract_stack()[:-1]
+                if "rnad_tpu_torch" in f.filename]
+        where = "outside the port"
+        if port:
+            path = port[-1].filename.split("rnad_tpu_torch")[-1]
+            where = (f"rnad_tpu_torch{path}:{port[-1].lineno} "
+                     f"({port[-1].name})")
+        syncs.append(f"{where}: {str(message).splitlines()[0][:80]}")
+
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = record
+            train_step(state, bench.ALPHA)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    if syncs:
+        raise AssertionError(
+            f"bench train step: {len(syncs)} synchronizing calls in one step"
+            + "".join(f"\n  {w}" for w in sorted(set(syncs))))
+    log("bench train step: no synchronizing call in one step")
+    del state, train_step
+    torch.cuda.empty_cache()
+
+    suite = {"k1": 0, "k1_bf16": 0, "k2": 0}
+    for argv in SUITE_RUNS:
+        t0 = time.perf_counter()
+        _zero_counts()
+        rows = bench_suite.main(argv)
+        got = _bench_counts()
+        want = {**suite_launches(argv, rows), "k3": 0}
+        log(f"bench_suite {' '.join(argv)}: {time.perf_counter() - t0:.1f} "
+            f"s; launches {got}")
+        if got != want:
+            raise AssertionError(f"bench_suite {argv}: launches {got}, want "
+                                 f"{want}")
+        names = [r["metric"] for r in rows]
+        if names != suite_rows(argv):
+            raise AssertionError(f"bench_suite {argv}: rows {names}, want "
+                                 f"{suite_rows(argv)}")
+        mlp = bench_suite.build_parser().parse_args(argv).net == "mlp"
+        for r in rows:
+            if not (math.isfinite(r["value"]) and r["value"] > 0
+                    and r["device"] == torch.cuda.get_device_name(0)):
+                raise AssertionError(f"bench_suite {argv}: row {r}")
+            roofed = mlp and r["metric"] not in ("tree_generation",
+                                                 "nashconv_eval")
+            if roofed != ("pct_of_roof" in r) or (
+                    roofed and not 0.0 < r["pct_of_roof"] <= 100.0):
+                raise AssertionError(f"bench_suite {argv}: share of the "
+                                     f"bound in {r}")
+        for k in suite:
+            suite[k] += got[k]
+
+    # the device's idle share of the bench's rollouts: their device time
+    # behind a sleep over their time back to back
+    net = bench.actor_net("cuda")
+    for batch in bench.ROLLOUT_BATCHES:
+        roll = bench.rollout_fn(tree, packed, net, batch, gen)
+        busy_ms = device_ms(roll, iters=10)
+        back_ms = wall_ms(roll)
+        log(f"bench rollout, {batch} lanes: {busy_ms:.4f} ms device busy "
+            f"behind a sleep, {back_ms:.4f} ms back to back "
+            f"({100 * (1 - busy_ms / back_ms):.1f} % idle) | {card}")
+
+    log(f"phase 13: {time.perf_counter() - t_phase:.1f} s")
+    return {"bench": bench_got, "suite": suite}
 
 
 if __name__ == "__main__":

@@ -515,14 +515,18 @@ def make_train_step(tree: GameTree, packed: stepping.PackedTables,
                     cfg: RNaDConfig,
                     obs_transform: Optional[obs_transform_lib.ObsTransform]
                     = None):
-    """The fused on-policy step ``train_step(state, alpha, noise=None)``:
-    rollout, learn, optimize and EMA; returns (state, metrics).  ``noise``
-    gives each turn's (g_act, g_chance), and the lift's eps under
-    ``obs_transform``; None draws from ``state.generator``."""
+    """The fused on-policy step ``train_step(state, alpha, noise=None,
+    with_trajectory=False)``: rollout, learn, optimize and EMA; returns
+    (state, metrics), and the step's trajectory third under
+    ``with_trajectory``.  ``noise`` gives each turn's (g_act, g_chance), and
+    the lift's eps under ``obs_transform``; None draws from
+    ``state.generator``."""
 
-    def train_step(state: TrainState, alpha: float, noise=None):
+    def train_step(state: TrainState, alpha: float, noise=None,
+                   with_trajectory: bool = False):
         traj = rollout(state, tree, packed, cfg, noise, obs_transform)
-        return state, learn_step(state, packed, traj, alpha, cfg)
+        metrics = learn_step(state, packed, traj, alpha, cfg)
+        return (state, metrics, traj) if with_trajectory else (state, metrics)
 
     return train_step
 
