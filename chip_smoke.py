@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Thirteen phases, and any failure exits nonzero:
+Fourteen phases, and any failure exits nonzero:
 
 1. Build the three CUDA kernels from ``rnad_tpu_torch/csrc`` (one nvcc
    each, started together) and print the build time and ptxas's registers
@@ -195,6 +195,19 @@ Thirteen phases, and any failure exits nonzero:
    100 %].  Then the synchronizing calls of one product step (where in the
    port each is made), and last the bench's rollouts behind a sleep and
    under a short profiler window (the device's idle share).
+14. The learner step's options (``fuse_net_passes`` "frozen" and "all",
+   ``learner_layout="amb"``, ``flat_optimizer``): ``learner_probe.main``
+   on its 16 configs at 32768 lanes, width 256, on the demo tree, 32
+   timed steps each (256 in the probe), and f32/heads under both v-trace
+   modes, counters zeroed just before and read just after: each row's
+   self-checks hold and its launches a step are the kernel table's (K1 4
+   and K2 1 in float32, K2 5 in bfloat16).  Then one learner step of each
+   option against its base from the same state and trajectory (flat
+   bitwise; "frozen", "all" and "amb" within the CPU tests' tolerance),
+   the variants' steps against f32/heads back to back in turns (two
+   rounds of variant, heads, heads, variant; 30 steps a window), and last
+   the device operations of one clip + Adam + EMA tail with and without
+   flat in a profiler around that call alone.
 
 It runs in a temporary working directory (the CLI writes ``saved_trees/``
 and ``saved_runs/`` under it).  It prints a ``{"kernels": [...]}`` line,
@@ -617,13 +630,17 @@ def main() -> int:
 
     # -- phase 13: the benchmark programs ---------------------------------
     bench = bench_phase(card)
+
+    # -- phase 14: the learner step's options -----------------------------
+    probe = learner_phase(card)
     k1_by_path = {"mlp": k1_launches, "equinet": equi["k1"], "flagship": 0,
                   "offpol": offpol["k1"], "noisy": 0, "sweep": sweep["k1"],
                   "slice7": s7["k1"],
                   **{p: dp[k].get("k1", 0) for p, k in dp_paths.items()},
                   **{p: mp[k]["k1"] for p, k in mp_paths.items()},
                   "curves": curves["k1"], "bench": bench["bench"]["k1"],
-                  "bench_suite": bench["suite"]["k1"]}
+                  "bench_suite": bench["suite"]["k1"],
+                  "learner_probe": probe["k1"]}
     k2_by_path = {"mlp": k2_launches, "equinet": equi["k2"],
                   "flagship": flag["k2"], "offpol": offpol["k2"],
                   "noisy": noisy["k2"], "sweep": sweep["k2"],
@@ -631,13 +648,15 @@ def main() -> int:
                   **{p: dp[k]["k2"] for p, k in dp_paths.items()},
                   **{p: mp[k]["k2"] for p, k in mp_paths.items()},
                   "curves": curves["k2"], "bench": bench["bench"]["k2"],
-                  "bench_suite": bench["suite"]["k2"]}
+                  "bench_suite": bench["suite"]["k2"],
+                  "learner_probe": probe["k2"]}
     k3_by_path = {"mlp": 0, "equinet": equi["k3"], "flagship": flag["k3"],
                   "offpol": 0, "noisy": 0, "sweep": sweep["k3"],
                   "distill": s7["k3"],
                   **{p: dp[k].get("k3", 0) for p, k in dp_paths.items()},
                   **{p: mp[k]["k3"] for p, k in mp_paths.items()},
-                  "curves": curves["k3"], "bench": 0, "bench_suite": 0}
+                  "curves": curves["k3"], "bench": 0, "bench_suite": 0,
+                  "learner_probe": 0}
     kernels = [
         {"name": "fused_turn", "route": "cuda",
          "source": "rnad_tpu_torch/csrc/fused_turn.cu",
@@ -3288,6 +3307,185 @@ def bench_phase(card):
     log(f"phase 13: {time.perf_counter() - t_phase:.1f} s")
     return {"bench": bench_got, "suite": suite}
 
+
+# phase 14: the learner step's options through the learner probe at its
+# defaults (32768 lanes, width 256, the demo tree), cut to PROBE_ITERS
+# timed steps a config; then f32/heads under both v-trace modes
+PROBE_ITERS = 32
+PROBE_ARGV = ["--batch", str(B_MAIN), "--width", "256", "--iters",
+              str(PROBE_ITERS)]
+PROBE_CUTS = [("--iters", str(PROBE_ITERS), "256")]
+PROBE_VTRACE = ["--only", "f32/heads$", "--vtrace", "scan,associative"]
+# the in-turns comparison: TURN_ROUNDS rounds of (variant, f32/heads,
+# f32/heads, variant) windows of TURN_ITERS back-to-back steps each
+TURN_ITERS, TURN_ROUNDS = 30, 2
+
+
+def _tail_launches(cfg, state, grads):
+    """Device operations (kernels, copies) of one clip + Adam + EMA tail
+    (``rnad.apply_update``) in a profiler around that call alone, and
+    their summed device ms."""
+    from rnad_tpu_torch.learn import rnad
+    from rnad_tpu_torch.utils import timing
+
+    torch.cuda.synchronize()
+    with timing.trace() as prof:
+        rnad.apply_update(cfg, state, grads)
+        torch.cuda.synchronize()
+    ops = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    return (sum(e.count for e in ops),
+            sum(e.self_device_time_total for e in ops) / 1e3)
+
+
+def learner_phase(card):
+    """Phase 14: (a) ``learner_probe.main`` on its 16 configs (and
+    f32/heads under both v-trace modes), the counters zeroed just before
+    and read just after, each row's self-checks held by the probe and its
+    launches a step held to the kernel table (K1 4 and K2 1 a float32 step;
+    K1 0 and K2 5 a bfloat16 step: 4 generic turns and the regather); (b)
+    one learner step of each option against its base from the same state
+    and trajectory, TF32 off: flat bitwise the per-leaf step (weights,
+    target, both moments), "frozen", "all" and "amb" within the CPU tests'
+    tolerance of "heads" / "bma" (loss rtol 1e-5; weights rtol 2e-6, atol
+    1e-7, 2 lr where the gradient is below 1e-6); (c) the variants' train
+    steps against f32/heads back to back, in turns; (d) last, the device
+    operations of one clip + Adam + EMA tail with and without flat, in a
+    profiler around that call alone, and its device ms behind a sleep.
+    Returns the launches of (a)."""
+    from rnad_tpu_torch import learner_probe
+    from rnad_tpu_torch.env import tree as tree_lib
+    from rnad_tpu_torch.learn import rnad
+    from rnad_tpu_torch.ops import fused_turn as fused_turn_lib
+    from rnad_tpu_torch.ops import stepping
+
+    t_phase = time.perf_counter()
+    log("learner probe: " + " ".join(PROBE_ARGV) + "; cuts: " + "; ".join(
+        f"{f} {v} (the probe's default: {d})" for f, v, d in PROBE_CUTS))
+    _zero_counts()
+    rows = learner_probe.main(PROBE_ARGV)
+    rows += learner_probe.main(PROBE_ARGV + PROBE_VTRACE)
+    got = {**_counts(), "k1_bf16": fused_turn_lib.fused_turn.launches_bf16}
+    tree = tree_lib.generate_tree(learner_probe.bench.TREE_CONFIG, seed=0,
+                                  device="cuda")
+    turns = tree.max_depth
+    if len(rows) != 18 or got["k3"] or got["k1_bf16"]:
+        raise AssertionError(f"learner probe: {len(rows)} rows, launches "
+                             f"{got}")
+    for r in rows:
+        want = ((0.0, turns + 1.0) if r["config"].startswith("bf16")
+                else (float(turns), 1.0))
+        if (r["k1_per_step"], r["k2_per_step"]) != want:
+            raise AssertionError(f"learner probe {r['config']}: launches a "
+                                 f"step K1 {r['k1_per_step']}, K2 "
+                                 f"{r['k2_per_step']}, want {want}")
+        if not (math.isfinite(r["updates_per_s"]) and r["updates_per_s"] > 0
+                and r["device"] == torch.cuda.get_device_name(0)
+                and r["power_limit_w"] > 0
+                and r["flat"] == ("flat" in r["config"])):
+            raise AssertionError(f"learner probe: row {r}")
+    log(f"learner probe: {len(rows)} rows, self-checks held; launches a "
+        f"step as the kernel table says (K1 {turns}, K2 1 in float32; K1 0, "
+        f"K2 {turns + 1} in bfloat16); in all {got} | {card}")
+
+    # (b) each option against its base: one learner step from the same
+    # state on the same trajectory
+    packed = stepping.make_packed_tables(tree)
+    base_cfg, net_cfg = learner_probe.configs(
+        learner_probe.select("f32/heads$", None)[0], B_MAIN, 256,
+        tree.max_actions)
+    state = learner_probe.fresh_state(net_cfg, "cuda", learner_probe.NET_SEED)
+    traj = rnad.rollout(learner_probe.clone_state(state), tree, packed,
+                        base_cfg)
+    probe = learner_probe.clone_state(state)
+    loss, _ = rnad.learn_loss(probe, packed, traj, learner_probe.ALPHA,
+                              base_cfg)
+    grads = torch.autograd.grad(loss, list(probe.net.parameters()))
+    zero = [g.abs() < 1e-6 for g in grads]
+    lr = base_cfg.lr
+
+    def one_step(**kw):
+        s = learner_probe.clone_state(state)
+        cfg = dataclasses.replace(base_cfg, **kw)
+        return s, rnad.learn_step(s, packed, traj, learner_probe.ALPHA, cfg)
+
+    heads, heads_m = one_step()
+    flat, _ = one_step(flat_optimizer=True)
+    pairs = [("net", heads.net, flat.net),
+             ("target", heads.net_target, flat.net_target)]
+    same = all(torch.equal(p, q) for _, a, b in pairs
+               for p, q in zip(a.parameters(), b.parameters()))
+    same &= all(torch.equal(p, q) for p, q in zip(
+        heads.opt.mu + heads.opt.nu, flat.opt.mu + flat.opt.nu))
+    if not same or heads.opt.count != flat.opt.count:
+        raise AssertionError("flat optimizer: not bitwise the per-leaf step")
+    log("flat optimizer: one learner step bitwise the per-leaf step "
+        "(weights, target, Adam's mu and nu)")
+    for kw in (dict(fuse_net_passes="frozen"), dict(fuse_net_passes="all"),
+               dict(learner_layout="amb")):
+        s, m = one_step(**kw)
+        worst = 0.0
+        for name in ("net", "net_target"):
+            for p, q, z in zip(getattr(heads, name).parameters(),
+                               getattr(s, name).parameters(), zero):
+                p, q = p.detach(), q.detach()
+                d = (p - q).abs()
+                tol = torch.where(z, 2 * lr, 1e-7 + 2e-6 * p.abs())
+                if not (d <= tol).all():
+                    raise AssertionError(f"{kw}: {name} off by "
+                                         f"{float(d.max())}")
+                worst = max(worst, float(d.max()))
+        rel = abs(float(m["loss"]) - float(heads_m["loss"])) / abs(
+            float(heads_m["loss"]))
+        if not rel <= 1e-5:
+            raise AssertionError(f"{kw}: loss {float(m['loss'])!r} against "
+                                 f"{float(heads_m['loss'])!r}")
+        log(f"{kw}: one learner step within tolerance of the base (weights "
+            f"max |diff| {worst:.3g}, loss rel diff {rel:.3g})")
+    del heads, flat, s, probe
+
+    # (c) train steps back to back, each variant against f32/heads in turns
+    steps = {}
+    for label in ("f32/heads", "f32/heads-flat", "f32/frozen", "f32/all",
+                  "f32/heads-amb"):
+        cfg, _ = learner_probe.configs(learner_probe.select(
+            label + "$", None)[0], B_MAIN, 256, tree.max_actions)
+        st = learner_probe.clone_state(state)
+        step = rnad.make_train_step(tree, packed, cfg)
+        steps[label] = (lambda st=st, step=step:
+                        step(st, learner_probe.ALPHA))
+    for label in list(steps)[1:]:
+        times = {label: [], "f32/heads": []}
+        for _ in range(TURN_ROUNDS):
+            for k, v in _in_turns((label, "f32/heads"),
+                                  lambda n: steps[n](),
+                                  iters=TURN_ITERS).items():
+                times[k] += v
+        ms = {k: "/".join(f"{t:.4f}" for t in v) for k, v in times.items()}
+        ratio = sum(times["f32/heads"]) / sum(times[label])
+        log(f"in turns, {TURN_ITERS} steps a window: {label} {ms[label]} "
+            f"ms, f32/heads {ms['f32/heads']} ms ({ratio:.3f}x the updates/s"
+            f" of f32/heads) | {card}")
+    del steps
+
+    # (d) the tail of one step, with and without flat (the profiler last:
+    # its tracing slows the process's later launches)
+    tails = {}
+    for flat_opt in (False, True):
+        cfg = dataclasses.replace(base_cfg, flat_optimizer=flat_opt)
+        s = learner_probe.clone_state(state)
+        ms = device_ms(lambda: rnad.apply_update(cfg, s, grads))
+        tails[flat_opt] = (*_tail_launches(cfg, s, grads), ms)
+    for flat_opt, (n, prof_ms, ms) in tails.items():
+        if not n:
+            raise AssertionError("the profiler recorded no device operation "
+                                 "of the clip + Adam + EMA tail")
+        log(f"clip + Adam + EMA, {'flat' if flat_opt else 'per leaf'}: {n} "
+            f"device operations in one tail (profiler; {prof_ms:.4f} ms "
+            f"summed there), {ms:.4f} ms device time behind a sleep | "
+            f"{card}")
+    log(f"phase 14: {time.perf_counter() - t_phase:.1f} s")
+    return got
 
 if __name__ == "__main__":
     sys.exit(main())

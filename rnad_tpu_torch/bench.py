@@ -42,10 +42,11 @@ BASELINE.md's target, which was set for a TPU v5p.  TF32 is off for
 matmuls and cuDNN, and cuDNN runs its deterministic algorithms, as in
 ``RNaD``.
 
-Not ported, as TPU-only workarounds that change no value: the one-program
-scan of all rollouts (torch has none, so every rollout and step is
-launched from the host, and the host's enqueue is part of the rate) and
-``policy_minor``.
+Not ported, as a TPU-only workaround that changes no value: the
+one-program scan of all rollouts (torch has none, so every rollout and
+step is launched from the host, and the host's enqueue is part of the
+rate).  Not ported yet: ``policy_minor``, one of the rollout's variants
+(the next slice).
 """
 
 from __future__ import annotations

@@ -10,12 +10,21 @@ observations (one packed-row lookup, and one RM+ solve shared by all four
 passes) or on the stored lifted ones, the frozen passes, the
 alpha-interpolated reward transform and two-player v-trace, the NeuRD and
 critic losses, the optax global-norm clip, Adam with the optax formulas
-(b1=0 by default) and the EMA target update.  The frozen passes follow
+(b1=0 by default) and the EMA target update.  The net passes follow
 ``fuse_net_passes``: "heads" (the MLP: the EMA target's value head and the
-regularization pair's policy heads) or "off" (every other net: each frozen
-net's whole forward), computed in ``frozen_net_dtype`` where it is
+regularization pair's policy heads), "off" (each frozen net's whole
+forward; "auto" for every other net), "frozen" (the depth-1 MLP: the three
+frozen nets as one packed matmul pair, ``nets.mlp_multi_net_forward``) or
+"all" (the learner and the three frozen nets in one pair, in the learner's
+dtype).  The frozen passes compute in ``frozen_net_dtype`` where it is
 bfloat16 (the nets' float32 weights cast per layer, as ``rnad_tpu``'s
-``net.clone(dtype=...)`` does) and in the net's own dtype otherwise.  The
+``net.clone(dtype=...)`` does) and in the net's own dtype otherwise.
+``learner_layout="amb"`` runs the policies, the v-trace and the losses in
+the batch-minor (T, A, B) layout (``learn/vtrace.py``'s second half;
+"auto" is the (T, B, A) layout, as ``rnad_tpu`` off a TPU), and
+``flat_optimizer`` runs the clip + Adam + EMA tail on one raveled vector
+(``flat_optimizer_update``, ``flat_ema_update``) where ``rnad_tpu``'s
+``use_flat`` rule allows it, bitwise the per-leaf tail.  The
 ``RNaD`` host loop owns the run's lifecycle (a fresh start or a bit-exact
 resume from the run store), the (m, n, alpha) schedule, regularization
 rotation (``reg_anchor`` "target", "best" or "fixed"), checkpoints, exact
@@ -50,7 +59,7 @@ import dataclasses
 import logging
 import math
 import time
-from typing import Dict, List, Optional, Tuple, Union
+from typing import Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -132,6 +141,11 @@ def learning_rate(cfg: RNaDConfig, count: int) -> float:
     return float(f32(cfg.lr) * (f32(1 - alpha) * decay + f32(alpha)))
 
 
+def _clip(g: torch.Tensor, g_norm: torch.Tensor, clip: float
+          ) -> torch.Tensor:
+    return torch.where(g_norm < clip, g, g / g_norm * clip)
+
+
 @torch.no_grad()
 def optimizer_update(cfg: RNaDConfig, params: List[torch.Tensor],
                      grads: List[torch.Tensor], opt: AdamState,
@@ -146,10 +160,44 @@ def optimizer_update(cfg: RNaDConfig, params: List[torch.Tensor],
     this update."""
     if g_norm is None:
         g_norm = global_norm(grads)
-    clip = cfg.grad_clip
-    grads = [torch.where(g_norm < clip, g, g / g_norm * clip) for g in grads]
+    grads = [_clip(g, g_norm, cfg.grad_clip) for g in grads]
     adam_update(params, grads, opt, learning_rate(cfg, opt.count),
                 cfg.b1_adam, cfg.b2_adam, cfg.epsilon_adam)
+
+
+def _ravel(tensors: List[torch.Tensor]) -> torch.Tensor:
+    return torch.cat([t.reshape(-1) for t in tensors])
+
+
+def _unravel_into(tensors: List[torch.Tensor], flat: torch.Tensor) -> None:
+    """Copies the consecutive slices of ``flat`` into ``tensors``."""
+    parts = flat.split([t.numel() for t in tensors])
+    torch._foreach_copy_(tensors, [p.view_as(t)
+                                   for p, t in zip(parts, tensors)])
+
+
+@torch.no_grad()
+def flat_optimizer_update(cfg: RNaDConfig, params: List[torch.Tensor],
+                          grads: List[torch.Tensor], opt: AdamState,
+                          g_norm: Optional[torch.Tensor] = None) -> None:
+    """``optimizer_update`` on one raveled vector (``rnad_tpu``'s
+    ``flat_optimizer_update``): the gradients, weights and moments are
+    concatenated, the clip and Adam run once over the (P,) vectors and the
+    results are copied back into the leaves, so Adam's state keeps its
+    per-leaf layout.  The global norm keeps ``global_norm``'s per-leaf
+    order and every other operation is elementwise with
+    ``optimizer_update``'s formulas, so the result is bitwise the per-leaf
+    update.  For the constant learning rate (``uses_flat_optimizer``)."""
+    if g_norm is None:
+        g_norm = global_norm(grads)
+    g = _clip(_ravel(grads), g_norm, cfg.grad_clip)
+    p, mu, nu = _ravel(params), _ravel(opt.mu), _ravel(opt.nu)
+    flat = AdamState([mu], [nu], opt.count)
+    adam_update([p], [g], flat, cfg.lr, cfg.b1_adam, cfg.b2_adam,
+                cfg.epsilon_adam)
+    opt.count = flat.count
+    for leaves, flat in ((params, p), (opt.mu, mu), (opt.nu, nu)):
+        _unravel_into(leaves, flat)
 
 
 @torch.no_grad()
@@ -183,16 +231,56 @@ def adam_update(params: List[torch.Tensor], grads: List[torch.Tensor],
         p.add_((-lr) * (mu_hat / (torch.sqrt(nu_hat) + eps)))
 
 
+def _ema_tensors(net: nn.Module) -> List[torch.Tensor]:
+    """What the EMA averages: the weights, then the floating buffers
+    (BatchNorm statistics)."""
+    return list(net.parameters()) + [b for b in net.buffers()
+                                     if b.is_floating_point()]
+
+
 @torch.no_grad()
 def ema_update(gamma: float, net: nn.Module, net_target: nn.Module
                ) -> None:
     """target <- gamma * learner + (1 - gamma) * target, in place, over the
     weights and the floating buffers (BatchNorm statistics) alike."""
-    for p, t in zip(net.parameters(), net_target.parameters()):
+    for p, t in zip(_ema_tensors(net), _ema_tensors(net_target)):
         t.copy_(gamma * p + (1.0 - gamma) * t)
-    for b, t in zip(net.buffers(), net_target.buffers()):
-        if t.is_floating_point():
-            t.copy_(gamma * b + (1.0 - gamma) * t)
+
+
+@torch.no_grad()
+def flat_ema_update(gamma: float, net: nn.Module, net_target: nn.Module
+                    ) -> None:
+    """``ema_update`` on one raveled vector (``rnad_tpu``'s
+    ``flat_ema_update``), bitwise the per-leaf update."""
+    target = _ema_tensors(net_target)
+    t = _ravel(target)
+    _unravel_into(target, gamma * _ravel(_ema_tensors(net))
+                  + (1.0 - gamma) * t)
+
+
+def uses_flat_optimizer(cfg: RNaDConfig, state: "TrainState") -> bool:
+    """``rnad_tpu``'s ``use_flat`` rule: ``flat_optimizer`` with the
+    constant learning rate, every weight and averaged buffer of the learner
+    and the target (and so every gradient) float32."""
+    return (cfg.flat_optimizer and cfg.lr_schedule == "constant"
+            and all(t.dtype == torch.float32
+                    for net in (state.net, state.net_target)
+                    for t in _ema_tensors(net)))
+
+
+def apply_update(cfg: RNaDConfig, state: "TrainState",
+                 grads: List[torch.Tensor],
+                 g_norm: Optional[torch.Tensor] = None) -> None:
+    """The step's tail, in place: clip + Adam on the learner's weights,
+    then the EMA of the target, on one raveled vector where
+    ``uses_flat_optimizer`` and per leaf otherwise."""
+    params = list(state.net.parameters())
+    if uses_flat_optimizer(cfg, state):
+        flat_optimizer_update(cfg, params, list(grads), state.opt, g_norm)
+        flat_ema_update(cfg.gamma_averaging, state.net, state.net_target)
+    else:
+        optimizer_update(cfg, params, list(grads), state.opt, g_norm)
+        ema_update(cfg.gamma_averaging, state.net, state.net_target)
 
 
 def neurd_scale_for(cfg: RNaDConfig, total_steps: int) -> float:
@@ -205,9 +293,9 @@ def neurd_scale_for(cfg: RNaDConfig, total_steps: int) -> float:
 def resolve_fuse_mode(net: nn.Module, cfg: RNaDConfig) -> str:
     """Resolves ``cfg.fuse_net_passes`` against the net family as
     ``rnad_tpu`` does, with its errors.  "auto" is "heads" for the MLP (the
-    only family with separable heads) and "off" otherwise.  The MLP's
-    "frozen" and "all" (one fused matmul pair on the TPU) compute the same
-    losses as "heads", which the port runs for them."""
+    only family with separable heads) and "off" otherwise; "frozen" (the
+    three frozen nets in one packed matmul pair) and "all" (the learner
+    too, so in the learner's dtype) need a depth-1 MLP."""
     mode = cfg.fuse_net_passes
     is_mlp = isinstance(net, nets.MLP)
     if mode == "auto":
@@ -231,10 +319,37 @@ def resolve_fuse_mode(net: nn.Module, cfg: RNaDConfig) -> str:
                 f"compute dtype ({str(net.dtype).split('.')[-1]}); set "
                 f"frozen_net_dtype to match (got "
                 f"{cfg.frozen_net_dtype!r}) or use 'frozen'")
-        return "heads"
+        return mode
     if mode != "off":
         raise ValueError(f"unknown fuse_net_passes mode {mode!r}")
     return mode
+
+
+def resolve_learner_layout(cfg: RNaDConfig, use_assoc: bool,
+                           max_actions: Optional[int] = None) -> bool:
+    """True where the policies, the v-trace and the losses run in the
+    batch-minor (T, A, B) layout, with ``rnad_tpu``'s errors: the
+    associative v-trace keeps the (T, B, A) layout, and the batch-minor
+    discretizer covers A <= 16.  "auto" is the (T, B, A) layout, as
+    ``rnad_tpu`` resolves it off a TPU."""
+    mode = cfg.learner_layout
+    if mode not in ("bma", "amb", "auto"):
+        raise ValueError(f"unknown learner_layout {mode!r}")
+    if use_assoc:
+        if mode == "amb":
+            raise ValueError(
+                "learner_layout='amb' applies to the sequential-scan "
+                "v-trace only; vtrace_mode selected the associative path "
+                "at this trajectory length — use learner_layout='auto'")
+        return False
+    if max_actions is not None and max_actions > 16:
+        if mode == "amb":
+            raise ValueError(
+                "learner_layout='amb' requires max_actions <= 16 (the "
+                f"batch-minor policy discretizer's cap); this tree has "
+                f"max_actions={max_actions} — use learner_layout='auto'")
+        return False
+    return mode == "amb"
 
 
 def frozen_dtype(net: nn.Module, cfg: RNaDConfig) -> torch.dtype:
@@ -271,6 +386,29 @@ def learner_inputs(state: TrainState, packed: stepping.PackedTables,
     return LearnerInputs(obs_flat=obs_flat, masks=masks, solver_feats=feats)
 
 
+@dataclasses.dataclass(frozen=True)
+class _Layout:
+    """The policy, v-trace and loss functions of one learner layout."""
+
+    policy: Callable
+    log_policy: Callable
+    process_policy: Callable
+    v_trace_both: Callable
+    get_loss_v: Callable
+    get_loss_nerd: Callable
+    action_axis: int
+
+
+_LAYOUTS = {
+    False: _Layout(common.masked_policy, common.masked_log_policy,
+                   vtrace.process_policy, vtrace.v_trace_both,
+                   vtrace.get_loss_v, vtrace.get_loss_nerd, -1),
+    True: _Layout(common.masked_policy_minor, common.masked_log_policy_minor,
+                  vtrace.process_policy_minor, vtrace.v_trace_both_minor,
+                  vtrace.get_loss_v_minor, vtrace.get_loss_nerd_minor, -2),
+}
+
+
 def learn_loss(state: TrainState, packed: stepping.PackedTables,
                traj: engine.Trajectory, alpha: float, cfg: RNaDConfig,
                neurd_scale: float = 1.0,
@@ -303,18 +441,42 @@ def learn_loss(state: TrainState, packed: stepping.PackedTables,
     # alpha and 1 - alpha rounded as float32, as rnad_tpu computes them
     alpha_f32 = np.float32(alpha)
     alpha, one_minus_alpha = float(alpha_f32), float(np.float32(1) - alpha_f32)
+    minor = resolve_learner_layout(cfg, cfg.vtrace_mode == "associative", A)
+    L = _LAYOUTS[minor]
+    # the layout of every (T, B, A) tensor, and of the value columns
+    lay = ((lambda x: x.transpose(-1, -2).contiguous()) if minor
+           else (lambda x: x))
+    col = (lambda x: x) if minor else (lambda x: x[..., None])
 
-    logits, v_raw = nets.forward_train(
-        state.net, obs_flat, valid.reshape(T * B), inputs.solver_feats,
-        group if batch_norm == "global" else None)
+    frozen = None
+    if fuse == "all":  # the learner and the frozen nets in one pair
+        logits4, values4 = nets.mlp_multi_net_forward(
+            [state.net, state.net_target, state.net_reg, state.net_reg_],
+            obs_flat, state.net.dtype)
+        logits, v_raw = logits4[:, 0], values4[:, 0]
+        frozen = (logits4[:, 1].detach(), values4[:, 1].detach(),
+                  logits4[:, 2].detach(), logits4[:, 3].detach())
+    else:
+        logits, v_raw = nets.forward_train(
+            state.net, obs_flat, valid.reshape(T * B), inputs.solver_feats,
+            group if batch_norm == "global" else None)
     logits = logits.reshape(T, B, A)
-    v = v_raw.reshape(T, B)[..., None]
-    pi = common.masked_policy(logits, masks)
-    log_pi = common.masked_log_policy(logits, masks)
+    logits_l, masks_l = lay(logits), lay(masks)
+    v = col(v_raw.reshape(T, B))
+    pi = L.policy(logits_l, masks_l)
+    log_pi = L.log_policy(logits_l, masks_l)
 
     with torch.no_grad():
         dtype = frozen_dtype(state.net, cfg)
-        if fuse == "heads":
+        if fuse == "frozen":  # the three frozen nets in one pair
+            logits3, values3 = nets.mlp_multi_net_forward(
+                [state.net_target, state.net_reg, state.net_reg_], obs_flat,
+                dtype)
+            frozen = (logits3[:, 0], values3[:, 0], logits3[:, 1],
+                      logits3[:, 2])
+        if frozen is not None:
+            logits_t, values_target, logits_reg, logits_reg_prev = frozen
+        elif fuse == "heads":
             # the target contributes its value, the reg pair their
             # policies; the target's policy feeds one diagnostic only
             head = lambda net, h: net.head(obs_flat, h, dtype)
@@ -329,34 +491,34 @@ def learn_loss(state: TrainState, packed: stepping.PackedTables,
                                                        dtype=dtype)
             logits_reg, _ = state.net_reg(obs_flat, feats, dtype=dtype)
             logits_reg_prev, _ = state.net_reg_(obs_flat, feats, dtype=dtype)
-        v_target_net = values_target.reshape(T, B)[..., None]
-        log_pi_reg = common.masked_log_policy(logits_reg.reshape(T, B, A),
-                                              masks)
-        log_pi_reg_prev = common.masked_log_policy(
-            logits_reg_prev.reshape(T, B, A), masks)
-        pi_target = (common.masked_policy(logits_t.reshape(T, B, A), masks)
+        tba = lambda x: lay(x.reshape(T, B, A))
+        v_target_net = col(values_target.reshape(T, B))
+        log_pi_reg = L.log_policy(tba(logits_reg), masks_l)
+        log_pi_reg_prev = L.log_policy(tba(logits_reg_prev), masks_l)
+        pi_target = (L.policy(tba(logits_t), masks_l)
                      if cfg.detailed_metrics else None)
 
-        pi_processed = vtrace.process_policy(
-            pi.detach(), masks, cfg.n_discrete, cfg.epsilon_threshold)
+        pi_processed = L.process_policy(
+            pi.detach(), masks_l, cfg.n_discrete, cfg.epsilon_threshold)
         log_policy_reg = log_pi.detach() - (
             alpha * log_pi_reg + one_minus_alpha * log_pi_reg_prev)
+        acting_policy = lay(traj.policy)
         vt_both = (vtrace_assoc.v_trace_both_assoc
-                   if cfg.vtrace_mode == "associative"
-                   else vtrace.v_trace_both)
+                   if cfg.vtrace_mode == "associative" else L.v_trace_both)
         v_t2, played2, pol_t2 = vt_both(
-            v_target_net, valid, player_id, traj.policy, pi_processed,
-            log_policy_reg, traj.actions_oh(), traj.rewards,
+            v_target_net, valid, player_id, acting_policy, pi_processed,
+            log_policy_reg, lay(traj.actions_oh()), traj.rewards,
             eta=cfg.eta, lambda_=1.0, c=cfg.c_bar, rho=cfg.roh_bar,
             gamma=cfg.vtrace_gamma)
 
-    loss_v = vtrace.get_loss_v([v, v], [v_t2[0], v_t2[1]],
-                               [played2[0], played2[1]], gsum)
-    is_vector = torch.ones_like(valid)[..., None]
-    loss_nerd = vtrace.get_loss_nerd(
-        [logits, logits], [pi_processed, pi_processed], [pol_t2[0], pol_t2[1]],
-        valid, player_id, masks, [is_vector, is_vector],
-        clip=cfg.neurd_clip, threshold=cfg.logit_clip, global_sum=gsum)
+    loss_v = L.get_loss_v([v, v], [v_t2[0], v_t2[1]],
+                          [played2[0], played2[1]], gsum)
+    is_vector = col(torch.ones_like(valid))
+    loss_nerd = L.get_loss_nerd(
+        [logits_l, logits_l], [pi_processed, pi_processed],
+        [pol_t2[0], pol_t2[1]], valid, player_id, masks_l,
+        [is_vector, is_vector], clip=cfg.neurd_clip,
+        threshold=cfg.logit_clip, global_sum=gsum)
     loss = (cfg.value_loss_weight * loss_v
             + neurd_scale * cfg.neurd_loss_weight * loss_nerd)
 
@@ -368,18 +530,19 @@ def learn_loss(state: TrainState, packed: stepping.PackedTables,
                 metrics.values())))))
         return loss, metrics
     with torch.no_grad():
-        uniform_policy = masks / torch.clamp(masks.sum(-1, keepdim=True),
-                                             min=1e-30)
+        axis = L.action_axis
+        uniform_policy = masks_l / torch.clamp(
+            masks_l.sum(axis, keepdim=True), min=1e-30)
         klds = {"entropy": (pi, uniform_policy),
                 "entropy_target": (pi_target, uniform_policy),
-                "actor_learner_kld": (pi, traj.policy)}
+                "actor_learner_kld": (pi, acting_policy)}
         if gsum is None:
             logit_mean = logits.mean()
             metrics.update({
                 "traj_len": valid.sum(0).mean(),
                 "logit_mean": logit_mean,
                 "logit_max": (logits - logit_mean).abs().max()})
-            metrics.update({k: nashconv_lib.kld(p, q, valid, masks)
+            metrics.update({k: nashconv_lib.kld(p, q, valid, masks_l, axis)
                             for k, (p, q) in klds.items()})
             return loss, metrics
         # one all-reduce of the losses' shares and every diagnostic's
@@ -388,7 +551,7 @@ def learn_loss(state: TrainState, packed: stepping.PackedTables,
                  logits.new_tensor(float(logits.numel())), valid.sum(),
                  valid.new_tensor(float(B))]
         for p, q in klds.values():
-            parts.extend(nashconv_lib.kld_sums(p, q, valid, masks))
+            parts.extend(nashconv_lib.kld_sums(p, q, valid, masks_l, axis))
         sums = gsum(torch.stack(parts))
         metrics = dict(zip(metrics, sums[:3]))
         logit_mean = sums[3] / sums[4]
@@ -505,8 +668,7 @@ def learn_step(state: TrainState, packed: stepping.PackedTables,
             group.average_([b for b in state.net.buffers()
                             if b.is_floating_point()])
     metrics["gradient_norm"] = g_norm = global_norm(grads, state.net)
-    optimizer_update(cfg, params, list(grads), state.opt, g_norm)
-    ema_update(cfg.gamma_averaging, state.net, state.net_target)
+    apply_update(cfg, state, grads, g_norm)
     state.total_steps += 1
     return metrics
 
@@ -744,6 +906,8 @@ class RNaD:
                                self.obs_transform is not None,
                                nets.DTYPES[self.cfg.rollout_actor_dtype])
         resolve_fuse_mode(state.net, self.cfg)
+        resolve_learner_layout(self.cfg, self.cfg.vtrace_mode == "associative",
+                               self.tree.max_actions)
         resumed = False
         fresh = not self.store.exists() or self.store.latest() is None
         if self._world is not None:

@@ -270,6 +270,16 @@ class MLP(TensorParallel, nets.MLP):
         out = h.float()
         return out[:, 0] if head == "value" else out
 
+    def packed_forward(self, x, w0, b0, w1, b1, dtype):
+        """``mlp_multi_net_forward``'s pair on this rank's shards: the
+        packed fc0 columns and fc1 rows, then one sum of the packed output
+        over the model axis before the replicated fc1 biases."""
+        if self.model.world == 1:
+            return super().packed_forward(x, w0, b0, w1, b1, dtype)
+        h = torch.relu(copy_to_model(x, self.model) @ w0.to(dtype)
+                       + b0.to(dtype))
+        return reduce_from_model(h @ w1.to(dtype), self.model) + b1.to(dtype)
+
 
 class ConvNet(TensorParallel, nets.ConvNet):
     """The ConvNet in ``conv_param_spec``'s layout: each CrossConv reads

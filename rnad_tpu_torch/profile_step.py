@@ -1,7 +1,13 @@
 """Where a train step's time goes on the card.
 
     python3 -m rnad_tpu_torch.profile_step \
-        [--net mlp|equinet|flagship|offpol|convnet]
+        [--net mlp|equinet|flagship|offpol|convnet] \
+        [--fuse-net-passes MODE] [--learner-layout bma|amb] \
+        [--flat-optimizer]
+
+``--fuse-net-passes``, ``--learner-layout`` and ``--flat-optimizer`` set
+the learner step's options on any config, so its phases and kernel count
+can be read for each variant.
 
 ``--net mlp`` (the default) builds the demo tree (eta_sweep's config, seed
 0) and the MLP path's ``RNaD`` trainer (32768 lanes, MLP width 256).
@@ -38,9 +44,11 @@ no roofline model, as in ``tools/roofline.py``.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import subprocess
 import tempfile
 import time
+from typing import Optional
 
 import torch
 
@@ -98,6 +106,17 @@ CONFIGS = {
 NATIVE = ("flagship", "offpol")  # trees of the native generator
 
 
+def variant(cfg: RNaDConfig, fuse_net_passes: Optional[str] = None,
+            learner_layout: Optional[str] = None,
+            flat_optimizer: bool = False) -> RNaDConfig:
+    """``cfg`` with the learner step's options that are given."""
+    kw = {"fuse_net_passes": fuse_net_passes,
+          "learner_layout": learner_layout,
+          "flat_optimizer": flat_optimizer or None}
+    return dataclasses.replace(cfg, **{k: v for k, v in kw.items()
+                                       if v is not None})
+
+
 def _buffered(run: rnad.RNaD) -> bool:
     return run.cfg.n_batches_per_buffer > 1 or run.cfg.buffer_mod > 1
 
@@ -135,9 +154,7 @@ def _phases(run: rnad.RNaD, alpha: float, buffer=None):
                                            list(state.net.parameters()))
 
     def update():
-        rnad.optimizer_update(cfg, list(state.net.parameters()),
-                              list(box["grads"]), state.opt)
-        rnad.ema_update(cfg.gamma_averaging, state.net, state.net_target)
+        rnad.apply_update(cfg, state, box["grads"])
         state.total_steps += 1
 
     first = ([("rollout", roll)] if buffer is None else
@@ -202,6 +219,14 @@ def roofline_rows(run: rnad.RNaD, phases, counts: roofline.Counts):
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--net", choices=sorted(CONFIGS), default="mlp")
+    parser.add_argument("--fuse-net-passes", default=None,
+                        choices=["off", "heads", "frozen", "all", "auto"],
+                        help="override the config's net-pass strategy")
+    parser.add_argument("--learner-layout", default=None,
+                        choices=["bma", "amb", "auto"],
+                        help="override the config's learner layout")
+    parser.add_argument("--flat-optimizer", action="store_true",
+                        help="clip + Adam + EMA on one raveled vector")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_step needs a CUDA card")
@@ -209,6 +234,8 @@ def main() -> None:
                            "--format=csv,noheader"], capture_output=True,
                           text=True, timeout=60, check=True).stdout.strip()
     tree_cfg, net_cfg, cfg = CONFIGS[args.net]
+    cfg = variant(cfg, args.fuse_net_passes, args.learner_layout,
+                  args.flat_optimizer)
     gen = (tree_lib.generate_tree_native if args.net in NATIVE
            else tree_lib.generate_tree)
     tree = gen(tree_cfg, seed=0, device="cuda")
@@ -231,7 +258,10 @@ def main() -> None:
     bounds, work = {}, None
     if net_cfg.type == "MLP" and cfg.obs_transform.kind == "none":
         bounds, work = roofline_rows(run, phases, counts)
-    print(f"train step at B={cfg.batch_size}, {net_cfg}, obs_transform "
+    print(f"train step at B={cfg.batch_size}, {net_cfg}, fuse_net_passes "
+          f"{cfg.fuse_net_passes}, learner_layout {cfg.learner_layout}, "
+          f"flat optimizer {rnad.uses_flat_optimizer(cfg, run.state)}, "
+          f"obs_transform "
           f"{cfg.obs_transform.kind}, buffer {cfg.n_batches_per_buffer} "
           f"slots / mod {cfg.buffer_mod}: {step:.4f} ms device time; peak "
           f"memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB | "

@@ -113,15 +113,21 @@ def build_parser() -> argparse.ArgumentParser:
                    help="EMA rate of the target net (gamma_averaging)")
     p.add_argument("--fuse-net-passes", default=None,
                    choices=["off", "heads", "frozen", "all", "auto"],
-                   help="frozen-pass strategy (RNaDConfig.fuse_net_passes)")
+                   help="net-pass strategy (RNaDConfig.fuse_net_passes): "
+                        "'frozen' packs the 3 frozen nets of a depth-1 MLP "
+                        "into one matmul pair, 'all' the learner too")
     p.add_argument("--frozen-dtype", default=None,
                    choices=["float32", "bfloat16"],
                    help="dtype of the 3 frozen-net learner forwards")
     p.add_argument("--learner-layout", default=None,
                    choices=["bma", "amb", "auto"],
-                   help="a TPU layout choice: accepted, changes nothing here")
+                   help="layout of the learner's policies, v-trace and "
+                        "losses: (T, B, A) 'bma' or batch-minor (T, A, B) "
+                        "'amb' (bitwise the same values); 'auto' is 'bma'")
     p.add_argument("--flat-optimizer", action="store_true", default=None,
-                   help="a TPU layout choice: accepted, changes nothing here")
+                   help="clip + Adam + EMA on one raveled vector (bitwise "
+                        "the per-leaf update; constant lr and float32 "
+                        "weights only, else per leaf)")
     p.add_argument("--vtrace-mode", default=None,
                    choices=["scan", "associative", "auto"],
                    help="v-trace time recursion")
