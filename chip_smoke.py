@@ -2,7 +2,8 @@
 
     python3 chip_smoke.py
 
-Fourteen phases, and any failure exits nonzero:
+Fifteen phases, and any failure exits nonzero (phase 15 runs before phase
+14, whose profiler window slows the process's later launches):
 
 1. Build the three CUDA kernels from ``rnad_tpu_torch/csrc`` (one nvcc
    each, started together) and print the build time and ptxas's registers
@@ -24,45 +25,48 @@ Fourteen phases, and any failure exits nonzero:
 3. Drive the MLP path: the demo tree (eta_sweep's config, seed 0) and 30
    fused R-NaD train steps at 32768 lanes with a width-256 MLP through
    ``RNaD.run`` and ``final_eval``, with the kernels' launch counters set to
-   0 just before and read just after (4 K1 launches and 1 K2 launch per
-   step).  Checks finite losses and NashConv, returns in [-1, 1] and the
-   stored solution's NashConv of 0; times rollout half-steps/s and train
+   0 just before and read just after (4 K1 launches per step and no K2:
+   K1 stores the observations the learner reads).  Checks finite losses
+   and NashConv, returns in [-1, 1] and the stored solution's NashConv of
+   0; times rollout half-steps/s and train
    updates/s; then holds one train step on the card against the same step
    on the CPU (plain versions) at 256 lanes.
 4. Drive the EquiNet path: the solver-primed EquiNet (64 channels, depth 2,
    128 RM+ iterations, float32) for 20 steps at 32768 lanes on the A = 5
    tree (65440 nodes), counters zeroed just before and read just after:
-   per step max_depth + 1 launches each of K3 and K2 and none of K1, and
+   per step max_depth + 1 launches of K3, max_depth of K2 (one a turn; the
+   learner reads the stored observations) and none of K1, and
    one K3 launch per chunk of each chunked NashConv eval.  The same checks
    and throughput as phase 3, the peak device memory, and one step at 256
    lanes on the card against the CPU.
 5. Drive the flagship path through the train CLI, ``rnad_tpu_torch.train.
    main``: flagship-3 of docs/SCALE.md (``docs/runs/r4-flagship3.params.
    json``), the bfloat16 solver-primed EquiNet (64 channels, depth 2, 128
-   RM+ iterations) at 32768 lanes on the native generator's 785,768-node
-   A = 5 depth-6 tree, cut to 20 steps and 2 evals (the cuts are printed).
-   Checks the tree's size, depth and hash; per step 7 launches each of K2
-   and K3 and none of K1, and one K3 launch per eval chunk; the step-0
-   NashConv of checkpoint (0, 0) within 3.1e-4 of ``rnad_tpu``'s
-   0.0154796; finite metrics, ``best.ckpt`` and ``metrics.jsonl`` written,
+   RM+ iterations) at 32768 lanes on the native generator's 785,768-node A =
+   5 depth-6 tree, cut to 20 steps and 2 evals (the cuts are printed).
+   Checks the tree's size, depth and hash; per step 6 launches of K2 and 7
+   of K3 and none of K1, and one K3 launch per eval chunk; the step-0
+   NashConv of checkpoint (0, 0) within 3.1e-4 of ``rnad_tpu``'s 0.0154796;
+   finite metrics, ``best.ckpt`` and ``metrics.jsonl`` written,
    ``best.json`` holding the lowest eval; a second ``main`` with the same
    name resuming at checkpoint (1, 5) and ending on the same weights,
    bitwise; one bfloat16 step at 256 lanes on the card against the CPU.
-   Holds K2 and K3 against their plain versions at the path's learner
-   shapes and times them; prints updates/s, device-busy ms a step, peak
-   memory, the eval's wall time and the tree's generation time.
+   Holds K2 against its plain version at one rollout turn's 32768 lanes and
+   K3 at the learner's solve, and times them; prints updates/s, device-busy
+   ms a step, peak memory, the eval's wall time and the tree's generation
+   time.
 6. Drive the buffered (off-policy) path through the train CLI:
    r5-offpol-32k of docs/CONVERGENCE.md (``docs/runs/r5-offpol-32k.params.
    json``), a width-256 MLP at 32768 lanes on phase 5's tree (reloaded
    from its tree store) with ``--n-batches-per-buffer 4 --buffer-mod 2``,
    cut to 20 learner steps and 2 evals (``--delta-m 10``; printed).  Checks
    a rollout exactly on the steps rnad_tpu's rule gives (0, 2, ..., 18),
-   the buffer filling to 4 slots, per rollout 6 K1 launches and per
-   learner step one K2 launch, finite metrics and mean |return| <= 1; holds
-   K1 at (A = 5, W = 256, 32768 lanes) and K2 at one collated batch's
-   196,608 rows against their plain versions and times them against their
-   bounds; times learner updates/s; one sampled learner step on the card
-   against the CPU (same slots and lanes).
+   the buffer filling to 4 slots, per rollout 6 K1 launches and no K2
+   launch (the slots hold the stored observations), finite metrics and
+   mean |return| <= 1; holds K1 at (A = 5, W = 256, 32768 lanes) against
+   its plain version and times it against its bound; times learner
+   updates/s; one sampled learner step on the card against the CPU (same
+   slots and lanes).
 7. Drive the noisy-lift ConvNet path through the train CLI: r5-noisy-conv
    (``--demo --obs-lift 8 --obs-noise-sigma 0.15 --net ConvNet --channels
    16 --net-depth 2``, 512 lanes) cut to 200 steps and 2 evals
@@ -76,19 +80,18 @@ Fourteen phases, and any failure exits nonzero:
 8. Drive the reference's eta sweep through ``rnad_tpu_torch.eta_sweep.
    main`` (``examples/eta_sweep.py``'s experiment: the demo tree of seed 0,
    a width-256 MLP at 512 lanes, etas 0, 0.2, 0.5 and 1), cut to 2 update
-   periods of 25 steps a run (printed).  Checks the tree's hash against
+   periods of 25 steps a run (printed). Checks the tree's hash against
    rnad_tpu's, every eta > 0 run starting from the eta = 0 run's weights
-   bitwise, 4 K1 launches and 1 K2 launch a step, finite NashConv and mean
-   |return| <= 1; holds K1 at (A = 3, W = 256, 512 lanes) and K2 at one
-   learner regather (2048 ids) against their plain versions and times them
-   against their bounds.  Then one step at 256 lanes on the card against
-   the CPU, for a depth-2 width-256 MLP and the primed EquiNet with
-   bfloat16 frozen passes and for a bfloat16 ConvNet 16x2 with BatchNorm:
-   the rollouts part only at near-ties and the weights stay within 2 lr
-   (plus 1e-6 of float32 rounding), and on one shared trajectory the
-   losses agree within rtol 1e-3 (1e-2 for the bfloat16 ConvNet) and the
-   weights within the same 2 lr.  Last, the demo tree in the "pure", "mixed" and
-   "enummixed" equilibrium selections on the card's host: the hash stays
+   bitwise, 4 K1 launches and no K2 launch a step, finite NashConv and mean
+   |return| <= 1; holds K1 at (A = 3, W = 256, 512 lanes) against its plain
+   version and times it against its bound. Then one step at 256 lanes on the
+   card against the CPU, for a depth-2 width-256 MLP and the primed EquiNet
+   with bfloat16 frozen passes and for a bfloat16 ConvNet 16x2 with
+   BatchNorm: the rollouts part only at near-ties and the weights stay
+   within 2 lr (plus 1e-6 of float32 rounding), and on one shared trajectory
+   the losses agree within rtol 1e-3 (1e-2 for the bfloat16 ConvNet) and the
+   weights within the same 2 lr. Last, the demo tree in the "pure", "mixed"
+   and "enummixed" equilibrium selections on the card's host: the hash stays
    rnad_tpu's and the stored solution scores NashConv 0.
 9. Drive the distillation floor through ``rnad_tpu_torch.distill_floor.
    main`` on phase 5's stored flagship tree (docs/SCALE.md's floor runs,
@@ -118,7 +121,7 @@ Fourteen phases, and any failure exits nonzero:
 10. Drive data parallelism (``rnad_tpu_torch/parallel/``): (a) phase 3's
    config through the train CLI with ``--data-parallel`` (one rank over
    NCCL), cut to 10 steps and the final eval, with K1 and K2's counters
-   set to 0 just before and read just after (4 K1 and 1 K2 launch a
+   set to 0 just before and read just after (4 K1 and no K2 launch a
    step), then the same 10 steps without the flag: the weights must be
    bitwise equal (a SUM over one rank changes nothing), and the two steps'
    back-to-back times are printed; (b) two ranks sharing the card over
@@ -155,7 +158,7 @@ Fourteen phases, and any failure exits nonzero:
    ``runtime.grid``): (a) phase 3's config through ``RNaD`` on a 1 x 1
    grid (one NCCL rank: the nets tensor-parallel over a model axis of one,
    the rollout on the gathered actor) for one update period of 10 steps
-   and the final eval, counters zeroed just before (4 K1 and 1 K2 launch a
+   and the final eval, counters zeroed just before (4 K1 and no K2 launch a
    step), against the plain run: weights, target and NashConv bitwise,
    the all-reduces of a step counted on each axis, both steps back to
    back; (b) that config as model 2 on two gloo ranks sharing the card
@@ -176,7 +179,7 @@ Fourteen phases, and any failure exits nonzero:
    hash and the initial weights equal the committed ones
    (``docs/port_runs/curves/``), update 0's NashConv lies within 1e-5 of
    ``rnad_tpu``'s on that tree and those weights, every eval is finite, K1
-   launches max_depth and K2 1 a step; the curve printed beside
+   launches max_depth and K2 none a step; the curve printed beside
    ``rnad_tpu``'s committed one.  (b) ``profile_step.py``'s phase timing
    of the ``mlp`` config (phase 3's tree) and the ``offpol`` config
    (phase 5's stored tree) with each phase's bound on the H100 SXM's
@@ -185,9 +188,9 @@ Fourteen phases, and any failure exits nonzero:
    back-to-back times: every share must lie in (0, 100 %].
 13. The benchmark programs: ``rnad_tpu_torch.bench.main()`` at its
    defaults (the demo tree's rollout at 32768 and 131072 lanes, K1 a
-   turn; bench.py's bf16 product step at 32768 lanes, K2 a turn and one a
-   step) and ``bench_suite.main`` on ``SUITE_RUNS`` (32768 lanes: the demo
-   MLP with the fused-turn row, the big tree with the bf16 actor, the
+   turn; bench.py's bf16 product step at 32768 lanes, K2 a turn and no
+   regather) and ``bench_suite.main`` on ``SUITE_RUNS`` (32768 lanes: the
+   demo MLP with the fused-turn row, the big tree with the bf16 actor, the
    ConvNet 16x1), counters zeroed just before each and read just after:
    the launches of K1, its bf16 variant and K2 equal the code's count
    (``suite_launches``), the bench's self-checks hold, every number is
@@ -201,13 +204,36 @@ Fourteen phases, and any failure exits nonzero:
    timed steps each (256 in the probe), and f32/heads under both v-trace
    modes, counters zeroed just before and read just after: each row's
    self-checks hold and its launches a step are the kernel table's (K1 4
-   and K2 1 in float32, K2 5 in bfloat16).  Then one learner step of each
+   and K2 0 in float32, K2 4 in bfloat16).  Then one learner step of each
    option against its base from the same state and trajectory (flat
    bitwise; "frozen", "all" and "amb" within the CPU tests' tolerance),
    the variants' steps against f32/heads back to back in turns (two
    rounds of variant, heads, heads, variant; 30 steps a window), and last
    the device operations of one clip + Adam + EMA tail with and without
    flat in a profiler around that call alone.
+15. The rollout's variants (``env/engine.py::rollout_from``'s
+   ``store_obs``, ``lane_chunks`` and ``policy_minor``): (a) K1's
+   stored-observation output against its plain version, bitwise, with
+   float32 and bf16 operands at phase 3's shape (A = 3, W = 256, 32768
+   lanes) and the offpol one (A = 5, phase 5's stored tree), the launch
+   with the output giving the other outputs of the launch without it
+   bitwise and those held as phases 2 and 9 hold them, K1 timed with the
+   output and without it beside ``fused_turn.io_bytes``'s bound of each;
+   (b) chunked rollouts against the whole one on the same full-batch
+   noise at the probe's 131072 lanes: the K1 route (MLP 256 on the demo
+   tree) with 2 and 4 chunks bitwise, and the generic turn of phase 4's
+   solver EquiNet (its weights moved off the primed zero heads) with 4
+   chunks, lanes parting only at near-ties, with each one's peak device
+   memory; (c) the ``policy_minor`` record bitwise the (T, B, A) record
+   transposed, whole and chunked, every other field bitwise; (d) one
+   train step with ``store_rollout_obs`` true and false, on phase 3's MLP
+   config and on flagship-3's (``profile_step.CONFIGS["flagship"]`` on
+   phase 5's tree), bitwise the same weights, target and metrics; (e)
+   ``rollout_probe.main`` at its defaults (131072 lanes, 256 rollouts a
+   variant) on ``base,fused,fused_pmin,chunk2,fused_chunk4``, counters
+   zeroed just before and read just after: its self-checks hold, every
+   mean return lies in [-1, 1], and K1 and K2 launch as many times as the
+   variants' turns and chunks say.
 
 It runs in a temporary working directory (the CLI writes ``saved_trees/``
 and ``saved_runs/`` under it).  It prints a ``{"kernels": [...]}`` line,
@@ -554,10 +580,12 @@ def main() -> int:
     if len(evals) != 3 or evals[-1] != final:
         raise AssertionError(f"expected 2 boundary evals and a final one: "
                              f"{evals}")
-    if k1_launches != tree.max_depth * STEPS or k2_launches != STEPS:
+    # the learner reads the observations K1 stored (store_rollout_obs):
+    # no regather
+    if k1_launches != tree.max_depth * STEPS or k2_launches != 0:
         raise AssertionError(f"kernel launches K1 {k1_launches} (want "
                              f"{tree.max_depth * STEPS}), K2 {k2_launches} "
-                             f"(want {STEPS})")
+                             f"(want 0)")
 
     traj = rnad.rollout(run.state, run.tree, run.packed, cfg)
     returns = engine.episode_returns(traj)
@@ -631,6 +659,10 @@ def main() -> int:
     # -- phase 13: the benchmark programs ---------------------------------
     bench = bench_phase(card)
 
+    # -- phase 15: the rollout's variants (before phase 14, whose profiler
+    # window slows the process's later launches) --------------------------
+    rollouts = rollout_phase(card, tree, equi_tree)
+
     # -- phase 14: the learner step's options -----------------------------
     probe = learner_phase(card)
     k1_by_path = {"mlp": k1_launches, "equinet": equi["k1"], "flagship": 0,
@@ -640,7 +672,8 @@ def main() -> int:
                   **{p: mp[k]["k1"] for p, k in mp_paths.items()},
                   "curves": curves["k1"], "bench": bench["bench"]["k1"],
                   "bench_suite": bench["suite"]["k1"],
-                  "learner_probe": probe["k1"]}
+                  "learner_probe": probe["k1"],
+                  "rollout_probe": rollouts["k1"]}
     k2_by_path = {"mlp": k2_launches, "equinet": equi["k2"],
                   "flagship": flag["k2"], "offpol": offpol["k2"],
                   "noisy": noisy["k2"], "sweep": sweep["k2"],
@@ -649,14 +682,15 @@ def main() -> int:
                   **{p: mp[k]["k2"] for p, k in mp_paths.items()},
                   "curves": curves["k2"], "bench": bench["bench"]["k2"],
                   "bench_suite": bench["suite"]["k2"],
-                  "learner_probe": probe["k2"]}
+                  "learner_probe": probe["k2"],
+                  "rollout_probe": rollouts["k2"]}
     k3_by_path = {"mlp": 0, "equinet": equi["k3"], "flagship": flag["k3"],
                   "offpol": 0, "noisy": 0, "sweep": sweep["k3"],
                   "distill": s7["k3"],
                   **{p: dp[k].get("k3", 0) for p, k in dp_paths.items()},
                   **{p: mp[k]["k3"] for p, k in mp_paths.items()},
                   "curves": curves["k3"], "bench": 0, "bench_suite": 0,
-                  "learner_probe": 0}
+                  "learner_probe": 0, "rollout_probe": 0}
     kernels = [
         {"name": "fused_turn", "route": "cuda",
          "source": "rnad_tpu_torch/csrc/fused_turn.cu",
@@ -665,7 +699,8 @@ def main() -> int:
          "launches_by_path": k1_by_path,
          "max_abs_err": k1_err, "ms": k1_ms,
          "plain_ms": k1_plain_ms, "bound_ms": k1_bound, "bound_by": k1_by,
-         "library_ms": None, "near_ties": near_ties},
+         "library_ms": None, "near_ties": near_ties,
+         "store_obs": rollouts["obs"]},
         {"name": "lookup", "route": "cuda",
          "source": "rnad_tpu_torch/csrc/lookup.cu",
          "replaces": "rnad_tpu/ops/pallas_lookup.py:45",
@@ -701,11 +736,6 @@ def main() -> int:
          "replaces": "rnad_tpu/ops/pallas_turn.py:79",
          "launches": offpol["k1"], "launches_by_path": {
              "offpol": offpol["k1"]}, **offpol["fused_turn"]},
-        {"name": "lookup (offpol shapes)", "route": "cuda",
-         "source": "rnad_tpu_torch/csrc/lookup.cu",
-         "replaces": "rnad_tpu/ops/pallas_lookup.py:45",
-         "launches": offpol["k2"], "launches_by_path": {
-             "offpol": offpol["k2"]}, **offpol["lookup"]},
         {"name": "lookup (noisy shapes)", "route": "cuda",
          "source": "rnad_tpu_torch/csrc/lookup.cu",
          "replaces": "rnad_tpu/ops/pallas_lookup.py:45",
@@ -716,11 +746,6 @@ def main() -> int:
          "replaces": "rnad_tpu/ops/pallas_turn.py:79",
          "launches": sweep["k1"], "launches_by_path": {"sweep": sweep["k1"]},
          **sweep["fused_turn"]},
-        {"name": "lookup (eta sweep shapes)", "route": "cuda",
-         "source": "rnad_tpu_torch/csrc/lookup.cu",
-         "replaces": "rnad_tpu/ops/pallas_lookup.py:45",
-         "launches": sweep["k2"], "launches_by_path": {"sweep": sweep["k2"]},
-         **sweep["lookup"]},
         *({"name": name, "route": "cuda",
            "source": "rnad_tpu_torch/csrc/fused_turn.cu",
            "replaces": "rnad_tpu/ops/pallas_turn.py:79",
@@ -772,7 +797,7 @@ def check_rmplus_phase(run, gen):
     rows = stepping.lookup(packed, ids)
     sets = {"observed": _games_of(torch.cat(
         stepping.slice_observations(packed, rows)))}
-    # the learner's regather after one rollout of the untrained net
+    # the learner's observations after one rollout of the untrained net
     net = nets.build_net(run.net_config, torch.Generator().manual_seed(0))
     state = rnad.init_train_state(net.to(dev), torch.Generator(device=dev)
                                   .manual_seed(5))
@@ -890,7 +915,9 @@ def equinet_phase(run, card):
     if len(evals) != 2 or evals[-1] != final:
         raise AssertionError(f"expected a boundary eval and a final one: "
                              f"{evals}")
-    want = {"k1": 0, "k2": EQUI_STEPS * (md + 1),
+    # K2 a turn; the learner solves the stored observations (K3) without
+    # a regather
+    want = {"k1": 0, "k2": EQUI_STEPS * md,
             "k3": EQUI_STEPS * (md + 1) + len(evals) * chunks}
     if counts != want:
         raise AssertionError(f"EquiNet path launches {counts}, want {want}")
@@ -1021,7 +1048,7 @@ def flagship_phase(card, gen):
            if not math.isfinite(v)]
     if bad or len(evals) != 2 or not all(math.isfinite(v) for v in evals):
         raise AssertionError(f"flagship metrics: {bad}, evals {evals}")
-    want = {"k1": 0, "k2": FLAGSHIP_STEPS * (md + 1),
+    want = {"k1": 0, "k2": FLAGSHIP_STEPS * md,
             "k3": FLAGSHIP_STEPS * (md + 1) + len(evals) * chunks}
     if counts != want:
         raise AssertionError(f"flagship launches {counts}, want {want}")
@@ -1081,11 +1108,12 @@ def flagship_phase(card, gen):
             raise AssertionError(f"resume: weights differ by {err}")
     del first, resumed
 
-    # K2 and K3 at the path's learner shapes, on a rollout of the run
+    # K2 at one rollout turn's lanes (the learner reads the stored
+    # observations) and K3 at the learner's solve, on a rollout of the run
     state, packed = again.state, again.packed
     traj = rnad.rollout(state, tree, packed, cfg)
-    ids = traj.indices[0::2].reshape(-1).contiguous()
-    lookup = lookup_entry(lookup_lib, packed.rows, ids, "flagship learner")
+    ids = traj.indices[2 * (tree.max_depth // 2)].contiguous()
+    lookup = lookup_entry(lookup_lib, packed.rows, ids, "flagship turn")
     obs, _ = engine.trajectory_observations(packed, traj)
     Mz, lr_, lc_ = _games_of(obs.reshape(-1, 2, A, A))
     args = (Mz.permute(1, 2, 0).contiguous(), lr_.t().contiguous(),
@@ -1161,13 +1189,14 @@ def flagship_phase(card, gen):
             "rmplus": rm}
 
 
-def k1_bound_of(fused_turn_lib, args, actions, A, T):
+def k1_bound_of(fused_turn_lib, args, actions, A, T, store_obs=False):
     """(ms, by, flops, bytes) of K1's bound on ``args`` (the arguments of
     ``fused_turn``), whose lanes played ``actions`` (2, B): the larger of
     its operations over the peak rate of its weights' type (the f32 CUDA
     cores, or the tensor cores' dense bf16) and the bytes it must move over
     the HBM rate (``fused_turn.io_bytes`` on the lanes' distinct states
-    and played (state, joint cell) pairs)."""
+    and played (state, joint cell) pairs, with the stored observations'
+    write under ``store_obs``)."""
     table, w0, b0, w1, b1, idx, g_act, g_ch = args
     B, H = idx.shape[0], w0.shape[1]
     rows = int(torch.unique(idx).numel())
@@ -1176,7 +1205,7 @@ def k1_bound_of(fused_turn_lib, args, actions, A, T):
     peak = BF16_FLOPS if w0.dtype == torch.bfloat16 else F32_FLOPS
     flops = 2.0 * B * fused_turn_lib.operations(A, H)
     nbytes = float(fused_turn_lib.io_bytes(B, A, T, H, rows, cells,
-                                           w0.element_size()))
+                                           w0.element_size(), store_obs))
     by = "operations" if flops / peak > nbytes / HBM_BYTES_PER_S else "bytes"
     return (max(flops / peak, nbytes / HBM_BYTES_PER_S) * 1e3, by, flops,
             nbytes)
@@ -1239,8 +1268,6 @@ def offpol_phase(card, gen):
     """The buffered path (phase 6): r5-offpol-32k through the train CLI on
     phase 5's tree.  Returns the launch counts and the kernels line's
     entries at its shapes."""
-    import numpy as np
-
     from rnad_tpu_torch import train
     from rnad_tpu_torch.env import engine
     from rnad_tpu_torch.learn import buffer as buffer_lib
@@ -1308,12 +1335,14 @@ def offpol_phase(card, gen):
            if not math.isfinite(v)]
     if bad or len(evals) != 2 or not all(math.isfinite(v) for v in evals):
         raise AssertionError(f"offpol metrics: {bad}, evals {evals}")
-    want = {"k1": md * len(want_rollouts), "k2": OFFPOL_STEPS, "k3": 0}
+    # the buffer holds the stored observations: no regather
+    want = {"k1": md * len(want_rollouts), "k2": 0, "k3": 0}
     if counts != want:
         raise AssertionError(f"offpol launches {counts}, want {want}")
 
     # K1 at the path's shape, on the run's weights and the lanes of one
-    # rollout turn; K2 at one collated batch's regather
+    # rollout turn (the path launches no K2: the slots hold the stored
+    # observations)
     state, packed = run.state, run.packed
     A, T = tree.max_actions, tree.max_transitions
     traj = rnad.rollout(state, tree, packed, cfg)
@@ -1345,14 +1374,7 @@ def offpol_phase(card, gen):
         f"bound {bound:.4f} ms ({by}; {flops:.4g} FLOP, "
         f"{fused_turn_lib.operations(A, H)} a (lane, seat) row; {nbytes:.4g}"
         f" B), {100 * bound / k1['ms']:.1f} % of it")
-    buf = buffer_lib.TrajectoryBuffer(OFFPOL_SLOTS)
-    for _ in range(OFFPOL_SLOTS):
-        buf.append(rnad.rollout(state, tree, packed, cfg))
-    slots, lanes = buf.plan(B, np.random.default_rng(0))
-    batch = buffer_lib.collate_slots(slots, lanes)
-    ids = batch.indices[0::2].reshape(-1).contiguous()
-    k2 = lookup_entry(lookup_lib, packed.rows, ids, "offpol collated batch")
-    del buf, slots, lanes, batch, traj, turn_args
+    del traj, turn_args
 
     held = buffer_lib.TrajectoryBuffer(OFFPOL_SLOTS)
     for _ in range(OFFPOL_SLOTS):
@@ -1369,8 +1391,7 @@ def offpol_phase(card, gen):
     del held
     check_buffered_against_cpu(tree.to("cpu"), cfg, run.net_config)
     return {"k1": counts["k1"], "k2": counts["k2"], "fused_turn": k1,
-            "lookup": k2, "weights": end_weights, "final": evals[-1],
-            "counts": counts}
+            "weights": end_weights, "final": evals[-1], "counts": counts}
 
 
 def _weights(run):
@@ -1613,7 +1634,7 @@ def sweep_phase(card, gen):
                for v in evals.values()):
         raise AssertionError(f"sweep NashConv: {evals}")
     steps = len(trials) * SWEEP_STEPS
-    want = {"k1": md * steps, "k2": steps, "k3": 0}
+    want = {"k1": md * steps, "k2": 0, "k3": 0}
     if counts != want:
         raise AssertionError(f"sweep launches {counts}, want {want}")
     first = trials[0].store.load_checkpoint(0, 0, trials[0]._fresh_state())
@@ -1634,7 +1655,8 @@ def sweep_phase(card, gen):
         f"K1 {md} launches a step, mean |episode return| {mean_abs:.4f}")
 
     # K1 at the sweep's shape (B = 512, A = 3, W = 256) on the last run's
-    # weights and one turn's lanes; K2 at one learner regather
+    # weights and one turn's lanes (the sweep launches no K2: the learner
+    # reads the observations K1 stored)
     packed, cfg = last.packed, last.cfg
     A, T, B = tree.max_actions, tree.max_transitions, cfg.batch_size
     weights = [w.detach().contiguous()
@@ -1659,8 +1681,6 @@ def sweep_phase(card, gen):
         f" rows): kernel {k1['ms']:.4f} ms, plain {k1['plain_ms']:.4f} ms, "
         f"bound {bound:.6f} ms ({by}; {flops:.4g} FLOP, {nbytes:.4g} B), "
         f"{100 * bound / k1['ms']:.2f} % of it | {card}")
-    ids = traj.indices[0::2].reshape(-1).contiguous()
-    k2 = lookup_entry(lookup_lib, packed.rows, ids, "sweep regather")
     del trials, traj, turn_args
 
     # one step of each new net at 256 lanes on the card against the CPU
@@ -1701,7 +1721,7 @@ def sweep_phase(card, gen):
             f"{oracle:.3g}, generated in {secs:.2f} s")
     log(f"phase 8: {time.perf_counter() - t_phase:.1f} s")
     return {"k1": counts["k1"], "k2": counts["k2"], "k3": counts["k3"],
-            "fused_turn": k1, "lookup": k2}
+            "fused_turn": k1}
 
 
 def slice7_phase(card, gen, demo_tree, mlp_cfg, mlp_net_cfg):
@@ -1886,7 +1906,7 @@ def slice7_phase(card, gen, demo_tree, mlp_cfg, mlp_net_cfg):
     losses = [m for _, m in run.history if "loss" in m]
     traj = rnad.rollout(run.state, run.tree, run.packed, bf16_cfg)
     mean_abs = float(engine.episode_returns(traj).abs().mean())
-    want = {"k1": 0, "k1_bf16": demo_tree.max_depth * STEPS, "k2": STEPS,
+    want = {"k1": 0, "k1_bf16": demo_tree.max_depth * STEPS, "k2": 0,
             "k3": 0}
     log(f"bf16 actor: phase 3's config, {run.state.total_steps} steps; "
         f"launches {actor} (want {want}); loss first "
@@ -2017,7 +2037,7 @@ def dp_phase(card, demo_tree, offpol):
             or dp_run.group.world != 1):
         raise AssertionError(f"data-parallel CLI: {steps} steps on "
                              f"{dp_run.group.world} ranks")
-    want = {"k1": demo_tree.max_depth * DP_STEPS, "k2": DP_STEPS}
+    want = {"k1": demo_tree.max_depth * DP_STEPS, "k2": 0}
     if counts != want:
         raise AssertionError(f"data-parallel launches {counts}, want {want}")
     for (name, a), b in zip(dp_run.state.net.state_dict().items(),
@@ -2259,7 +2279,7 @@ def dp_offpol(card, offpol):
         collate_ms = wall_ms(lambda: plain_buf.sample(B, rng))
         batch = dp_buf.sample(B, rng, group)
         nbytes = sum(t.numel() * 4 for t in vars(batch).values()
-                     if t is not None)
+                     if torch.is_tensor(t))
     finally:
         runtime.shutdown()
     dp_ms, plain_ms = (min(times["offpol_dp_time"]),
@@ -2387,9 +2407,10 @@ def dp_gloo_buffered(card, offpol_tree_dir, noisy_tree_dir):
                            net="ConvNet", channels=16, net_depth=2,
                            obs_lift=8, obs_noise_sigma=0.15)}
     # a rank's launches in 3 steps: offpol rolls out at steps 0 and 2 (6
-    # K1 a rollout on the depth-6 tree) and regathers once a learner step;
+    # K1 a rollout on the depth-6 tree), its learner reads the stored
+    # observations;
     # the noisy ConvNet looks up once a turn (4 a step on the depth-4 tree)
-    launches = {"offpol": {"k1": 12, "k2": DP_GLOO_STEPS, "k3": 0},
+    launches = {"offpol": {"k1": 12, "k2": 0, "k3": 0},
                 "noisy-conv": {"k1": 0, "k2": 4 * DP_GLOO_STEPS, "k3": 0}}
     step_ms = lambda res: "/".join(f"{1e3 * s:.2f}" for s in res["step_s"])
     for name, kw in configs.items():
@@ -2469,7 +2490,7 @@ def dp_flagship(card):
                              f"{plain.state.total_steps} steps")
     md = dp.tree.max_depth
     if (counts["dp"] != counts["plain"] or counts["dp"]["k1"] != 0
-            or counts["dp"]["k2"] != DP_FLAGSHIP_STEPS * (md + 1)
+            or counts["dp"]["k2"] != DP_FLAGSHIP_STEPS * md
             or counts["dp"]["k3"] <= DP_FLAGSHIP_STEPS * (md + 1)):
         raise AssertionError(f"data-parallel flagship launches "
                              f"{counts['dp']}, plain {counts['plain']}")
@@ -2545,9 +2566,9 @@ def _mp_family_specs(flag_dir, noisy_dir):
             "ConvNet": "none (r5-noisy-conv's 512 lanes)",
             "MLP": "--batch-size 4096 (phase 3: 32768)"}
     n = MP_FAMILY_STEPS
-    launches = {"EquiNet": {"k1": 0, "k2": 7 * n, "k3": 7 * n},
+    launches = {"EquiNet": {"k1": 0, "k2": 6 * n, "k3": 7 * n},
                 "ConvNet": {"k1": 0, "k2": 4 * n, "k3": 0},
-                "MLP": {"k1": 0, "k2": 7 * n, "k3": 0}}
+                "MLP": {"k1": 0, "k2": 6 * n, "k3": 0}}
     return specs, cuts, launches
 
 
@@ -2624,7 +2645,7 @@ def mp_phase(card, demo_tree):
             torch.cuda.synchronize()
             if name == "mp_grid":
                 counts = _counts()
-        want = {"k1": demo_tree.max_depth * MP_STEPS, "k2": MP_STEPS, "k3": 0}
+        want = {"k1": demo_tree.max_depth * MP_STEPS, "k2": 0, "k3": 0}
         if counts != want:
             raise AssertionError(f"model axis (a) launches {counts}, want "
                                  f"{want}")
@@ -2684,8 +2705,7 @@ def mp_phase(card, demo_tree):
                                model_parallel=2, timeout=600)
     log(f"  two ranks: {time.perf_counter() - t0:.1f} s with the processes' "
         "start")
-    k1 = {"k1": demo_tree.max_depth * MP_GLOO_STEPS, "k2": MP_GLOO_STEPS,
-          "k3": 0}
+    k1 = {"k1": demo_tree.max_depth * MP_GLOO_STEPS, "k2": 0, "k3": 0}
     _check_against_one_rank("b", ranks, one["b"], MP_RTOL["b"], k1,
                             MP_COLLECTIVES["b"], card)
     counts_b = ranks[0]["runs"]["b"]["launches"]
@@ -2752,10 +2772,9 @@ def curves_phase(card):
                              f"{abs(curve[0] - want[0])} from rnad_tpu's "
                              f"{want[0]} (atol {CURVES_ATOL})")
     depth = rec["tree"]["max_depth"]
-    if counts["k1"] != depth * steps or counts["k2"] != steps \
-            or counts["k3"]:
+    if counts["k1"] != depth * steps or counts["k2"] or counts["k3"]:
         raise AssertionError(f"curves: launches {counts}, want K1 "
-                             f"{depth * steps}, K2 {steps}, K3 0")
+                             f"{depth * steps}, K2 0, K3 0")
     log(f"curves (a): update 0 within {abs(curve[0] - want[0]):.3g} of "
         f"rnad_tpu's (atol {CURVES_ATOL}); K1 {counts['k1'] / steps:g} and "
         f"K2 {counts['k2'] / steps:g} launches a step")
@@ -3139,10 +3158,11 @@ def suite_launches(argv, rows):
     bench_suite run's rows, warm calls included.  A rollout of ``levels``
     turns launches ``levels`` of K1 (the float32 MLP, and every turn of
     the fused-turn row), of the bf16 K1 (the MLP under ``--actor-dtype
-    bfloat16``) or of K2 (the generic turn: the ConvNet); a train step
-    launches its rollout's (the bfloat16 MLP rolls out through the generic
-    turn, since K1 computes in float32; the train rows keep the float32
-    actor) and one K2, the regather."""
+    bfloat16``) or of K2 (the generic turn: the ConvNet) for each of its
+    ``lane_chunks``; a train step launches its rollout's (the bfloat16 MLP
+    rolls out through the generic turn, since K1 computes in float32; the
+    train rows keep the float32 actor) and no regather (the rollout stores
+    the observations)."""
     from rnad_tpu_torch import bench, bench_suite
 
     conv = bench_suite.build_parser().parse_args(argv).net == "conv"
@@ -3153,12 +3173,11 @@ def suite_launches(argv, rows):
             calls = bench.WARM_ROLLOUTS + r["iters"]
             kernel = ("k2" if conv else "k1_bf16" if r.get("actor_dtype")
                       == "bfloat16" else "k1")
-            want[kernel] += levels * calls
+            want[kernel] += levels * calls * r.get("lane_chunks", 1)
         elif r["metric"].startswith("train_steps_per_s"):
             calls = bench.WARM_STEPS + r["iters"]
             generic = conv or r["dtype"] == "bfloat16"
             want["k2" if generic else "k1"] += levels * calls
-            want["k2"] += calls
     return want
 
 
@@ -3208,12 +3227,12 @@ def bench_phase(card):
     bench_got = _bench_counts()
     want = {"k1": turns * sum(bench.WARM_ROLLOUTS + bench.rollout_iters(b)
                               for b in bench.ROLLOUT_BATCHES),
-            "k1_bf16": 0, "k2": (turns + 1) * (bench.WARM_STEPS
-                                               + bench.TRAIN_STEPS),
+            "k1_bf16": 0, "k2": turns * (bench.WARM_STEPS
+                                         + bench.TRAIN_STEPS),
             "k3": 0}
     if bench_got != want:
         raise AssertionError(f"bench: launches {bench_got}, want {want} (K1 "
-                             f"{turns} a rollout, K2 {turns + 1} a step)")
+                             f"{turns} a rollout, K2 {turns} a step)")
     rates = [line["value"], line["train_updates_per_s"],
              line["train_env_steps_per_s"], *line["rollout_rates"].values()]
     keys = {"metric", "value", "unit", "rollout_batch", "rollout_rates",
@@ -3226,7 +3245,7 @@ def bench_phase(card):
         raise AssertionError(f"bench: line {line}")
     log(f"bench: self-checks held (lane diversity > 0, |mean return| <= 1, "
         f"finite losses); K1 {bench_got['k1']} ({turns} a rollout), K2 "
-        f"{bench_got['k2']} ({turns + 1} a step) as predicted; "
+        f"{bench_got['k2']} ({turns} a step) as predicted; "
         f"{time.perf_counter() - t_phase:.1f} s | {card}")
 
     # the product step must not wait for the device: each synchronizing
@@ -3342,8 +3361,8 @@ def learner_phase(card):
     """Phase 14: (a) ``learner_probe.main`` on its 16 configs (and
     f32/heads under both v-trace modes), the counters zeroed just before
     and read just after, each row's self-checks held by the probe and its
-    launches a step held to the kernel table (K1 4 and K2 1 a float32 step;
-    K1 0 and K2 5 a bfloat16 step: 4 generic turns and the regather); (b)
+    launches a step held to the kernel table (K1 4 and K2 0 a float32 step;
+    K1 0 and K2 4 a bfloat16 step: 4 generic turns, no regather); (b)
     one learner step of each option against its base from the same state
     and trajectory, TF32 off: flat bitwise the per-leaf step (weights,
     target, both moments), "frozen", "all" and "amb" within the CPU tests'
@@ -3373,8 +3392,8 @@ def learner_phase(card):
         raise AssertionError(f"learner probe: {len(rows)} rows, launches "
                              f"{got}")
     for r in rows:
-        want = ((0.0, turns + 1.0) if r["config"].startswith("bf16")
-                else (float(turns), 1.0))
+        want = ((0.0, float(turns)) if r["config"].startswith("bf16")
+                else (float(turns), 0.0))
         if (r["k1_per_step"], r["k2_per_step"]) != want:
             raise AssertionError(f"learner probe {r['config']}: launches a "
                                  f"step K1 {r['k1_per_step']}, K2 "
@@ -3385,8 +3404,8 @@ def learner_phase(card):
                 and r["flat"] == ("flat" in r["config"])):
             raise AssertionError(f"learner probe: row {r}")
     log(f"learner probe: {len(rows)} rows, self-checks held; launches a "
-        f"step as the kernel table says (K1 {turns}, K2 1 in float32; K1 0, "
-        f"K2 {turns + 1} in bfloat16); in all {got} | {card}")
+        f"step as the kernel table says (K1 {turns}, K2 0 in float32; K1 0, "
+        f"K2 {turns} in bfloat16); in all {got} | {card}")
 
     # (b) each option against its base: one learner step from the same
     # state on the same trajectory
@@ -3486,6 +3505,287 @@ def learner_phase(card):
             f"{card}")
     log(f"phase 14: {time.perf_counter() - t_phase:.1f} s")
     return got
+
+# phase 15: the rollout's variants at the probe's width
+ROLLOUT_LANES = 1 << 17  # the probe's default batch
+ROLLOUT_CHUNKS = (2, 4)  # the K1 route's chunked rollouts, held bitwise
+EQUI_CHUNKS = 4  # the generic turn's
+ROLLOUT_PROBE_ARGV = ["--variants", "base,fused,fused_pmin,chunk2,"
+                      "fused_chunk4"]
+
+
+def check_obs_output(fused_turn_lib, args, A, T, label):
+    """K1's stored-observation output on ``args`` against its plain
+    version, bitwise; the launch with the output gives the other outputs
+    of the launch without it, bitwise, and those are held to the plain
+    version as phase 2 (float32) and phase 9 (bf16) hold them.  Returns
+    the entry's numbers: the error, both launches' times and their
+    bounds."""
+    w0 = args[1]
+    got = fused_turn_lib.fused_turn(*args, A=A, T=T, store_obs=True)
+    torch.cuda.synchronize()
+    want = fused_turn_lib.fused_turn_plain(*args, A=A, T=T, store_obs=True)
+    if not torch.equal(got[5], want[5]):
+        raise AssertionError(f"K1 {label}: the stored observations differ "
+                             "from the packed rows' (plain version)")
+    base = fused_turn_lib.fused_turn(*args, A=A, T=T)
+    if not all(torch.equal(a, b) for a, b in zip(got[:5], base)):
+        raise AssertionError(f"K1 {label}: the stored observations change "
+                             "the turn's other outputs")
+    if w0.dtype == torch.bfloat16:
+        err = fused_turn_lib.check_bf16(base, args, A=A, T=T)["max_abs_err"]
+        actions = base[2]
+    else:
+        err, _, actions = check_fused_turn(fused_turn_lib, args, A, T)
+    out = {"max_abs_err_obs": float((got[5] - want[5]).abs().max()),
+           "max_abs_err": err}
+    for key, store in (("off", False), ("on", True)):
+        out[f"ms_obs_{key}"] = device_ms(lambda: fused_turn_lib.fused_turn(
+            *args, A=A, T=T, store_obs=store))
+        out[f"bound_ms_obs_{key}"], by, _, nbytes = k1_bound_of(
+            fused_turn_lib, args, actions, A, T, store)
+        out[f"bytes_obs_{key}"] = nbytes
+    out["bound_by"] = by
+    log(f"K1 {label} ({args[5].shape[0]} lanes): stored observations "
+        f"bitwise the plain version's, other outputs bitwise the launch "
+        f"without them; {out['ms_obs_off']:.4f} ms without, "
+        f"{out['ms_obs_on']:.4f} ms with "
+        f"(+{out['ms_obs_on'] - out['ms_obs_off']:.4f} ms); bound "
+        f"{out['bound_ms_obs_off']:.6f} -> "
+        f"{out['bound_ms_obs_on']:.6f} ms ({by}; {out['bytes_obs_off']:.4g}"
+        f" -> {out['bytes_obs_on']:.4g} B)")
+    return out
+
+
+def _first_parts(whole, other, noise, B):
+    """Lanes whose actions differ between two rollouts of the same noise,
+    and whether each first differs at a near-tie: the whole rollout's two
+    best scores (log policy + Gumbel noise) there lie within 1e-5, or
+    within twice the largest difference between the two rollouts' scores
+    of that half-step (their recorded policies; the states agree up to
+    it).  Returns (parted lanes, near-tie flags)."""
+    differ = whole.actions != other.actions
+    lanes = torch.nonzero(differ.any(0))[:, 0]
+    if not len(lanes):
+        return lanes, torch.ones(0, dtype=torch.bool)
+    first = differ.to(torch.int32).argmax(0)[lanes]
+    g = torch.stack([noise[int(t) // 2][0][int(t) % 2 * B + int(b)]
+                     for t, b in zip(first, lanes)])
+    log_p = lambda traj: torch.log(traj.policy_bma()[first, lanes])
+    sw, so = log_p(whole) + g, log_p(other) + g
+    legal = torch.isfinite(sw)
+    top2 = sw.topk(2, dim=1).values
+    diff = torch.where(legal, (so - sw).abs(),
+                       torch.zeros_like(sw)).amax(1)
+    return lanes, (top2[:, 0] - top2[:, 1]) < torch.clamp(2 * diff,
+                                                          min=1e-5)
+
+
+def rollout_phase(card, demo_tree, equi_tree):
+    """Phase 15: the rollout's variants.  (a) K1's stored-observation
+    output; (b) chunked rollouts against whole ones on the same full-batch
+    noise; (c) the batch-minor policy record; (d) train steps with and
+    without stored observations; (e) the rollout probe, the counters
+    zeroed just before and read just after.  Returns the probe's
+    launches."""
+    from rnad_tpu_torch import bench, profile_step, rollout_probe
+    from rnad_tpu_torch.config import NetConfig, RNaDConfig
+    from rnad_tpu_torch.env import engine
+    from rnad_tpu_torch.learn import rnad
+    from rnad_tpu_torch.models import nets
+    from rnad_tpu_torch.ops import fused_turn as fused_turn_lib
+    from rnad_tpu_torch.ops import stepping
+    from rnad_tpu_torch.utils import checkpoint
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    flag_tree = checkpoint.load_tree("flagship3", device="cuda")
+    # (a) the output at phase 3's shape (A = 3) and the offpol one (A = 5)
+    entries = {}
+    for tree in (demo_tree, flag_tree):
+        packed = stepping.make_packed_tables(tree)
+        A, T = tree.max_actions, tree.max_transitions
+        net = nets.MLP(A, 256, generator=torch.Generator().manual_seed(1))
+        fused = [w.detach().contiguous()
+                 for w in nets.mlp_fused_weights(net.to("cuda"))]
+        idx = torch.randint(0, tree.size, (B_MAIN,), generator=gen,
+                            device="cuda", dtype=torch.int32)
+        g_act, g_ch = engine.turn_noise(B_MAIN, A, T, gen, "cuda")
+        for dtype in (torch.float32, torch.bfloat16):
+            w = [fused[0].to(dtype).contiguous(), fused[1],
+                 fused[2].to(dtype).contiguous(), fused[3]]
+            label = f"A={A} {str(dtype).split('.')[-1]}"
+            entries[label] = check_obs_output(
+                fused_turn_lib, [packed.rows, *w, idx, g_act, g_ch], A, T,
+                label)
+    del flag_tree
+
+    # (b) chunked against whole on the same noise: the K1 route bitwise
+    packed = stepping.make_packed_tables(demo_tree)
+    A, T, md = (demo_tree.max_actions, demo_tree.max_transitions,
+                demo_tree.max_depth)
+    mlp = nets.MLP(A, 256, generator=torch.Generator().manual_seed(2)).to(
+        "cuda")
+    init = torch.ones((ROLLOUT_LANES,), dtype=torch.int32, device="cuda")
+    noise = [engine.turn_noise(ROLLOUT_LANES, A, T, gen, "cuda")
+             for _ in range(md)]
+    roll = lambda **kw: engine.rollout_from(demo_tree, packed, mlp, init,
+                                            noise=noise, rows_actor="on",
+                                            store_obs=True, **kw)
+    fields = ("indices", "policy", "actions", "rewards", "values", "obs")
+    same = lambda a, b: all(torch.equal(getattr(a, f), getattr(b, f))
+                            for f in fields)
+    whole = roll()
+    for k in ROLLOUT_CHUNKS:
+        if not same(roll(lane_chunks=k), whole):
+            raise AssertionError(f"K1 route: {k} lane chunks part from the "
+                                 "whole rollout on the same noise")
+    # (c) the batch-minor record: the "bma" record transposed, bitwise,
+    # whole and chunked; every other field bitwise
+    for k in (1, ROLLOUT_CHUNKS[-1]):
+        minor = roll(lane_chunks=k, policy_minor=True)
+        if (minor.policy_layout != "amb" or not torch.equal(
+                minor.policy, whole.policy.transpose(1, 2))
+                or not all(torch.equal(getattr(minor, f), getattr(whole, f))
+                           for f in fields if f != "policy")):
+            raise AssertionError(f"policy_minor ({k} chunks): the record is "
+                                 "not the bma record transposed")
+    log(f"rollout variants, K1 route ({ROLLOUT_LANES} lanes, MLP 256): "
+        f"{ROLLOUT_CHUNKS} lane chunks bitwise the whole rollout on the same"
+        f" noise; the policy_minor record bitwise the (T, B, A) one "
+        f"transposed, whole and in {ROLLOUT_CHUNKS[-1]} chunks")
+    del whole, minor, noise
+
+    # (b) the generic turn: phase 4's solver EquiNet, its weights moved off
+    # the primed zero heads so every layer counts
+    packed = stepping.make_packed_tables(equi_tree)
+    A, T, md = (equi_tree.max_actions, equi_tree.max_transitions,
+                equi_tree.max_depth)
+    pgen = torch.Generator().manual_seed(3)
+    equi = nets.build_net(NetConfig(type="EquiNet", max_actions=A,
+                                    channels=64, depth=2,
+                                    solver_iters=RM_ITERS,
+                                    solver_prime=True), pgen)
+    with torch.no_grad():
+        for p_ in equi.parameters():
+            p_.add_(0.05 * torch.randn(p_.shape, generator=pgen))
+    equi = equi.to("cuda")
+    noise = [engine.turn_noise(ROLLOUT_LANES, A, T, gen, "cuda")
+             for _ in range(md)]
+    trajs, peaks = {}, {}
+    for k in (1, EQUI_CHUNKS):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        trajs[k] = engine.rollout_from(equi_tree, packed, equi, init,
+                                       noise=noise, store_obs=True,
+                                       lane_chunks=k)
+        torch.cuda.synchronize()
+        peaks[k] = torch.cuda.max_memory_allocated() / 2**30
+    whole, chunked = trajs[1], trajs[EQUI_CHUNKS]
+    lanes, near = _first_parts(whole, chunked, noise, ROLLOUT_LANES)
+    if not near.all():
+        raise AssertionError(f"generic turn: {int((~near).sum())} lanes of "
+                             f"{EQUI_CHUNKS} chunks part from the whole "
+                             "rollout without a near-tie")
+    keep = torch.ones(ROLLOUT_LANES, dtype=torch.bool, device="cuda")
+    keep[lanes] = False
+    for f in ("indices", "actions", "rewards", "obs"):
+        if not torch.equal(getattr(whole, f)[:, keep],
+                           getattr(chunked, f)[:, keep]):
+            raise AssertionError(f"generic turn: {f} differ on lanes whose "
+                                 "actions agree")
+    err = max(float((getattr(whole, f)[:, keep]
+                     - getattr(chunked, f)[:, keep]).abs().max())
+              for f in ("policy", "values"))
+    if not err <= 1e-5:
+        raise AssertionError(f"generic turn: policy/values of {EQUI_CHUNKS}"
+                             f" chunks off by {err} > 1e-5")
+    log(f"rollout variants, generic turn (solver EquiNet 64x2 s{RM_ITERS}p,"
+        f" A={A}, {ROLLOUT_LANES} lanes): {EQUI_CHUNKS} lane chunks against "
+        f"the whole rollout on the same noise: {len(lanes)} lanes parted, "
+        f"all at near-ties; policy/values max_abs_err {err:.3g} (atol "
+        f"1e-5); peak device memory {peaks[1]:.3f} GiB whole, "
+        f"{peaks[EQUI_CHUNKS]:.3f} GiB in {EQUI_CHUNKS} chunks | {card}")
+    del trajs, whole, chunked, equi, noise, init
+    torch.cuda.empty_cache()
+
+    # (d) one train step with and without stored observations, bitwise
+    flag_tree = checkpoint.load_tree("flagship3", device="cuda")
+    steps = {"MLP (phase 3)": (demo_tree, NetConfig(
+                 type="MLP", max_actions=demo_tree.max_actions, width=256),
+                 RNaDConfig(batch_size=B_MAIN, eta=0.2, lr=1e-3,
+                            gamma_averaging=0.01, logit_clip=2.0)),
+             "flagship-3": (flag_tree, *profile_step.CONFIGS["flagship"][1:])}
+    for name, (tree, net_cfg, cfg) in steps.items():
+        packed = stepping.make_packed_tables(tree)
+        noise = [engine.turn_noise(B_MAIN, tree.max_actions,
+                                   tree.max_transitions, gen, "cuda")
+                 for _ in range(tree.max_depth)]
+        got = {}
+        for store in (True, False):
+            c = dataclasses.replace(cfg, store_rollout_obs=store)
+            net = nets.build_net(net_cfg, torch.Generator().manual_seed(4))
+            state = rnad.init_train_state(net.to("cuda"),
+                                          torch.Generator(device="cuda"))
+            _, metrics, traj = rnad.make_train_step(tree, packed, c)(
+                state, 0.5, noise, with_trajectory=True)
+            got[store] = ([t.detach().clone() for t in
+                           (*state.net.state_dict().values(),
+                            *state.net_target.state_dict().values())],
+                          metrics, traj.obs is not None)
+            del state, traj
+        (w_on, m_on, stored), (w_off, m_off, _) = got[True], got[False]
+        if not stored or not (
+                all(torch.equal(a, b) for a, b in zip(w_on, w_off))
+                and m_on.keys() == m_off.keys()
+                and all(torch.equal(m_on[k], m_off[k]) for k in m_on)):
+            raise AssertionError(f"{name}: the step with stored observations "
+                                 "is not bitwise the regather step")
+        log(f"store_rollout_obs {name}: one train step stores the "
+            f"observations and is bitwise the regather step (weights, "
+            f"target, {len(m_on)} metrics; loss {float(m_on['loss']):.6f})")
+        del got, noise
+        torch.cuda.empty_cache()
+    del flag_tree
+
+    # (e) the rollout probe at its defaults on the given variants
+    log(f"rollout probe: {' '.join(ROLLOUT_PROBE_ARGV)} (the probe's default"
+        f" batch {ROLLOUT_LANES} and iterations)")
+    _zero_counts()
+    rows = rollout_probe.main(ROLLOUT_PROBE_ARGV)
+    torch.cuda.synchronize()
+    got = {**_counts(), "k1_bf16": fused_turn_lib.fused_turn.launches_bf16}
+    md = demo_tree.max_depth
+    calls = rollout_probe.ITERS + bench.WARM_ROLLOUTS
+    fused = sum(rollout_probe.parse(r["variant"])[2] for r in rows
+                if rollout_probe.parse(r["variant"])[0])
+    generic = sum(rollout_probe.parse(r["variant"])[2] for r in rows
+                  if not rollout_probe.parse(r["variant"])[0])
+    want = {"k1": md * calls * fused, "k2": md * calls * generic, "k3": 0,
+            "k1_bf16": 0}
+    if got != want:
+        raise AssertionError(f"rollout probe: launches {got}, want {want}")
+    for r in rows:
+        per = md * r["lane_chunks"]
+        fused_row = rollout_probe.parse(r["variant"])[0]
+        if ((r["k1_per_rollout"], r["k2_per_rollout"])
+                != ((per, 0) if fused_row else (0, per))
+                or not abs(r["mean_return"]) <= 1.0
+                or not (math.isfinite(r["half_steps_per_s"])
+                        and r["half_steps_per_s"] > 0)
+                or r["device"] != torch.cuda.get_device_name(0)
+                or not r["power_limit_w"] > 0):
+            raise AssertionError(f"rollout probe row {r}")
+    rates = {r["variant"]: r["half_steps_per_s"] for r in rows}
+    log("rollout probe: self-checks held (lane diversity > 0, |mean "
+        "return| <= 1); " + ", ".join(
+            f"{k} {v:.6g} half-steps/s ({v / rates['base']:.3f}x base, peak "
+            f"{r['peak_mem_gib']:.3f} GiB)" for (k, v), r in zip(rates.items(),
+                                                              rows))
+        + f"; launches {got} | {card}")
+    log(f"phase 15: {time.perf_counter() - t_phase:.1f} s")
+    return {"k1": got["k1"], "k2": got["k2"], "obs": entries}
+
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -14,9 +14,10 @@ player per tree level) of the whole actor phase, that is the rollout with
 the actor net's inference and the action sampling.  It runs on the
 reference demo tree (A = 3, depth bound 4 with the stochastic rule, seed 0)
 with the width-256 MLP, each turn one launch of kernel K1
-(``env/engine.py::rollout_from`` under ``rows_actor="auto"``), the Gumbel
-noise drawn on the device from a ``torch.Generator``.  ``(1 << 26) // B``
-rollouts run back to back at B = 32768 and at 131072 lanes; the better
+(``env/engine.py::rollout_from`` under ``rows_actor="auto"``), the behavior
+policy recorded as (T, A, B) (``policy_minor``, as bench.py rolls out), the
+Gumbel noise drawn on the device from a ``torch.Generator``.  ``(1 << 26)
+// B`` rollouts run back to back at B = 32768 and at 131072 lanes; the better
 rate is the headline and both are in ``rollout_rates``.  bench.py's two
 self-checks ride in the timed loop on the device and are read once, at its
 end, where the host clock stops: the lowest per-lane std of the episode
@@ -25,13 +26,13 @@ whose noise collapsed would all play one episode) must be positive, and
 the mean return must lie in [-1, 1].
 
 The ``train_*`` keys time the product, bench.py's configuration: the fused
-R-NaD step (rollout, regather, learner and frozen passes, v-trace, losses,
-clip + Adam, EMA) at 32768 lanes, the MLP and its frozen passes in
-bfloat16.  A bfloat16 MLP rolls out through the generic turn (one K2
-launch a turn: K1 computes in float32), and the learner regathers through
-K2.  After three warm steps at alpha 0.5, 256 steps run back to back under
-a host clock that ends in the fetch of their losses, which must all be
-finite.
+R-NaD step (rollout, learner and frozen passes, v-trace, losses, clip +
+Adam, EMA) at 32768 lanes, the MLP and its frozen passes in bfloat16.  A
+bfloat16 MLP rolls out through the generic turn (one K2 launch a turn: K1
+computes in float32), which stores the observations the learner reads
+(``store_rollout_obs``).  After three warm steps at alpha 0.5, 256 steps
+run back to back under a host clock that ends in the fetch of their
+losses, which must all be finite.
 
 Runs on the card unless ``--cpu`` is given, and without a card exits
 nonzero before printing anything.  ``device`` is
@@ -45,8 +46,7 @@ matmuls and cuDNN, and cuDNN runs its deterministic algorithms, as in
 Not ported, as a TPU-only workaround that changes no value: the
 one-program scan of all rollouts (torch has none, so every rollout and
 step is launched from the host, and the host's enqueue is part of the
-rate).  Not ported yet: ``policy_minor``, one of the rollout's variants
-(the next slice).
+rate).
 """
 
 from __future__ import annotations
@@ -199,14 +199,17 @@ def actor_net(device) -> torch.nn.Module:
 def rollout_fn(tree: tree_lib.GameTree, packed: stepping.PackedTables,
                net: torch.nn.Module, batch: int,
                generator: torch.Generator, rows_actor: str = "auto",
-               actor_dtype: torch.dtype = torch.float32
+               actor_dtype: torch.dtype = torch.float32,
+               lane_chunks: int = 1, policy_minor: bool = False
                ) -> Callable[[], engine.Trajectory]:
     """One rollout of ``batch`` lanes from the root, its noise drawn from
-    ``generator``."""
+    ``generator``, in ``lane_chunks`` sub-batches, the behavior policy
+    recorded (T, A, B) under ``policy_minor``."""
     init = torch.ones((batch,), dtype=torch.int32, device=tree.device)
     return lambda: engine.rollout_from(
         tree, packed, net, init, tree.max_depth, generator=generator,
-        rows_actor=rows_actor, actor_dtype=actor_dtype)
+        rows_actor=rows_actor, actor_dtype=actor_dtype,
+        lane_chunks=lane_chunks, policy_minor=policy_minor)
 
 
 def train_setup(tree: tree_lib.GameTree, packed: stepping.PackedTables):
@@ -235,7 +238,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     rates = {}
     for batch in ROLLOUT_BATCHES:
         dt, _ = time_rollouts(rollout_fn(tree, packed, net, batch,
-                                         generator), rollout_iters(batch))
+                                         generator, policy_minor=True),
+                              rollout_iters(batch))
         rates[batch] = half_steps * batch / dt
     best = max(rates, key=rates.get)
 

@@ -163,10 +163,10 @@ class RNaDConfig:
     # does on the other pairs.
     fuse_net_passes: str = "auto"
     detailed_metrics: bool = True
-    # Both settings give bit-identical updates on raw observations in
-    # rnad_tpu; the port's rollout stores observations only under an
-    # obs_transform (which requires True) and otherwise the learner
-    # regathers them.
+    # True: the rollout stores each half-step's observation (K1 writes the
+    # raw ones, the generic turn keeps its batch) and the learner reads
+    # them; False: the learner regathers them (K2).  Both give bitwise the
+    # same updates on raw observations; an obs_transform requires True.
     store_rollout_obs: bool = True
     rollout_rows_actor: str = "auto"
     rollout_actor_dtype: str = "float32"

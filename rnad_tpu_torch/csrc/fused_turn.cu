@@ -46,6 +46,16 @@
 // to the most a block may opt in to, and the grid once per (device, A, H,
 // operand type).
 //
+// The stored observations (rnad_tpu's rollout with store_obs=True, where the
+// rows-actor stores the mover's views "where the rows are already in
+// registers"): an optional output obs (2, B, din) f32, seat-major, each
+// lane's two seat views rows[0:din] and rows[din:2 din] of its packed row.
+// Both variants write it from the tile's shared-memory stage right after
+// the barrier that says the stage has landed, before that buffer is staged
+// again two tiles later; a plain copy, so it is bitwise the packed row.  A
+// null pointer skips it, and the launch then computes what it did without
+// the output.  It adds 8 din bytes a lane to the bytes the turn must move.
+//
 // The bf16-operand variant, fused_turn_bf16_kernel, computes what
 // rnad_tpu's rows-actor does with compute_dtype=bfloat16
 // (rnad_tpu/env/engine.py::make_mlp_rows_actor): W0 and W1 arrive cast to
@@ -377,7 +387,8 @@ fused_turn_kernel(const float* __restrict__ table, int32_t S, int32_t D,
                   const float* __restrict__ g_ch, int32_t* __restrict__ new_idx,
                   float* __restrict__ policy, int32_t* __restrict__ actions,
                   float* __restrict__ rewards, float* __restrict__ values,
-                  int32_t B, int32_t T, int32_t H) {
+                  float* __restrict__ obs_out, int32_t B, int32_t T,
+                  int32_t H) {
   constexpr int din = 2 * A * A;
   constexpr int nout = A + 1;
   extern __shared__ float4 smem4[];
@@ -460,6 +471,14 @@ fused_turn_kernel(const float* __restrict__ table, int32_t S, int32_t D,
     const float* t_obs = s_obs + buf * L.obs_size;
     const float* t_gact = s_gact + buf * L.rows_size;
     const float* t_mask = s_mask + buf * L.rows_size;
+    if (obs_out != nullptr)  // the stage is k-major: (k, row) at k * stride
+      for (int p = tid; p < kTileRows * din; p += kThreads) {
+        const int r = p / din, k = p - r * din;
+        const int b = lane0 + r % kTileLanes;
+        if (b < B)
+          obs_out[((int64_t)(r / kTileLanes) * B + b) * din + k] =
+              t_obs[k * kObsStride + r];
+      }
 
     // -- both layers on a register tile of 8 rows x 8 units --------------
     float part[8][nout];
@@ -542,7 +561,8 @@ fused_turn_bf16_kernel(const float* __restrict__ table, int32_t S, int32_t D,
                        float* __restrict__ policy,
                        int32_t* __restrict__ actions,
                        float* __restrict__ rewards,
-                       float* __restrict__ values, int32_t B, int32_t T,
+                       float* __restrict__ values,
+                       float* __restrict__ obs_out, int32_t B, int32_t T,
                        int32_t H) {
   constexpr int din = 2 * A * A;
   constexpr int nout = A + 1;
@@ -658,6 +678,16 @@ fused_turn_bf16_kernel(const float* __restrict__ table, int32_t S, int32_t D,
     __syncthreads();  // this tile's inputs (and the weights) have landed
     const float* t_gact = s_gact + buf * L.rows_size;
     const float* t_mask = s_mask + buf * L.rows_size;
+    if (obs_out != nullptr) {  // the f32 stage is row-major: (row, k)
+      const float* t_obs = s_obs + buf * L.obs_size;
+      for (int p = tid; p < kTileRows * din; p += kThreads) {
+        const int r = p / din;
+        const int b = lane0 + r % kTileLanes;
+        if (b < B)
+          obs_out[((int64_t)(r / kTileLanes) * B + b) * din + p - r * din] =
+              t_obs[p];
+      }
+    }
 
     // -- the first layer on the tensor cores, the second on the CUDA cores
     float part[4][nout];  // rows row0 + 8 r
@@ -790,8 +820,9 @@ cudaError_t launch(const float* table, int32_t S, int32_t D,
                    const int32_t* idx, const void* w0, const float* b0,
                    const void* w1, const float* b1, const float* g_act,
                    const float* g_ch, int32_t* new_idx, float* policy,
-                   int32_t* actions, float* rewards, float* values, int32_t B,
-                   int32_t T, int32_t H, int bf16, cudaStream_t stream) {
+                   int32_t* actions, float* rewards, float* values,
+                   float* obs, int32_t B, int32_t T, int32_t H, int bf16,
+                   cudaStream_t stream) {
   const size_t smem = smem_of(A, H, bf16);
   int blocks = 0;
   cudaError_t err =
@@ -804,17 +835,18 @@ cudaError_t launch(const float* table, int32_t S, int32_t D,
     fused_turn_bf16_kernel<A><<<grid, kThreads, smem, stream>>>(
         table, S, D, idx, (const __nv_bfloat16*)w0, b0,
         (const __nv_bfloat16*)w1, b1, g_act, g_ch, new_idx, policy, actions,
-        rewards, values, B, T, H);
+        rewards, values, obs, B, T, H);
   else
     fused_turn_kernel<A><<<grid, kThreads, smem, stream>>>(
         table, S, D, idx, (const float*)w0, b0, (const float*)w1, b1, g_act,
-        g_ch, new_idx, policy, actions, rewards, values, B, T, H);
+        g_ch, new_idx, policy, actions, rewards, values, obs, B, T, H);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // bf16: 0 for f32 weights, 1 for bf16 weights (the bf16-operand variant).
+// obs: the (2, B, 2A^2) stored observations, or null for none.
 extern "C" size_t rnad_fused_turn_smem_bytes(int32_t A, int32_t H,
                                              int32_t bf16) {
   return smem_of(A, H, bf16);
@@ -825,9 +857,9 @@ extern "C" int rnad_fused_turn(const void* table, int32_t S, int32_t D,
                                const void* b0, const void* w1, const void* b1,
                                const void* g_act, const void* g_ch,
                                void* new_idx, void* policy, void* actions,
-                               void* rewards, void* values, int32_t B,
-                               int32_t A, int32_t T, int32_t H, int32_t bf16,
-                               void* stream) {
+                               void* rewards, void* values, void* obs,
+                               int32_t B, int32_t A, int32_t T, int32_t H,
+                               int32_t bf16, void* stream) {
   if (A < 1 || A > kMaxA || T < 1 || T > kMaxT || H < 1)
     return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
@@ -839,7 +871,7 @@ extern "C" int rnad_fused_turn(const void* table, int32_t S, int32_t D,
                           (const float*)g_act, (const float*)g_ch,          \
                           (int32_t*)new_idx, (float*)policy,                \
                           (int32_t*)actions, (float*)rewards,               \
-                          (float*)values, B, T, H, bf16 != 0,               \
+                          (float*)values, (float*)obs, B, T, H, bf16 != 0,  \
                           (cudaStream_t)stream);
     RNAD_FUSED_TURN_CASE(1)
     RNAD_FUSED_TURN_CASE(2)

@@ -10,13 +10,21 @@ Both turns take the same noise and, given equal logits, play the same
 episodes.
 
 A ``Trajectory`` stores state indices, the mover's behavior policy,
-sampled action ids, rewards and value estimates.  Raw observations are pure
-functions of the state index, so the learner regathers them from the packed
-table (``trajectory_observations``, kernel K2 on the card), as ``rnad_tpu``
-does with ``store_rollout_obs=False``.  Under an observation transform
-(``ops/obs_transform.py``) the rollout also stores each half-step's lifted,
-noisy observation (``Trajectory.obs``): the noise is no function of the
-state, and the learner must read the bits the actor saw.
+sampled action ids, rewards and value estimates, and with ``store_obs``
+(``RNaDConfig.store_rollout_obs``, on by default) each half-step's
+observation (``Trajectory.obs``): K1 copies the raw ones out of the rows it
+stages anyway, the generic turn keeps the batch it fed the net, and the
+learner skips its regather.  Raw observations are pure functions of the
+state index, so without them the learner regathers them from the packed
+table (``trajectory_observations``, kernel K2 on the card).  Under an
+observation transform (``ops/obs_transform.py``) the rollout always stores
+each half-step's lifted, noisy observation: the noise is no function of
+the state, and the learner must read the bits the actor saw.
+
+The rollout's variants are ``rnad_tpu``'s: ``lane_chunks`` rolls the lanes
+out as sequential sub-batches (bounding the peak memory of a turn's
+intermediates) and ``policy_minor`` records the behavior policy as (T, A,
+B) for the batch-minor learner.
 """
 
 from __future__ import annotations
@@ -46,14 +54,18 @@ class Trajectory:
     state."""
 
     indices: torch.Tensor  # (T, B) int32, state id at each half-step
-    policy: torch.Tensor  # (T, B, A) f32, mover's behavior policy mu
+    # the mover's behavior policy mu, f32, laid out as ``policy_layout``
+    # says: "bma" (T, B, A), or "amb" (T, A, B) for the batch-minor
+    # learner; read it through policy_bma() / policy_amb()
+    policy: torch.Tensor
     actions: torch.Tensor  # (T, B) int32, sampled action ids
     rewards: torch.Tensor  # (T, B) f32, row-player reward (zero-sum)
     values: torch.Tensor  # (T, B) f32, actor value estimates (mover's POV)
-    # (T, B, C + 1, A, A) the mover's lifted observation, stored under an
-    # observation transform only; channel 1 is the legal matrix, so the
-    # mover's mask is obs[..., 1, :, 0]
+    # (T, B, C, A, A) the mover's observation where stored: raw (C = 2) or
+    # lifted (C = lifted channels + 1); channel 1 is the legal matrix in
+    # both, so the mover's mask is obs[..., 1, :, 0]
     obs: Optional[torch.Tensor] = None
+    policy_layout: str = "bma"
 
     @property
     def num_half_steps(self) -> int:
@@ -65,7 +77,17 @@ class Trajectory:
 
     @property
     def num_actions(self) -> int:
-        return self.policy.shape[-1]
+        return self.policy.shape[-1 if self.policy_layout == "bma" else -2]
+
+    def policy_bma(self) -> torch.Tensor:
+        """The behavior policy as (T, B, A), whatever its layout."""
+        return (self.policy if self.policy_layout == "bma"
+                else self.policy.transpose(-1, -2))
+
+    def policy_amb(self) -> torch.Tensor:
+        """The behavior policy as batch-minor (T, A, B)."""
+        return (self.policy if self.policy_layout == "amb"
+                else self.policy.transpose(-1, -2))
 
     @property
     def turns(self) -> torch.Tensor:
@@ -107,6 +129,18 @@ def turn_noise(batch_size: int, A: int, T: int,
     eps = torch.randn((2 * batch_size, channels, A, A), generator=generator,
                       device=device, dtype=torch.float32)
     return g_act, g_ch, eps
+
+
+def local_noise(noise: Sequence[torch.Tensor], lanes: slice,
+                batch_size: int) -> Tuple[torch.Tensor, ...]:
+    """The lanes ``lanes`` of one turn's noise for ``batch_size`` lanes:
+    ``g_act`` (2B, A) and the lift's ``eps`` (2B, C, A, A) are seat-major,
+    so the lanes are two row ranges, one a seat block; ``g_chance`` (B, T)
+    is one."""
+    seat_rows = lambda x: torch.cat([x[lanes], x[batch_size:][lanes]])
+    g_act, g_ch, *eps = noise
+    return (seat_rows(g_act), g_ch[lanes]) + tuple(seat_rows(e)
+                                                   for e in eps)
 
 
 def trajectory_observations(packed: stepping.PackedTables, traj: Trajectory
@@ -236,7 +270,9 @@ def rollout_from(tree: GameTree, packed: stepping.PackedTables,
                  generator: Optional[torch.Generator] = None,
                  rows_actor: str = "auto",
                  obs_transform: Optional[ObsTransform] = None,
+                 store_obs: bool = False,
                  obs_dtype: torch.dtype = torch.float32,
+                 lane_chunks: int = 1, policy_minor: bool = False,
                  actor_dtype: torch.dtype = torch.float32) -> Trajectory:
     """Plays ``num_turns`` turns (default ``tree.max_depth``) from the
     per-lane states ``init_indices`` (B,) under ``net``'s policy, each turn
@@ -247,44 +283,85 @@ def rollout_from(tree: GameTree, packed: stepping.PackedTables,
     ``noise`` gives each turn's ``(g_act (2B, A), g_chance (B, T))``, and
     under ``obs_transform`` also the lift's ``eps`` (2B, C, A, A); if it is
     None they are drawn from ``generator`` on the tree's device
-    (``turn_noise``).  Under ``obs_transform`` the trajectory stores the
-    lifted observations the net saw, in ``obs_dtype``."""
+    (``turn_noise``).
+
+    ``store_obs`` records each half-step's observation in ``obs_dtype``
+    (``Trajectory.obs``), sparing the learner its regather: K1 writes the
+    raw ones as an output, the generic turn keeps the batch it fed the
+    net.  Under ``obs_transform`` the lifted observations the net saw are
+    stored whatever ``store_obs`` says.
+
+    ``lane_chunks`` k > 1 rolls the lanes out as k sequential sub-batches
+    of B / k lanes (B must divide), each through every turn before the
+    next starts, and stitches the trajectory back chunk-major, as
+    ``rnad_tpu``'s ``rollout_from(lane_chunks=k)`` does; it bounds the
+    peak memory of a turn's intermediates.  Given ``noise``, chunk c takes
+    its own lanes' columns of each turn's full-batch noise
+    (``local_noise``), so the chunked rollout plays the whole rollout's
+    episodes.  Given a ``generator``, each chunk draws its own turns'
+    noise in chunk order: like ``rnad_tpu``'s per-chunk keys, a chunked
+    run then plays other, equally valid episodes than an unchunked one.
+
+    ``policy_minor`` records the behavior policy as (T, A, B)
+    (``policy_layout="amb"``), the batch-minor learner's layout: one
+    transpose of the whole record after the stitch."""
     if num_turns is None:
         num_turns = tree.max_depth
-    A, T = packed.max_actions, packed.max_transitions
     B = init_indices.shape[0]
+    if lane_chunks < 1:
+        raise ValueError(f"lane_chunks must be >= 1, got {lane_chunks}")
+    if B % lane_chunks:
+        raise ValueError(f"batch {B} not divisible by {lane_chunks}")
+    A, T = packed.max_actions, packed.max_transitions
     device = packed.rows.device
     channels = None if obs_transform is None else obs_transform.channels
+    store = store_obs or obs_transform is not None
     if uses_fused_turn(net, rows_actor, obs_transform is not None,
                        actor_dtype):
         w0, b0, w1, b1 = [w.detach() for w in nets.mlp_fused_weights(net)]
         weights = [w0.to(actor_dtype).contiguous(), b0.contiguous(),
                    w1.to(actor_dtype).contiguous(), b1.contiguous()]
         turn = lambda idx, g_act, g_ch: fused_turn_lib.fused_turn(
-            packed.rows, *weights, idx, g_act, g_ch, A=A, T=T) + (None,)
+            packed.rows, *weights, idx, g_act, g_ch, A=A, T=T,
+            store_obs=store) + ((None,) if not store else ())
     else:
         turn = lambda idx, g_act, g_ch, eps=None: generic_turn(
             packed, net, idx, g_act, g_ch, obs_transform, eps)
-    indices = init_indices.to(device=device, dtype=torch.int32).contiguous()
-    recs = []
-    for t in range(num_turns):
-        if noise is None:
-            step_noise = turn_noise(B, A, T, generator, device, channels)
-        else:
-            step_noise = [g.to(device=device, dtype=torch.float32)
-                          .contiguous() for g in noise[t]]
-        new_idx, policy, actions, rewards, values, obs = turn(indices,
-                                                              *step_noise)
-        recs.append((torch.stack([indices, indices]), policy, actions,
-                     torch.stack([torch.zeros_like(rewards), rewards]),
-                     values,
-                     None if obs_transform is None else
-                     obs.to(obs_dtype).reshape((2, B) + obs.shape[1:])))
-        indices = new_idx
-    cat = lambda i: torch.cat([r[i] for r in recs], 0)
-    return Trajectory(indices=cat(0), policy=cat(1), actions=cat(2),
+    init = init_indices.to(device=device, dtype=torch.int32)
+    b = B // lane_chunks
+    recs = []  # (chunk, turn) -> the turn's record of the chunk's lanes
+    for c in range(lane_chunks):
+        lanes = slice(c * b, (c + 1) * b)
+        indices = init[lanes].contiguous()
+        recs.append([])
+        for t in range(num_turns):
+            if noise is None:
+                step_noise = turn_noise(b, A, T, generator, device, channels)
+            else:
+                step_noise = noise[t] if lane_chunks == 1 else local_noise(
+                    noise[t], lanes, B)
+                step_noise = [g.to(device=device, dtype=torch.float32)
+                              .contiguous() for g in step_noise]
+            new_idx, policy, actions, rewards, values, obs = turn(
+                indices, *step_noise)
+            recs[c].append((
+                torch.stack([indices, indices]), policy, actions,
+                torch.stack([torch.zeros_like(rewards), rewards]), values,
+                obs.to(obs_dtype).reshape((2, b) + obs.shape[-3:])
+                if store else None))
+            indices = new_idx
+
+    def cat(i):  # the turns along time, then the chunks along the lanes
+        parts = [torch.cat([r[i] for r in chunk], 0) for chunk in recs]
+        return parts[0] if len(parts) == 1 else torch.cat(parts, 1)
+
+    policy = cat(1)
+    if policy_minor:
+        policy = policy.transpose(1, 2).contiguous()
+    return Trajectory(indices=cat(0), policy=policy, actions=cat(2),
                       rewards=cat(3), values=cat(4),
-                      obs=None if obs_transform is None else cat(5))
+                      obs=cat(5) if store else None,
+                      policy_layout="amb" if policy_minor else "bma")
 
 
 def tabular_noise(batch_size: int, A: int, T: int,

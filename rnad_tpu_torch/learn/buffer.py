@@ -24,14 +24,32 @@ import torch
 from ..env.engine import Trajectory
 
 
+# the fields with lanes along axis 1 ("bma" trajectories)
+LANE_FIELDS = tuple(f.name for f in dataclasses.fields(Trajectory)
+                    if f.name != "policy_layout")
+
+
+def check_lane_major(trajs: Sequence[Trajectory]) -> None:
+    """Raises for a trajectory whose policy is recorded "amb" (T, A, B):
+    code that takes lanes along axis 1 of every field would take actions
+    there.  ``rnad_tpu`` records "amb" on the on-policy path only
+    (``rnad.policy_minor_record``)."""
+    if any(t.policy_layout != "bma" for t in trajs):
+        raise ValueError("lanes are taken along axis 1 of every field, so "
+                         "this takes 'bma' trajectories only; an 'amb' "
+                         "policy record is made for the on-policy learner "
+                         "alone")
+
+
 def collate_slots(slots: Sequence[Trajectory],
                   lanes: Sequence[torch.Tensor]) -> Trajectory:
     """Gathers ``lanes[i]`` along lane axis 1 of every field of
     ``slots[i]`` (``obs`` included where stored) and concatenates."""
+    check_lane_major(slots)
     fields = {}
-    for f in dataclasses.fields(Trajectory):
-        parts = [getattr(t, f.name) for t in slots]
-        fields[f.name] = (None if parts[0] is None else torch.cat(
+    for name in LANE_FIELDS:
+        parts = [getattr(t, name) for t in slots]
+        fields[name] = (None if parts[0] is None else torch.cat(
             [p[:, lane] for p, lane in zip(parts, lanes)], dim=1))
     return Trajectory(**fields)
 
@@ -48,6 +66,7 @@ class TrajectoryBuffer:
         return len(self.slots)
 
     def append(self, traj: Trajectory) -> None:
+        check_lane_major([traj])
         self.slots.append(traj)
         while len(self.slots) > self.max_size:
             self.slots.popleft()
@@ -67,17 +86,20 @@ class TrajectoryBuffer:
         every rank draws the global plan from an equal ``rng``, writes the
         rows it owns into a zero-filled collated global batch, one flat
         buffer per dtype (int32: ``indices``, ``actions``; float32:
-        ``policy``, ``rewards``, ``values`` and stored ``obs``), all-reduces
-        (SUM) each and keeps its own positions.  Each position is written by
-        one rank, so the sum is exact (gloo has no ``all_gather`` of CUDA
+        ``policy``, ``rewards``, ``values`` and stored ``obs``, cast to
+        float32 and back, which is exact), all-reduces (SUM) each and keeps
+        its own positions.  Each position is written by one rank, so the
+        sum is exact (gloo has no ``all_gather`` of CUDA
         tensors, and one path serves both backends, as in ``metrics/
         nashconv_shard.py``); the one change is that -0.0 arrives as +0.0,
         which ``torch.equal`` counts as equal.  At A = 5 a lane carries 36
         bytes a half-step (``indices``, ``actions``, ``rewards``,
-        ``values`` and five policy floats): 14.2 MB a learner step at
-        r5-offpol-32k's B = 32768 and T = 12; a lift's stored ``obs`` adds
-        (C + 1) * A * A * 4 bytes a half-step.  Over one rank the exchange
-        is the identity: ``collate_slots``'s batch."""
+        ``values`` and five policy floats) and the stored raw ``obs`` 2 *
+        A * A * 4 = 200 more (``store_rollout_obs``, the default), 236 in
+        all: 92.8 MB a learner step at r5-offpol-32k's B = 32768 and T =
+        12 (14.2 MB without the observations); a lift's stored ``obs``
+        takes (C + 1) * A * A * 4 bytes a half-step.  Over one rank the
+        exchange is the identity: ``collate_slots``'s batch."""
         if group is None:
             slots, lanes = self.plan(batch_size, rng)
             if lanes is None:
@@ -115,8 +137,7 @@ class TrajectoryBuffer:
             return self.slots[0]
         first = self.slots[0]
         T, device = first.num_half_steps, first.indices.device
-        names = [f.name for f in dataclasses.fields(Trajectory)
-                 if getattr(first, f.name) is not None]
+        names = [n for n in LANE_FIELDS if getattr(first, n) is not None]
         ints = [n for n in names if n in _INT_FIELDS]
         floats = [n for n in names if n not in _INT_FIELDS]
         width = lambda n: math.prod(getattr(first, n).shape[2:])

@@ -502,7 +502,8 @@ def learn_loss(state: TrainState, packed: stepping.PackedTables,
             pi.detach(), masks_l, cfg.n_discrete, cfg.epsilon_threshold)
         log_policy_reg = log_pi.detach() - (
             alpha * log_pi_reg + one_minus_alpha * log_pi_reg_prev)
-        acting_policy = lay(traj.policy)
+        acting_policy = (traj.policy_amb().contiguous() if minor
+                         else traj.policy_bma())
         vt_both = (vtrace_assoc.v_trace_both_assoc
                    if cfg.vtrace_mode == "associative" else L.v_trace_both)
         v_t2, played2, pol_t2 = vt_both(
@@ -597,18 +598,34 @@ def resolve_obs_transform(net_config: NetConfig, tree: GameTree,
     return tf.to(tree.device)
 
 
+def policy_minor_record(cfg: RNaDConfig, max_actions: int) -> bool:
+    """Whether the training rollout records the behavior policy as (T, A,
+    B), ``rnad_tpu``'s rule: the record is the learner's acting policy, so
+    it follows the resolved learner layout, but only on the on-policy
+    path (the replay buffer collates along lane axis 1, so buffered
+    rollouts stay "bma")."""
+    on_policy = cfg.n_batches_per_buffer == 1 and cfg.buffer_mod == 1
+    return resolve_learner_layout(cfg, cfg.vtrace_mode == "associative",
+                                  max_actions) and on_policy
+
+
 def rollout(state: TrainState, tree: GameTree, packed: stepping.PackedTables,
             cfg: RNaDConfig, noise=None,
             obs_transform: Optional[obs_transform_lib.ObsTransform] = None
             ) -> engine.Trajectory:
     """The training rollout: ``batch_size`` episodes from the root, storing
-    the lifted observations under ``obs_transform``."""
+    the observations where ``store_rollout_obs`` says (the lifted ones
+    under ``obs_transform`` always) and recording the behavior policy as
+    ``policy_minor_record`` says."""
     init = torch.ones((cfg.batch_size,), dtype=torch.int32,
                       device=packed.rows.device)
     return engine.rollout_from(tree, packed, state.net, init, tree.max_depth,
                                noise=noise, generator=state.generator,
                                rows_actor=cfg.rollout_rows_actor,
                                obs_transform=obs_transform,
+                               store_obs=cfg.store_rollout_obs,
+                               policy_minor=policy_minor_record(
+                                   cfg, tree.max_actions),
                                obs_dtype=obs_storage_dtype(state.net, cfg),
                                actor_dtype=nets.DTYPES[
                                    cfg.rollout_actor_dtype])

@@ -133,7 +133,17 @@ class _RecordingBuffer(buffer_lib.TrajectoryBuffer):
         return traj
 
 
-TRAJ_FIELDS = ("indices", "policy", "actions", "rewards")
+TRAJ_FIELDS = ("indices", "policy", "actions", "rewards", "obs")
+
+
+def saved_fields(traj) -> dict:
+    """The trajectory's fields that ``--traj-out`` keeps, as numpy arrays:
+    lanes along axis 1 (the policy as (T, B, A) whatever its record's
+    layout), the observations where the rollout stored them."""
+    fields = {k: getattr(traj, k) for k in TRAJ_FIELDS}
+    fields["policy"] = traj.policy_bma()
+    return {k: v.float().cpu().numpy() if k == "obs" else v.cpu().numpy()
+            for k, v in fields.items() if v is not None}
 
 
 def train(args, group) -> dict:
@@ -167,7 +177,7 @@ def train(args, group) -> dict:
                 trainer.tree, trainer.packed, cfg, group,
                 trainer.obs_transform)(state)
             state.generator.set_state(before)
-            saved = {k: getattr(traj, k).cpu().numpy() for k in TRAJ_FIELDS}
+            saved = saved_fields(traj)
         buffer = _RecordingBuffer(cfg.n_batches_per_buffer)
         step = ((lambda: trainer.train_step(state, 0.5)[1]) if on_policy
                 else (lambda: trainer.buffered_step(buffer, 0.5)))
@@ -188,9 +198,9 @@ def train(args, group) -> dict:
                     "k2": lookup.lookup.launches,
                     "k3": rmplus.rmplus.launches}
         if args.traj_out and not on_policy:  # every step's collated lanes
-            saved = {k: np.stack([getattr(t, k).cpu().numpy()
-                                  for t in buffer.samples])
-                     for k in TRAJ_FIELDS}
+            per_step = [saved_fields(t) for t in buffer.samples]
+            saved = {k: np.stack([s[k] for s in per_step])
+                     for k in per_step[0]}
         if saved is not None:
             os.makedirs(args.traj_out, exist_ok=True)
             np.savez(os.path.join(args.traj_out, f"rank{group.rank}.npz"),

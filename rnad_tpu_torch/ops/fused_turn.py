@@ -18,6 +18,11 @@ products and sums stay float32, and so do the biases.  The float32
 variant runs on the CUDA cores; the bf16 variant's first layer runs on the
 tensor cores (``mma.sync`` m16n8k16), its second on the CUDA cores.
 
+With ``store_obs`` the turn also returns the lanes' observations, the
+counterpart of ``rnad_tpu``'s rows-actor rollout under ``store_obs=True``:
+(2, B, 2, A, A) float32, seat-major, each lane's two seat views of its
+packed row, copied out of the tile the kernel stages anyway.
+
 ``fused_turn`` launches the kernel for CUDA tensors and runs
 ``fused_turn_plain`` only for CPU tensors.  ``fused_turn.launches`` counts
 the float32 variant's launches, ``fused_turn.launches_bf16`` the bf16
@@ -38,9 +43,10 @@ MAX_TRANSITIONS = 8
 SMEM_LIMIT_BYTES = 232_448  # what one Hopper block may use
 TILE_LANES = 32  # lanes a block takes at a time (csrc/fused_turn.cu)
 # rnad_fused_turn(table, S, D, idx, w0, b0, w1, b1, g_act, g_ch, new_idx,
-#                 policy, actions, rewards, values, B, A, T, H, bf16, stream)
+#                 policy, actions, rewards, values, obs, B, A, T, H, bf16,
+#                 stream); obs may be null
 ARGTYPES = ((ctypes.c_void_p, ctypes.c_int32, ctypes.c_int32)
-            + (ctypes.c_void_p,) * 12 + (ctypes.c_int32,) * 5
+            + (ctypes.c_void_p,) * 13 + (ctypes.c_int32,) * 5
             + (ctypes.c_void_p,))
 OPERAND_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -187,12 +193,23 @@ def check_bf16(got: _Outputs, args, *, A: int, T: int) -> dict:
 
 
 def fused_turn_plain(table, w0, b0, w1, b1, indices, g_act, g_chance, *,
-                     A: int, T: int) -> _Outputs:
-    """Plain version, op by op after the TPU kernel's body."""
+                     A: int, T: int, store_obs: bool = False) -> _Outputs:
+    """Plain version, op by op after the TPU kernel's body; with
+    ``store_obs`` the lanes' observations (``stored_obs_plain``) last."""
     rows, ml, mask, values = turn_logits_plain(table, w0, b0, w1, b1,
                                                indices, A=A)
-    return turn_from_logits(table, rows, ml, mask, values, g_act, g_chance,
-                            A=A, T=T)
+    out = turn_from_logits(table, rows, ml, mask, values, g_act, g_chance,
+                           A=A, T=T)
+    return out + (stored_obs_plain(rows, A),) if store_obs else out
+
+
+def stored_obs_plain(rows: torch.Tensor, A: int) -> torch.Tensor:
+    """Both seats' observations (2, B, 2, A, A) of the lanes' packed rows
+    (B, D), seat-major: the row seat's view ``rows[:, 0:din]``, then the
+    column seat's ``rows[:, din:2 din]``."""
+    din = 2 * A * A
+    obs = rows[:, :2 * din].reshape(-1, 2, 2, A, A)
+    return obs.transpose(0, 1).contiguous()
 
 
 def turn_from_logits(table, rows, ml, mask, values, g_act, g_chance, *,
@@ -224,11 +241,12 @@ def operations(A: int, H: int) -> int:
 
 
 def io_bytes(B: int, A: int, T: int, H: int, rows: int, cells: int,
-             weight_bytes: int = 4) -> int:
+             weight_bytes: int = 4, store_obs: bool = False) -> int:
     """Bytes that must cross device memory for ``B`` lanes' turns whose
     states take ``rows`` distinct packed rows and whose played joint
     cells are ``cells`` distinct (state, cell) pairs: each lane's index
-    and noise read and its outputs written once, each distinct state's
+    and noise read and its outputs written once (with ``store_obs`` its
+    two observations, 2 din floats, among them), each distinct state's
     two observations and masks (2 din + 2 A floats), each distinct played
     cell's T log-chances, child and value (T + 2 floats), and the weights
     (``weight_bytes`` an element) and biases once."""
@@ -236,7 +254,8 @@ def io_bytes(B: int, A: int, T: int, H: int, rows: int, cells: int,
     return (4 * (B + rows * (2 * din + 2 * A) + cells * (T + 2)
                  + H + A + 1  # biases
                  + 2 * B * A + B * T  # noise
-                 + B + 2 * B * A + 2 * B + B + 2 * B)  # outputs
+                 + B + 2 * B * A + 2 * B + B + 2 * B  # outputs
+                 + (2 * B * din if store_obs else 0))
             + weight_bytes * (din * H + H * (A + 1)))
 
 
@@ -295,17 +314,18 @@ def _check_args(table, w0, b0, w1, b1, indices, g_act, g_chance, A, T):
 def fused_turn(table: torch.Tensor, w0: torch.Tensor, b0: torch.Tensor,
                w1: torch.Tensor, b1: torch.Tensor, indices: torch.Tensor,
                g_act: torch.Tensor, g_chance: torch.Tensor, *, A: int,
-               T: int) -> _Outputs:
+               T: int, store_obs: bool = False) -> _Outputs:
     """One turn for all lanes.  ``table`` is the (S, D_pad) packed table,
     (w0, b0, w1, b1) the fused MLP of ``nets.mlp_fused_weights``, w0 and w1
     in float32 or bfloat16 (the bf16-operand variant).
 
     Returns (new_indices (B,) int32, policy (2, B, A), actions (2, B)
-    int32, rewards (B,), values (2, B))."""
+    int32, rewards (B,), values (2, B)), and with ``store_obs`` the lanes'
+    observations (2, B, 2, A, A) float32 last."""
     _check_args(table, w0, b0, w1, b1, indices, g_act, g_chance, A, T)
     if table.device.type == "cpu":
         return fused_turn_plain(table, w0, b0, w1, b1, indices, g_act,
-                                g_chance, A=A, T=T)
+                                g_chance, A=A, T=T, store_obs=store_obs)
     if table.device.type != "cuda":
         raise ValueError(f"fused_turn runs on cuda or cpu, not {table.device}")
     H = w0.shape[1]
@@ -328,21 +348,26 @@ def fused_turn(table: torch.Tensor, w0: torch.Tensor, b0: torch.Tensor,
     actions = torch.empty((2, B), dtype=torch.int32, device=dev)
     rewards = torch.empty((B,), dtype=torch.float32, device=dev)
     values = torch.empty((2, B), dtype=torch.float32, device=dev)
+    out = (new_idx, policy, actions, rewards, values)
+    if store_obs:
+        out += (torch.empty((2, B, 2, A, A), dtype=torch.float32,
+                            device=dev),)
     if B == 0:
-        return new_idx, policy, actions, rewards, values
+        return out
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(table.data_ptr(), S, D, indices.data_ptr(), w0.data_ptr(),
                  b0.data_ptr(), w1.data_ptr(), b1.data_ptr(),
                  g_act.data_ptr(), g_chance.data_ptr(), new_idx.data_ptr(),
                  policy.data_ptr(), actions.data_ptr(), rewards.data_ptr(),
-                 values.data_ptr(), B, A, T, H, int(bf16), stream)
+                 values.data_ptr(), out[5].data_ptr() if store_obs else None,
+                 B, A, T, H, int(bf16), stream)
     _build.check("fused_turn", "rnad_fused_turn", err)
     if bf16:
         fused_turn.launches_bf16 += 1
     else:
         fused_turn.launches += 1
-    return new_idx, policy, actions, rewards, values
+    return out
 
 
 # kernel launches (CUDA tensors only): the float32 and bf16 variants

@@ -52,13 +52,14 @@ import dataclasses
 import datetime
 import logging
 import socket
-from typing import List, Optional, Sequence, Tuple, Union
+from typing import List, Optional, Union
 
 import torch
 import torch.distributed as dist
 
 from ..config import RNaDConfig
 from ..env import engine
+from ..env.engine import local_noise
 from ..env.tree import GameTree
 from ..learn import rnad as rnad_lib
 from ..ops import stepping
@@ -166,17 +167,6 @@ def check_data_parallel(cfg: RNaDConfig, group: mesh_lib.DataGroup) -> None:
     """Raises ValueError before anything runs where the batch does not
     divide over the ranks."""
     group.lanes(cfg.batch_size)
-
-
-def local_noise(noise: Sequence[torch.Tensor], lanes: slice,
-                batch_size: int) -> Tuple[torch.Tensor, ...]:
-    """This rank's part of one turn's global noise: ``g_act`` (2B, A) and
-    the lift's ``eps`` (2B, C, A, A) are seat-major, so the rank's lanes
-    are two row ranges, one a seat block; ``g_chance`` (B, T) is one."""
-    seat_rows = lambda x: torch.cat([x[lanes], x[batch_size:][lanes]])
-    g_act, g_ch, *eps = noise
-    return (seat_rows(g_act), g_ch[lanes]) + tuple(seat_rows(e)
-                                                   for e in eps)
 
 
 def _data_axis(group: Union[mesh_lib.DataGroup, mesh_lib.Grid],

@@ -38,6 +38,7 @@ import torch
 from ..config import RNaDConfig
 from ..env import engine
 from ..env.tree import GameTree
+from ..learn import buffer as buffer_lib
 from ..learn import rnad as rnad_lib
 from ..ops import stepping
 from ..ops.obs_transform import ObsTransform
@@ -72,6 +73,7 @@ def make_shard_map_train_step(tree: GameTree, cfg: RNaDConfig,
                        device=group.device),
             tree.max_depth, generator=generator,
             rows_actor=cfg.rollout_rows_actor, obs_transform=obs_transform,
+            store_obs=cfg.store_rollout_obs,
             obs_dtype=rnad_lib.obs_storage_dtype(state.net, cfg),
             actor_dtype=rnad_lib.nets.DTYPES[cfg.rollout_actor_dtype])
         return state, rnad_lib.learn_step(state, packed, traj, alpha, cfg,
@@ -81,11 +83,12 @@ def make_shard_map_train_step(tree: GameTree, cfg: RNaDConfig,
 
 
 def lane_slice(traj: engine.Trajectory, lanes: slice) -> engine.Trajectory:
-    """The lanes ``lanes`` of a time-major trajectory."""
+    """The lanes ``lanes`` of a time-major "bma" trajectory."""
+    buffer_lib.check_lane_major([traj])
     return engine.Trajectory(**{
-        f.name: None if getattr(traj, f.name) is None
-        else getattr(traj, f.name)[:, lanes].contiguous()
-        for f in dataclasses.fields(traj)})
+        name: None if getattr(traj, name) is None
+        else getattr(traj, name)[:, lanes].contiguous()
+        for name in buffer_lib.LANE_FIELDS})
 
 
 def make_shard_map_learn_step(tree: GameTree, cfg: RNaDConfig,

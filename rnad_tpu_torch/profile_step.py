@@ -24,8 +24,10 @@ rollout every 2 learner steps).  ``--net convnet`` builds r5-noisy-conv
 (A = 3, depth 4, seed 0), the noisy lift (8 channels, sigma 0.15) and the
 ConvNet 16x2 with BatchNorm at 512 lanes.  It warms up, then times one
 train step split into its phases with CUDA events (rollout, for the
-buffered step its sampling and collate, regather and solver features,
-learner and frozen passes with the loss, backward, clip + Adam + EMA), each
+buffered step its sampling and collate, the regather where the rollout
+stores no observations (``store_rollout_obs=False``) and the solver
+features of a solver EquiNet, learner and frozen passes with the loss,
+backward, clip + Adam + EMA), each
 phase's events recorded after its own sleep kernel that hides the host's
 enqueue time; the buffered step rolls out on every second step, so its rollout
 phase is the mean over steps with and without one.  Then it traces a few
@@ -58,6 +60,7 @@ from .config import (NetConfig, ObsTransformConfig, RNaDConfig, ShapingRule,
 from .env import tree as tree_lib
 from .learn import buffer as buffer_lib
 from .learn import rnad
+from .models import nets
 from .utils import timing
 
 BATCH_SIZE = 32768
@@ -145,9 +148,10 @@ def _phases(run: rnad.RNaD, alpha: float, buffer=None):
     def inputs():
         box["inputs"] = rnad.learner_inputs(state, run.packed, box["traj"])
 
-    def loss():
+    def loss():  # without an inputs phase it reads the stored observations
         box["loss"], _ = rnad.learn_loss(state, run.packed, box["traj"],
-                                         alpha, cfg, inputs=box["inputs"])
+                                         alpha, cfg,
+                                         inputs=box.get("inputs"))
 
     def backward():
         box["grads"] = torch.autograd.grad(box["loss"],
@@ -160,8 +164,14 @@ def _phases(run: rnad.RNaD, alpha: float, buffer=None):
     first = ([("rollout", roll)] if buffer is None else
              [("rollout (every buffer_mod-th step)", roll_if_due),
               ("sample + collate", collate)])
+    # the learner's inputs: a phase where they take work, the regather of
+    # unstored observations (K2) or the solve (K3)
+    solve = isinstance(state.net, nets.EquiNet) and state.net.solver_iters
+    work = (["regather (K2)"] * (not cfg.store_rollout_obs)
+            + ["EquiNet solve (K3)"] * bool(solve))
+    if work:
+        first.append((", ".join(work), inputs))
     return first + [
-            ("regather (K2), EquiNet solve (K3)", inputs),
             ("learner + frozen passes, v-trace, loss", loss),
             ("backward", backward), ("clip + Adam + EMA", update)], box
 

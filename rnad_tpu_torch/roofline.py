@@ -3,9 +3,10 @@ phase: the counterpart of ``tools/roofline.py``.
 
 Each phase of ``profile_step.py``'s table (rollout, or for the buffered
 step the rollout every ``buffer_mod``-th step and the sample + collate;
-regather; learner + frozen passes, v-trace and loss; backward; clip + Adam
-+ EMA) gets a ``Work``: its matmul products by operand type and the bytes
-it must move through HBM.  ``annotate`` sets a measured time against the
+the regather where the rollout stores no observations; learner + frozen
+passes, v-trace and loss; backward; clip + Adam + EMA) gets a ``Work``:
+its matmul products by operand type and the bytes it must move through
+HBM.  ``annotate`` sets a measured time against the
 larger of the two floors, ``Work.ops_s`` (products over the card's peak
 rate for their type) and ``Work.bytes_s`` (bytes over the HBM rate).  The
 counts come from the function's shapes, not from what an implementation
@@ -21,10 +22,12 @@ on-policy step and the buffered step.  Its conventions carry over:
 - the frozen passes run in "heads" mode: the target's value tower and the
   regularization pair's policy towers (:160-164), plus the target's policy
   tower that the learner's detailed metrics read (``detailed_metrics``);
-- the learner reads the regathered observations and masks once
-  (:155-157); each net pass writes and reads its inputs and outputs once,
-  ``2 din + A + 1`` elements a sample (:130, :166); v-trace makes 24
-  passes over (T, B, A) float32 (:167).
+- the learner reads the observations and masks once (:155-157); with
+  ``store_rollout_obs`` (the default) the rollout writes each lane's two
+  observations as K1's output and the step has no regather, whose bytes
+  the TPU tool charges to the learner; each net pass writes and reads
+  its inputs and outputs once, ``2 din + A + 1`` elements a sample
+  (:130, :166); v-trace makes 24 passes over (T, B, A) float32 (:167).
 
 It departs from them in three places:
 
@@ -230,7 +233,9 @@ class MLPStep:
     max depth; 2 * levels half-steps), B lanes, the net's width and depth,
     the learner's, the frozen passes' and the actor's operand types, and
     for the buffered step (``buffered``) one rollout every
-    ``buffer_mod``-th step."""
+    ``buffer_mod``-th step.  ``store_obs``: the rollout stores the
+    observations and the learner reads them, with no regather
+    (``RNaDConfig.store_rollout_obs``, which ``of`` reads)."""
 
     A: int
     T: int
@@ -244,6 +249,7 @@ class MLPStep:
     detailed_metrics: bool = True
     buffered: bool = False
     buffer_mod: int = 1
+    store_obs: bool = False
 
     @staticmethod
     def of(cfg, net_config, A: int, T: int, levels: int) -> "MLPStep":
@@ -265,7 +271,7 @@ class MLPStep:
             actor_dtype="bfloat16" if bf16_actor else dtype,
             detailed_metrics=cfg.detailed_metrics,
             buffered=cfg.n_batches_per_buffer > 1 or cfg.buffer_mod > 1,
-            buffer_mod=cfg.buffer_mod)
+            buffer_mod=cfg.buffer_mod, store_obs=cfg.store_rollout_obs)
 
     @property
     def din(self) -> int:
@@ -283,23 +289,25 @@ def _elt(dtype: str) -> int:
 
 def rollout_work(step: MLPStep, rows: float, cells: float) -> Work:
     """One rollout: both seats' forward of every lane's turn, and K1's
-    bytes (``fused_turn.io_bytes``) over all ``levels`` turns as one
-    function, with the hidden layers' weights of a deeper MLP once."""
+    bytes (``fused_turn.io_bytes``, with the stored observations under
+    ``store_obs``) over all ``levels`` turns as one function, with the
+    hidden layers' weights of a deeper MLP once."""
     s = step
     flops = matmul_flops(mlp_forward_matmuls(2 * s.B * s.levels, s.A,
                                              s.width, s.depth))
     w = _elt(s.actor_dtype)
     hidden = 2 * (s.depth - 1) * (w * s.width * s.width + 4 * s.width)
     nbytes = fused_turn.io_bytes(s.B * s.levels, s.A, s.T, 2 * s.width,
-                                 rows, cells, w) + hidden
+                                 rows, cells, w, s.store_obs) + hidden
     return Work({s.actor_dtype: flops}, float(nbytes))
 
 
 def collate_work(step: MLPStep) -> Work:
     """The buffered step's sample: every lane's trajectory fields (index,
-    action, reward, value and A policy floats a half-step) read once and
-    written once."""
-    return Work({}, 2.0 * step.samples * (step.A + 4) * 4)
+    action, reward, value and A policy floats a half-step, and the stored
+    observation's din under ``store_obs``) read once and written once."""
+    s = step
+    return Work({}, 2.0 * s.samples * (s.A + 4 + s.din * s.store_obs) * 4)
 
 
 def regather_work(step: MLPStep, rows: float) -> Work:
@@ -354,17 +362,18 @@ def step_phases(step: MLPStep, counts: Counts) -> List[Tuple[str, Work]]:
     """The step's work by phase, in ``profile_step.py``'s order.  The
     buffered step's rollout phase is one rollout over ``buffer_mod``
     steps, as ``profile_step.py`` averages it over steps with and without
-    one."""
+    one.  A step that stores the observations has no regather."""
     roll = rollout_work(step, counts.rollout_rows, counts.rollout_cells)
     first = ([("rollout", roll)] if not step.buffered else
              [("rollout (every buffer_mod-th step)",
                roll.scaled(1.0 / step.buffer_mod)),
               ("sample + collate", collate_work(step))])
-    return first + [("regather", regather_work(step, counts.learner_rows)),
-                    ("learner + frozen passes, v-trace, loss",
-                     learner_work(step)),
-                    ("backward", backward_work(step)),
-                    ("clip + Adam + EMA", update_work(step))]
+    regather = ([] if step.store_obs else
+                [("regather", regather_work(step, counts.learner_rows))])
+    return first + regather + [
+        ("learner + frozen passes, v-trace, loss", learner_work(step)),
+        ("backward", backward_work(step)),
+        ("clip + Adam + EMA", update_work(step))]
 
 
 def total(phases: List[Tuple[str, Work]]) -> Work:

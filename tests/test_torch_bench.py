@@ -354,7 +354,9 @@ def test_phase13_predicts_the_launches(two_iterations, monkeypatch,
         "k1": turns * sum(bench.WARM_ROLLOUTS + bench.rollout_iters(b)
                           for b in bench.ROLLOUT_BATCHES),
         "k1_bf16": 0,
-        "k2": (turns + 1) * (bench.WARM_STEPS + bench.TRAIN_STEPS)}
+        # K2 a generic turn; no regather: the rollout stores the
+        # observations (store_rollout_obs)
+        "k2": turns * (bench.WARM_STEPS + bench.TRAIN_STEPS)}
     for argv in chip_smoke.SUITE_RUNS:
         argv = [a if a != "32768" else "64" for a in argv]
         calls.update(k1=0, k1_bf16=0, k2=0)

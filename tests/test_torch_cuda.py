@@ -339,7 +339,8 @@ def test_train_step_card_vs_cpu(dev):
         metrics = rnad.learn_step(state, packed, traj, 0.5, cfg)
         launched = (fused_turn_lib.fused_turn.launches - k1,
                     lookup_lib.lookup.launches - k2)
-        assert launched == ((tree.max_depth, 1) if device == dev else (0, 0))
+        # the learner reads the observations K1 stored: no regather
+        assert launched == ((tree.max_depth, 0) if device == dev else (0, 0))
         out[str(device)] = (traj, metrics, [p.detach().cpu()
                                             for p in state.net.parameters()])
     (tc, mc, pc), (tg, mg, pg) = out["cpu"], out[str(dev)]
@@ -382,7 +383,8 @@ def test_equinet_train_step_card_vs_cpu(dev):
                     lookup_lib.lookup.launches - before[1],
                     rmplus_lib.rmplus.launches - before[2])
         md = tree.max_depth
-        assert launched == ((0, md + 1, md + 1) if device == dev
+        # K2 a turn; the learner solves the stored observations (K3)
+        assert launched == ((0, md, md + 1) if device == dev
                             else (0, 0, 0))
         assert torch.isfinite(metrics["loss"]).all()
         out[str(device)] = (traj, [p.detach().cpu()
@@ -411,7 +413,7 @@ def test_equinet_rnad_runs_on_the_card(dev, tmp_path):
     assert (fused_turn_lib.fused_turn.launches - k[0],
             lookup_lib.lookup.launches - k[1],
             rmplus_lib.rmplus.launches - k[2]) == (
-                0, 6 * (md + 1), 6 * (md + 1) + 2 * chunks)
+                0, 6 * md, 6 * (md + 1) + 2 * chunks)
     assert all(torch.isfinite(torch.tensor(v))
                for _, m in run.history for v in m.values())
     assert 0.0 <= value < 10.0
@@ -428,7 +430,7 @@ def test_rnad_runs_on_the_card(dev, tmp_path):
     run.run(log_mod=1)
     value = run.final_eval()
     assert fused_turn_lib.fused_turn.launches - k1 == 6 * tree.max_depth
-    assert lookup_lib.lookup.launches - k2 == 6
+    assert lookup_lib.lookup.launches - k2 == 0  # the stored observations
     assert all(torch.isfinite(torch.tensor(v))
                for _, m in run.history for v in m.values())
     assert 0.0 <= value < 10.0
@@ -542,7 +544,8 @@ def test_buffered_learner_step_card_vs_cpu(dev):
                                   0.5, cfg)
         launched = (fused_turn_lib.fused_turn.launches - k1,
                     lookup_lib.lookup.launches - k2)
-        assert launched == ((3 * md, 1) if device == dev else (0, 0))
+        # the slots hold the stored observations: no regather
+        assert launched == ((3 * md, 0) if device == dev else (0, 0))
         out[str(device)] = (slots, metrics, [p.detach().cpu()
                                              for p in state.net.parameters()])
     (sc, mc, pc), (sg, mg, pg) = out["cpu"], out[str(dev)]
@@ -729,6 +732,55 @@ def test_bf16_fused_turn_kernel_vs_plain(dev, A, T, width, B):
     _, ml32, _, _ = fused_turn_lib.turn_logits_plain(*f32[:6], A=A)
     assert float((ml16 - ml32).abs()[mask > 0].max()) > 1e-5
     assert torch.isfinite(got[1]).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("A,T,width,B", [
+    (3, 2, 256, 32768), (5, 2, 256, 32768), (3, 2, 256, TILE + 1),
+    (8, 8, 16, 2 * TILE + 1), (4, 3, 64, 1)])
+def test_fused_turn_stored_obs_vs_plain(dev, A, T, width, B, dtype):
+    """K1's stored observations are bitwise the plain version's (the
+    lanes' packed rows), and the launch with them gives the other outputs
+    of the launch without them, bitwise."""
+    tree = _tree(dev, A=A, T=T)
+    args = _turn_args(dev, tree, width, B, seed=A * 100 + width + 2)
+    args[1], args[3] = args[1].to(dtype), args[3].to(dtype)
+    before = (fused_turn_lib.fused_turn.launches
+              + fused_turn_lib.fused_turn.launches_bf16)
+    got = fused_turn_lib.fused_turn(*args, A=A, T=T, store_obs=True)
+    base = fused_turn_lib.fused_turn(*args, A=A, T=T)
+    torch.cuda.synchronize()
+    assert (fused_turn_lib.fused_turn.launches
+            + fused_turn_lib.fused_turn.launches_bf16) == before + 2
+    want = fused_turn_lib.fused_turn_plain(*args, A=A, T=T, store_obs=True)
+    assert got[5].shape == (2, B, 2, A, A)
+    assert torch.equal(got[5], want[5])
+    for a, b in zip(got[:5], base):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunks", [2, 4])
+def test_k1_rollout_chunks_are_the_whole_rollout(dev, chunks):
+    """On the same full-batch noise a chunked K1 rollout is bitwise the
+    whole one, observations and the batch-minor record included."""
+    tree = _tree(dev, depth=4)
+    packed = stepping.make_packed_tables(tree)
+    net = nets.MLP(3, 256, generator=torch.Generator().manual_seed(7)).to(
+        dev)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    B = 4096
+    noise = [engine.turn_noise(B, 3, 2, gen, dev)
+             for _ in range(tree.max_depth)]
+    init = torch.ones((B,), dtype=torch.int32, device=dev)
+    roll = lambda **kw: engine.rollout_from(tree, packed, net, init,
+                                            noise=noise, rows_actor="on",
+                                            store_obs=True, **kw)
+    whole, part = roll(), roll(lane_chunks=chunks, policy_minor=True)
+    for f in ("indices", "actions", "rewards", "values", "obs"):
+        assert torch.equal(getattr(part, f), getattr(whole, f)), f
+    assert torch.equal(part.policy_bma(), whole.policy)
 
 
 @pytest.mark.cuda

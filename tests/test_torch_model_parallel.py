@@ -243,7 +243,7 @@ def _one_by_one(tree, cases):
 def _jax_trajectory(traj):
     """The port's trajectory as rnad_tpu's (the same fields and layout)."""
     return jax_engine.Trajectory(**{
-        f: None if v is None else jnp.asarray(v.numpy())
+        f: v if v is None or isinstance(v, str) else jnp.asarray(v.numpy())
         for f, v in vars(traj).items()})
 
 

@@ -177,7 +177,7 @@ def _buffered_case(small_tree, tree_dir):
             "cfg": tcfg.to_json(),
             "net": torch_config.NetConfig(**kw).to_json(),
             "state_dict": tnet.state_dict(), "alpha": ALPHA, "rng_seed": 7,
-            "slots": [{k: v for k, v in vars(s).items() if v is not None}
+            "slots": [{k: v for k, v in vars(s).items() if torch.is_tensor(v)}
                       for s in tslots]}
     return found, case
 
@@ -282,7 +282,7 @@ def test_sample_exchange_equals_one_rank(clusters, world, name):
         draws = res[f"sample_{name}"]["draws"]
         assert len(draws) == len(want)
         for d, (got, full) in enumerate(zip(draws, want)):
-            fields = {k for k, v in vars(full).items() if v is not None}
+            fields = {k for k, v in vars(full).items() if torch.is_tensor(v)}
             assert set(got) == fields, (r, d)
             for k in fields:
                 part = getattr(full, k)[:, r * per:(r + 1) * per]

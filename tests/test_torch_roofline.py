@@ -109,6 +109,16 @@ def test_bytes_are_hand_counts():
     assert roofline.regather_work(step, 2).bytes == 4 * (3 + 40 + 60)
     # the sample: 6 half-steps x (2 + 4) floats read and written
     assert roofline.collate_work(step).bytes == 2 * 6 * 6 * 4
+    # stored observations: K1 writes 3 lanes x 2 seats x 8 floats more, the
+    # sample carries 8 more floats a half-step, and there is no regather
+    stored = _step(2, 1, 3, 4, detailed_metrics=False, store_obs=True)
+    assert roofline.rollout_work(stored, 2, 3).bytes == 808 + 4 * 48
+    assert fused_turn.io_bytes(3, 2, 2, 8, 2, 3, store_obs=True) == 1000
+    assert roofline.collate_work(stored).bytes == 2 * 6 * 14 * 4
+    counts = roofline.Counts(2, 3, 2)
+    assert [n for n, _ in roofline.step_phases(step, counts)] == [
+        "rollout", "regather", *[n for n, _ in roofline.step_phases(
+            stored, counts)][1:]]
     # obs and masks 6 x 10, four passes of 6 x 19, v-trace 24 x 6 x 2
     assert roofline.learner_work(step).bytes == 4 * (60 + 4 * 114 + 288)
     detailed = _step(2, 1, 3, 4)
@@ -204,12 +214,15 @@ def _run(tmp_path, cfg, net_cfg):
     return run
 
 
+@pytest.mark.parametrize("store_obs", [True, False])
 @pytest.mark.parametrize("buffered", [False, True])
-def test_profile_step_roofline_rows(tmp_path, buffered):
+def test_profile_step_roofline_rows(tmp_path, buffered, store_obs):
     """``profile_step.py``'s phases on the CPU: the counts of the step's
-    trajectories, and each phase beside the roofline phase of its place."""
+    trajectories, and each phase beside the roofline phase of its place
+    (a regather phase only where the rollout stores no observations)."""
     cfg = RNaDConfig(batch_size=64, n_batches_per_buffer=2 if buffered
-                     else 1, buffer_mod=2 if buffered else 1)
+                     else 1, buffer_mod=2 if buffered else 1,
+                     store_rollout_obs=store_obs)
     run = _run(tmp_path, cfg, NetConfig(max_actions=3, width=16))
     buffer = buffer_lib.TrajectoryBuffer(2) if buffered else None
     phases, box = profile_step._phases(run, 1.0, buffer)
@@ -220,6 +233,7 @@ def test_profile_step_roofline_rows(tmp_path, buffered):
     measured = {name: 1e3 for name, _ in phases}  # far above any bound
     rows, work = profile_step.roofline_rows(run, measured, counts)
     assert list(rows) == [name for name, _ in phases]
+    assert any(n.startswith("regather") for n in rows) == (not store_obs)
     assert all(0 < r["pct_of_roof"] <= 100 for r in rows.values())
     step = roofline.MLPStep.of(cfg, run.net_config, 3, T,
                                run.tree.max_depth)
@@ -246,6 +260,8 @@ def test_cli_prints_the_counts(net, capsys):
     roofline.main(["--net", net, "--batch-size", "64"])
     out = capsys.readouterr().out
     assert "not a measurement" in out
-    # a line a phase and one for the step
-    assert out.count(": bound ") == (7 if net == "offpol" else 6)
+    # a line a phase and one for the step; the configs store the rollout's
+    # observations (store_rollout_obs), so no regather phase
+    assert out.count(": bound ") == (6 if net == "offpol" else 5)
+    assert "regather" not in out
     assert "B=64" in out

@@ -59,8 +59,9 @@ def _local_buffer(case, group):
     buf = buffer_lib.TrajectoryBuffer(len(case["slots"]))
     for slot in case["slots"]:
         lanes = group.lanes(slot["indices"].shape[1])
-        buf.append(engine.Trajectory(**{k: v[:, lanes].contiguous()
-                                        for k, v in slot.items()}))
+        buf.append(engine.Trajectory(**{
+            k: v[:, lanes].contiguous() if torch.is_tensor(v) else v
+            for k, v in slot.items()}))
     return buf, np.random.default_rng(case["rng_seed"])
 
 
@@ -69,7 +70,8 @@ def _sample(case, group):
     draws = []
     for _ in range(case["draws"]):
         traj = buf.sample(case["batch_size"], rng, group)
-        draws.append({k: v for k, v in vars(traj).items() if v is not None})
+        draws.append({k: v for k, v in vars(traj).items()
+                      if torch.is_tensor(v)})
     return {"draws": draws}
 
 
