@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from ..env.engine import Trajectory
+from ..utils import timing
 
 
 # the fields with lanes along axis 1 ("bma" trajectories)
@@ -100,12 +101,13 @@ class TrajectoryBuffer:
         12 (14.2 MB without the observations); a lift's stored ``obs``
         takes (C + 1) * A * A * 4 bytes a half-step.  Over one rank the
         exchange is the identity: ``collate_slots``'s batch."""
-        if group is None:
-            slots, lanes = self.plan(batch_size, rng)
-            if lanes is None:
-                return slots[0]
-            return collate_slots(slots, lanes)
-        return self._exchange(batch_size, rng, group)
+        with timing.span("rnad.buffer.sample"):
+            if group is None:
+                slots, lanes = self.plan(batch_size, rng)
+                if lanes is None:
+                    return slots[0]
+                return collate_slots(slots, lanes)
+            return self._exchange(batch_size, rng, group)
 
     def plan(self, batch_size: int,
              rng: Optional[np.random.Generator] = None):

@@ -50,6 +50,12 @@ step on lanes sampled across the buffered batches.
 
 The step updates the ``TrainState`` in place (parameters, Adam moments and
 the EMA target) instead of building new tensors.
+
+While a ``torch.profiler`` session records, the step's layers are spans on
+its timeline (``utils/timing.py::span``): ``rnad.train_step`` holds
+``rnad.rollout`` and ``rnad.learn``, and the learner, in order,
+``rnad.learn.forward``, ``.frozen`` (not under "all"), ``.vtrace``,
+``.backward``, ``.allreduce`` (under a group) and ``.update``.
 """
 
 from __future__ import annotations
@@ -75,6 +81,7 @@ from ..ops import obs_transform as obs_transform_lib
 from ..ops import stepping
 from ..parallel import tensor_parallel
 from ..parallel.mesh import DataGroup, Grid
+from ..utils import timing
 from ..utils.checkpoint import RunStore
 from ..utils.logging import MetricLogger
 from . import buffer as buffer_lib
@@ -429,13 +436,76 @@ def learn_loss(state: TrainState, packed: stepping.PackedTables,
     ConvNet's BatchNorm normalizes over the global batch where
     ``batch_norm`` is "global" and over this rank's lanes where it is
     "per_rank" (``learn_step``)."""
-    gsum = group.global_sum if group is not None else None
     fuse = resolve_fuse_mode(state.net, cfg)
-    if inputs is None:
-        inputs = learner_inputs(state, packed, traj)
-    valid = traj.valid()
+    T, B = traj.rewards.shape
+    frozen = None
+    with timing.span("rnad.learn.forward"):
+        if inputs is None:
+            inputs = learner_inputs(state, packed, traj)
+        valid = traj.valid()
+        obs_flat, masks = inputs.obs_flat, inputs.masks
+        if fuse == "all":  # the learner and the frozen nets in one pair
+            logits4, values4 = nets.mlp_multi_net_forward(
+                [state.net, state.net_target, state.net_reg, state.net_reg_],
+                obs_flat, state.net.dtype)
+            logits, v_raw = logits4[:, 0], values4[:, 0]
+            frozen = (logits4[:, 1].detach(), values4[:, 1].detach(),
+                      logits4[:, 2].detach(), logits4[:, 3].detach())
+        else:
+            logits, v_raw = nets.forward_train(
+                state.net, obs_flat, valid.reshape(T * B),
+                inputs.solver_feats,
+                group if batch_norm == "global" else None)
+    if frozen is None:
+        with torch.no_grad(), timing.span("rnad.learn.frozen"):
+            frozen = _frozen_passes(state, cfg, fuse, obs_flat,
+                                    inputs.solver_feats)
+    with timing.span("rnad.learn.vtrace"):
+        return _losses(traj, alpha, cfg, neurd_scale, group, valid, masks,
+                       logits, v_raw, frozen)
+
+
+def _frozen_passes(state: TrainState, cfg: RNaDConfig, fuse: str,
+                   obs_flat: torch.Tensor, solver_feats) -> Tuple:
+    """The frozen nets' passes the loss reads under ``fuse`` "frozen",
+    "heads" or "off": (the target's logits, its values, the reg net's
+    logits, the previous reg net's logits); the target's logits are None
+    under "heads" without ``detailed_metrics``."""
+    dtype = frozen_dtype(state.net, cfg)
+    if fuse == "frozen":  # the three frozen nets in one pair
+        logits3, values3 = nets.mlp_multi_net_forward(
+            [state.net_target, state.net_reg, state.net_reg_], obs_flat,
+            dtype)
+        return (logits3[:, 0], values3[:, 0], logits3[:, 1], logits3[:, 2])
+    if fuse == "heads":
+        # the target contributes its value, the reg pair their policies;
+        # the target's policy feeds one diagnostic only
+        head = lambda net, h: net.head(obs_flat, h, dtype)
+        values_target = head(state.net_target, "value")
+        logits_reg = head(state.net_reg, "policy")
+        logits_reg_prev = head(state.net_reg_, "policy")
+        logits_t = (head(state.net_target, "policy")
+                    if cfg.detailed_metrics else None)
+        return logits_t, values_target, logits_reg, logits_reg_prev
+    # "off": every frozen net's whole forward
+    logits_t, values_target = state.net_target(obs_flat, solver_feats,
+                                               dtype=dtype)
+    logits_reg, _ = state.net_reg(obs_flat, solver_feats, dtype=dtype)
+    logits_reg_prev, _ = state.net_reg_(obs_flat, solver_feats, dtype=dtype)
+    return logits_t, values_target, logits_reg, logits_reg_prev
+
+
+def _losses(traj: engine.Trajectory, alpha: float, cfg: RNaDConfig,
+            neurd_scale: float, group: Optional[DataGroup],
+            valid: torch.Tensor, masks: torch.Tensor, logits: torch.Tensor,
+            v_raw: torch.Tensor, frozen: Tuple
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """``learn_loss`` from the net passes on: the learner's and the frozen
+    nets' policies, the two-player v-trace, both losses and the
+    diagnostics."""
+    gsum = group.global_sum if group is not None else None
+    logits_t, values_target, logits_reg, logits_reg_prev = frozen
     player_id = traj.turns
-    obs_flat, masks = inputs.obs_flat, inputs.masks
     T, B = traj.rewards.shape
     A = traj.num_actions
     # alpha and 1 - alpha rounded as float32, as rnad_tpu computes them
@@ -448,18 +518,6 @@ def learn_loss(state: TrainState, packed: stepping.PackedTables,
            else (lambda x: x))
     col = (lambda x: x) if minor else (lambda x: x[..., None])
 
-    frozen = None
-    if fuse == "all":  # the learner and the frozen nets in one pair
-        logits4, values4 = nets.mlp_multi_net_forward(
-            [state.net, state.net_target, state.net_reg, state.net_reg_],
-            obs_flat, state.net.dtype)
-        logits, v_raw = logits4[:, 0], values4[:, 0]
-        frozen = (logits4[:, 1].detach(), values4[:, 1].detach(),
-                  logits4[:, 2].detach(), logits4[:, 3].detach())
-    else:
-        logits, v_raw = nets.forward_train(
-            state.net, obs_flat, valid.reshape(T * B), inputs.solver_feats,
-            group if batch_norm == "global" else None)
     logits = logits.reshape(T, B, A)
     logits_l, masks_l = lay(logits), lay(masks)
     v = col(v_raw.reshape(T, B))
@@ -467,30 +525,6 @@ def learn_loss(state: TrainState, packed: stepping.PackedTables,
     log_pi = L.log_policy(logits_l, masks_l)
 
     with torch.no_grad():
-        dtype = frozen_dtype(state.net, cfg)
-        if fuse == "frozen":  # the three frozen nets in one pair
-            logits3, values3 = nets.mlp_multi_net_forward(
-                [state.net_target, state.net_reg, state.net_reg_], obs_flat,
-                dtype)
-            frozen = (logits3[:, 0], values3[:, 0], logits3[:, 1],
-                      logits3[:, 2])
-        if frozen is not None:
-            logits_t, values_target, logits_reg, logits_reg_prev = frozen
-        elif fuse == "heads":
-            # the target contributes its value, the reg pair their
-            # policies; the target's policy feeds one diagnostic only
-            head = lambda net, h: net.head(obs_flat, h, dtype)
-            values_target = head(state.net_target, "value")
-            logits_reg = head(state.net_reg, "policy")
-            logits_reg_prev = head(state.net_reg_, "policy")
-            logits_t = (head(state.net_target, "policy")
-                        if cfg.detailed_metrics else None)
-        else:  # "off": every frozen net's whole forward
-            feats = inputs.solver_feats
-            logits_t, values_target = state.net_target(obs_flat, feats,
-                                                       dtype=dtype)
-            logits_reg, _ = state.net_reg(obs_flat, feats, dtype=dtype)
-            logits_reg_prev, _ = state.net_reg_(obs_flat, feats, dtype=dtype)
         tba = lambda x: lay(x.reshape(T, B, A))
         v_target_net = col(values_target.reshape(T, B))
         log_pi_reg = L.log_policy(tba(logits_reg), masks_l)
@@ -617,18 +651,16 @@ def rollout(state: TrainState, tree: GameTree, packed: stepping.PackedTables,
     the observations where ``store_rollout_obs`` says (the lifted ones
     under ``obs_transform`` always) and recording the behavior policy as
     ``policy_minor_record`` says."""
-    init = torch.ones((cfg.batch_size,), dtype=torch.int32,
-                      device=packed.rows.device)
-    return engine.rollout_from(tree, packed, state.net, init, tree.max_depth,
-                               noise=noise, generator=state.generator,
-                               rows_actor=cfg.rollout_rows_actor,
-                               obs_transform=obs_transform,
-                               store_obs=cfg.store_rollout_obs,
-                               policy_minor=policy_minor_record(
-                                   cfg, tree.max_actions),
-                               obs_dtype=obs_storage_dtype(state.net, cfg),
-                               actor_dtype=nets.DTYPES[
-                                   cfg.rollout_actor_dtype])
+    with timing.span("rnad.rollout"):
+        init = torch.ones((cfg.batch_size,), dtype=torch.int32,
+                          device=packed.rows.device)
+        return engine.rollout_from(
+            tree, packed, state.net, init, tree.max_depth, noise=noise,
+            generator=state.generator, rows_actor=cfg.rollout_rows_actor,
+            obs_transform=obs_transform, store_obs=cfg.store_rollout_obs,
+            policy_minor=policy_minor_record(cfg, tree.max_actions),
+            obs_dtype=obs_storage_dtype(state.net, cfg),
+            actor_dtype=nets.DTYPES[cfg.rollout_actor_dtype])
 
 
 def learn_step(state: TrainState, packed: stepping.PackedTables,
@@ -674,20 +706,24 @@ def learn_step(state: TrainState, packed: stepping.PackedTables,
     if batch_norm not in ("global", "per_rank"):
         raise ValueError(f"unknown batch_norm {batch_norm!r}; expected "
                          "'global' or 'per_rank'")
-    params = list(state.net.parameters())
-    loss, metrics = learn_loss(state, packed, traj, alpha, cfg,
-                               neurd_scale_for(cfg, state.total_steps),
-                               group=group, batch_norm=batch_norm)
-    grads = torch.autograd.grad(loss, params)
-    if group is not None:
-        grads = group.sum_tensors(grads)
-        if batch_norm == "per_rank":
-            group.average_([b for b in state.net.buffers()
-                            if b.is_floating_point()])
-    metrics["gradient_norm"] = g_norm = global_norm(grads, state.net)
-    apply_update(cfg, state, grads, g_norm)
-    state.total_steps += 1
-    return metrics
+    with timing.span("rnad.learn"):
+        params = list(state.net.parameters())
+        loss, metrics = learn_loss(state, packed, traj, alpha, cfg,
+                                   neurd_scale_for(cfg, state.total_steps),
+                                   group=group, batch_norm=batch_norm)
+        with timing.span("rnad.learn.backward"):
+            grads = torch.autograd.grad(loss, params)
+        if group is not None:
+            with timing.span("rnad.learn.allreduce"):
+                grads = group.sum_tensors(grads)
+                if batch_norm == "per_rank":
+                    group.average_([b for b in state.net.buffers()
+                                    if b.is_floating_point()])
+        with timing.span("rnad.learn.update"):
+            metrics["gradient_norm"] = g_norm = global_norm(grads, state.net)
+            apply_update(cfg, state, grads, g_norm)
+        state.total_steps += 1
+        return metrics
 
 
 def make_train_step(tree: GameTree, packed: stepping.PackedTables,
@@ -703,8 +739,9 @@ def make_train_step(tree: GameTree, packed: stepping.PackedTables,
 
     def train_step(state: TrainState, alpha: float, noise=None,
                    with_trajectory: bool = False):
-        traj = rollout(state, tree, packed, cfg, noise, obs_transform)
-        metrics = learn_step(state, packed, traj, alpha, cfg)
+        with timing.span("rnad.train_step"):
+            traj = rollout(state, tree, packed, cfg, noise, obs_transform)
+            metrics = learn_step(state, packed, traj, alpha, cfg)
         return (state, metrics, traj) if with_trajectory else (state, metrics)
 
     return train_step
@@ -970,9 +1007,10 @@ class RNaD:
                 resume=resumed)
 
     def save_checkpoint(self) -> None:
-        state = self._whole(self.state)
-        if self._writes:
-            self.store.save_checkpoint(self.m, self.n, state)
+        with timing.span("rnad.checkpoint"):
+            state = self._whole(self.state)
+            if self._writes:
+                self.store.save_checkpoint(self.m, self.n, state)
 
     def _log(self, metrics: Dict[str, float], step: int) -> None:
         self.history.append((step, metrics))
@@ -994,17 +1032,19 @@ class RNaD:
         nodes, capped by the net's activation footprint
         (``nets.inference_chunk_nodes``), inference runs in chunks.  Under a
         grid it evaluates the target's whole weights."""
-        net = self.state.net_target
-        if self.model is not None:
-            net = tensor_parallel.gather_module(net)
-        chunk = min(self.cfg.nashconv_chunk_nodes,
-                    nets.inference_chunk_nodes(net, self.tree.max_actions))
-        result = nashconv(self.tree, net, chunk, self.obs_transform,
-                          self.group)
-        for depth, val in nashconv_lib.mean_nashconv_by_depth(
-                self.tree, result).items():
-            logging.info("depth:%d nashconv:%f", depth, val)
-        return float(result.nashconv())
+        with timing.span("rnad.eval"):
+            net = self.state.net_target
+            if self.model is not None:
+                net = tensor_parallel.gather_module(net)
+            chunk = min(self.cfg.nashconv_chunk_nodes,
+                        nets.inference_chunk_nodes(net,
+                                                   self.tree.max_actions))
+            result = nashconv(self.tree, net, chunk, self.obs_transform,
+                              self.group)
+            for depth, val in nashconv_lib.mean_nashconv_by_depth(
+                    self.tree, result).items():
+                logging.info("depth:%d nashconv:%f", depth, val)
+            return float(result.nashconv())
 
     # -- main loop ---------------------------------------------------------
 

@@ -64,6 +64,7 @@ from ..env.tree import GameTree
 from ..learn import rnad as rnad_lib
 from ..ops import stepping
 from ..ops.obs_transform import ObsTransform
+from ..utils import timing
 from . import mesh as mesh_lib
 from . import tensor_parallel
 
@@ -237,8 +238,9 @@ def make_sharded_train_step(tree: GameTree, packed: stepping.PackedTables,
                                    model_parallel)
 
     def train_step(state: rnad_lib.TrainState, alpha: float, noise=None):
-        traj = rollout(state, noise)
-        return state, rnad_lib.learn_step(state, packed, traj, alpha, cfg,
-                                          data, batch_norm="global")
+        with timing.span("rnad.train_step"):
+            traj = rollout(state, noise)
+            return state, rnad_lib.learn_step(state, packed, traj, alpha,
+                                              cfg, data, batch_norm="global")
 
     return train_step

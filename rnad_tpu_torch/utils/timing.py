@@ -1,8 +1,11 @@
 """Profiling helpers (the counterpart of ``rnad_tpu/utils/timing.py``).
 
-- ``PhaseTimer``: named wall-clock phases that synchronise the phase's
-  device at the end of each phase, so the device work a phase queued is
-  attributed to it and not to the next one.
+- ``span``: a named range on the profiler's timeline while a
+  ``torch.profiler`` session records, and nothing otherwise.  The trainer
+  opens one at each of its layers' boundaries (``rnad.train_step``,
+  ``rnad.rollout``, ``rnad.learn`` and its passes, ``rnad.buffer.sample``,
+  ``rnad.eval``, ``rnad.checkpoint``), so a trace ties each kernel and
+  each idle gap of the card to the layer that launched it.
 - ``trace``: a ``torch.profiler`` trace of the CPU and, where there is a
   card, of its kernels; written as a Chrome trace under ``log_dir`` where
   one is given.
@@ -12,54 +15,21 @@ from __future__ import annotations
 
 import contextlib
 import os
-import time
-from collections import defaultdict
-from typing import Dict, Optional, Union
+from typing import Optional
 
 import torch
+import torch.autograd.profiler
 
-_Sync = Union[None, torch.Tensor, torch.device, str]
-
-
-def _synchronize(sync: _Sync) -> None:
-    """Waits for the CUDA device of ``sync`` (a tensor or a device); a CPU
-    one, or None, needs no wait."""
-    if sync is None:
-        return
-    device = sync.device if isinstance(sync, torch.Tensor) else \
-        torch.device(sync)
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+_OFF = contextlib.nullcontext()
 
 
-class PhaseTimer:
-    def __init__(self):
-        self.totals: Dict[str, float] = defaultdict(float)
-        self.counts: Dict[str, int] = defaultdict(int)
-
-    @contextlib.contextmanager
-    def phase(self, name: str, sync: _Sync = None):
-        """Times the block as ``name``; at its end, waits for the device
-        of ``sync`` (a tensor or a device) before reading the clock."""
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            _synchronize(sync)
-            self.totals[name] += time.perf_counter() - t0
-            self.counts[name] += 1
-
-    def timed(self, name: str, value: torch.Tensor) -> torch.Tensor:
-        """Waits for ``value``'s device and attributes the wait to
-        ``name``."""
-        with self.phase(name, sync=value):
-            pass
-        return value
-
-    def summary(self) -> Dict[str, Dict[str, float]]:
-        return {k: {"total_s": self.totals[k], "count": self.counts[k],
-                    "mean_s": self.totals[k] / max(self.counts[k], 1)}
-                for k in self.totals}
+def span(name: str):
+    """``torch.profiler.record_function(name)`` while a profiler records;
+    otherwise one shared null context, so that a span off costs a flag
+    read: no allocation, no profiler call, no launch and no sync."""
+    if torch.autograd.profiler._is_profiler_enabled:
+        return torch.profiler.record_function(name)
+    return _OFF
 
 
 @contextlib.contextmanager
