@@ -5,7 +5,7 @@
 Fifteen phases, and any failure exits nonzero (phase 15 runs before phase
 14, whose profiler window slows the process's later launches):
 
-1. Build the three CUDA kernels from ``rnad_tpu_torch/csrc`` (one nvcc
+1. Build the four CUDA kernels from ``rnad_tpu_torch/csrc`` (one nvcc
    each, started together) and print the build time and ptxas's registers
    and spills.  Generate the EquiNet path's A = 5 tree (numpy, seed 0).
 2. Hold each kernel against its plain PyTorch version on the card at the
@@ -21,7 +21,11 @@ Fifteen phases, and any failure exits nonzero (phase 15 runs before phase
    the plain version's as a set: mean and worst exploitability).  Times
    each kernel (K3 at both the learner's 327680 games and one rollout
    turn's 65536), its plain version and, for K2, ``torch.index_select``,
-   and prints each kernel's share of its bound.
+   and prints each kernel's share of its bound.  K4 (the EquiNet's frozen
+   passes) against the nets' own forwards at the flagship learner's shape
+   (three bf16 EquiNets, A = 5, 64 channels, depth 2, primed, over 393,216
+   observations; ``equinet_probe.probe``): every output bitwise, two
+   launches equal; both timed against K4's bound.
 3. Drive the MLP path: the demo tree (eta_sweep's config, seed 0) and 30
    fused R-NaD train steps at 32768 lanes with a width-256 MLP through
    ``RNaD.run`` and ``final_eval``, with the kernels' launch counters set to
@@ -36,7 +40,8 @@ Fifteen phases, and any failure exits nonzero (phase 15 runs before phase
    tree (65440 nodes), counters zeroed just before and read just after:
    per step max_depth + 1 launches of K3, max_depth of K2 (one a turn; the
    learner reads the stored observations) and none of K1, and
-   one K3 launch per chunk of each chunked NashConv eval.  The same checks
+   one K3 launch per chunk of each chunked NashConv eval, and no K4
+   launch (the float32 EquiNet's frozen passes stay eager).  The same checks
    and throughput as phase 3, the peak device memory, and one step at 256
    lanes on the card against the CPU.
 5. Drive the flagship path through the train CLI, ``rnad_tpu_torch.train.
@@ -44,8 +49,9 @@ Fifteen phases, and any failure exits nonzero (phase 15 runs before phase
    json``), the bfloat16 solver-primed EquiNet (64 channels, depth 2, 128
    RM+ iterations) at 32768 lanes on the native generator's 785,768-node A =
    5 depth-6 tree, cut to 20 steps and 2 evals (the cuts are printed).
-   Checks the tree's size, depth and hash; per step 6 launches of K2 and 7
-   of K3 and none of K1, and one K3 launch per eval chunk; the step-0
+   Checks the tree's size, depth and hash; per step 6 launches of K2, 7
+   of K3, one of K4 (the three frozen nets) and none of K1, and one K3
+   launch per eval chunk; the step-0
    NashConv of checkpoint (0, 0) within 3.1e-4 of ``rnad_tpu``'s 0.0154796;
    finite metrics, ``best.ckpt`` and ``metrics.jsonl`` written,
    ``best.json`` holding the lowest eval; a second ``main`` with the same
@@ -153,7 +159,7 @@ Fifteen phases, and any failure exits nonzero (phase 15 runs before phase
    period of 5 steps with ``--data-parallel`` (one NCCL rank: K3 and the
    bf16 EquiNet under the group, the eval through ``nashconv_sharded``)
    against the plain run: launches equal (7 of K2 and of K3 a step, K3's
-   eval chunks), weights bitwise, NashConv within 1e-6.
+   eval chunks, one of K4 a step), weights bitwise, NashConv within 1e-6.
 11. Drive the model axis (``parallel/tensor_parallel.py`` on
    ``runtime.grid``): (a) phase 3's config through ``RNaD`` on a 1 x 1
    grid (one NCCL rank: the nets tensor-parallel over a model axis of one,
@@ -267,6 +273,8 @@ N_REGATHER = 131072
 STEPS = 30
 EQUI_STEPS = 20
 RM_ITERS = 128
+# the flagship learner's observations: 32768 lanes x 12 half-steps
+EQUI_FROZEN_N = 393216
 # flagship-3 (docs/runs/r4-flagship3.params.json): its tree, net and R-NaD
 # flags, then the cuts, each (flag, value, flagship-3's value)
 FLAGSHIP_TREE = ["--native-gen", "--max-actions", "5", "--max-transitions",
@@ -469,7 +477,7 @@ def main() -> int:
 
     # -- phase 1: build, and the EquiNet path's tree ---------------------
     t0 = time.perf_counter()
-    seconds = _build.build(["lookup", "fused_turn", "rmplus"])
+    seconds = _build.build(["lookup", "fused_turn", "rmplus", "equinet"])
     log(f"build: {time.perf_counter() - t0:.1f} s "
         + ", ".join(f"{k} {v:.1f} s" for k, v in seconds.items()))
     for name in seconds:
@@ -548,6 +556,7 @@ def main() -> int:
     equi_run = rnad.RNaD(equi_tree, equi_cfg, equi_net_cfg,
                          directory_name="equinet", seed=0, device="cuda")
     k3 = check_rmplus_phase(equi_run, gen)
+    k4 = check_equinet_phase()
 
     # -- phase 3: the main path -------------------------------------------
     cfg = RNaDConfig(batch_size=B_MAIN, eta=0.2, bounds=(3,), delta_m=(10,),
@@ -691,6 +700,8 @@ def main() -> int:
                   **{p: mp[k]["k3"] for p, k in mp_paths.items()},
                   "curves": curves["k3"], "bench": 0, "bench_suite": 0,
                   "learner_probe": 0, "rollout_probe": 0}
+    k4_by_path = {"check": k4.pop("launches"), "equinet": equi["k4"],
+                  "flagship": flag["k4"], "dp_flagship": dp["g"]["k4"]}
     kernels = [
         {"name": "fused_turn", "route": "cuda",
          "source": "rnad_tpu_torch/csrc/fused_turn.cu",
@@ -721,6 +732,10 @@ def main() -> int:
          "bound_ms_rollout": k3["bound_ms_rollout"],
          "diverged_games": k3["diverged"], "games": k3["games"],
          "diverged_by_set": k3["diverged_by_set"]},
+        {"name": "equinet_frozen", "route": "cuda",
+         "source": "rnad_tpu_torch/csrc/equinet.cu",
+         "replaces": None, "launches": sum(k4_by_path.values()),
+         "launches_by_path": k4_by_path, **k4},
         {"name": "lookup (flagship shapes)", "route": "cuda",
          "source": "rnad_tpu_torch/csrc/lookup.cu",
          "replaces": "rnad_tpu/ops/pallas_lookup.py:45",
@@ -867,11 +882,46 @@ def check_rmplus_phase(run, gen):
     return out
 
 
+def check_equinet_phase():
+    """K4 against its plain version (the nets' own forwards) at the
+    flagship learner's shape: three frozen bf16 EquiNets (A = 5, 64
+    channels, depth 2, primed, 128 RM+ iterations) over 393,216 random
+    observations with illegal actions, through ``equinet_probe.probe``.
+    Every output bitwise equal and two launches equal; times both.
+    Returns the numbers of K4's entry in the kernels line."""
+    from rnad_tpu_torch import equinet_probe
+    from rnad_tpu_torch.ops import equinet as equinet_lib
+
+    equinet_lib.equinet_frozen.launches = 0
+    res = equinet_probe.probe(EQUI_FROZEN_N, iters=20)
+    log(f"K4 equinet_frozen ({EQUI_FROZEN_N} observations x 3 nets, A = 5, "
+        f"C = 64, depth 2, primed): "
+        + ", ".join(f"{k} differ {v['differ_share']:.3g} (max "
+                    f"{v['max_ulps']:g} bf16 ulps)"
+                    for k, v in res["outputs"].items())
+        + f"; deterministic {res['deterministic']}; kernel "
+        f"{res['k4_ms']:.4f} ms, plain {res['eager_ms']:.4f} ms, bound "
+        f"{res['bound_ms']:.4f} ms ({res['bound_by']}; "
+        f"{res['operations']:.4g} operations, {res['io_bytes']:.4g} B), "
+        f"{res['k4_share_pct']:.1f} % of it")
+    parted = {k: v for k, v in res["outputs"].items()
+              if v["differ_share"] or v["nonfinite"]}
+    if parted or not res["deterministic"]:
+        raise AssertionError(f"K4 is not the eager passes bit for bit at the"
+                             f" flagship's shape: {res}")
+    return {"max_abs_err": 0.0, "ms": res["k4_ms"],
+            "plain_ms": res["eager_ms"], "bound_ms": res["bound_ms"],
+            "bound_by": res["bound_by"], "library_ms": None,
+            "observations": EQUI_FROZEN_N, "nets": 3,
+            "launches": equinet_lib.equinet_frozen.launches}
+
+
 def equinet_phase(run, card):
     """The EquiNet main path (phase 4); returns its launch counts."""
     from rnad_tpu_torch.env import engine
     from rnad_tpu_torch.metrics import nashconv
     from rnad_tpu_torch.models import nets
+    from rnad_tpu_torch.ops import equinet as equinet_lib
     from rnad_tpu_torch.ops import fused_turn as fused_turn_lib
     from rnad_tpu_torch.ops import lookup as lookup_lib
     from rnad_tpu_torch.ops import rmplus as rmplus_lib
@@ -887,6 +937,7 @@ def equinet_phase(run, card):
     fused_turn_lib.fused_turn.launches = 0
     lookup_lib.lookup.launches = 0
     rmplus_lib.rmplus.launches = 0
+    equinet_lib.equinet_frozen.launches = 0
     t0 = time.perf_counter()
     run.run(log_mod=1)
     final = run.final_eval()
@@ -894,14 +945,16 @@ def equinet_phase(run, card):
     wall = time.perf_counter() - t0
     counts = {"k1": fused_turn_lib.fused_turn.launches,
               "k2": lookup_lib.lookup.launches,
-              "k3": rmplus_lib.rmplus.launches}
+              "k3": rmplus_lib.rmplus.launches,
+              "k4": equinet_lib.equinet_frozen.launches}
     peak = torch.cuda.max_memory_allocated() / 2**30
     steps = run.state.total_steps
     losses = [m for _, m in run.history if "loss" in m]
     evals = [m["nashconv"] for _, m in run.history if "nashconv" in m]
     log(f"EquiNet path: {steps} train steps + {len(evals)} NashConv evals "
         f"({chunks} chunks of {chunk} nodes each) in {wall:.2f} s; launches "
-        f"K1 {counts['k1']}, K2 {counts['k2']}, K3 {counts['k3']}; peak "
+        f"K1 {counts['k1']}, K2 {counts['k2']}, K3 {counts['k3']}, K4 "
+        f"{counts['k4']}; peak "
         f"device memory {peak:.3f} GiB")
     log(f"  loss first {losses[0]['loss']:.6f} last {losses[-1]['loss']:.6f};"
         f" NashConv " + ", ".join(f"{v:.6f}" for v in evals))
@@ -916,9 +969,9 @@ def equinet_phase(run, card):
         raise AssertionError(f"expected a boundary eval and a final one: "
                              f"{evals}")
     # K2 a turn; the learner solves the stored observations (K3) without
-    # a regather
+    # a regather; the float32 EquiNet's frozen passes stay eager (no K4)
     want = {"k1": 0, "k2": EQUI_STEPS * md,
-            "k3": EQUI_STEPS * (md + 1) + len(evals) * chunks}
+            "k3": EQUI_STEPS * (md + 1) + len(evals) * chunks, "k4": 0}
     if counts != want:
         raise AssertionError(f"EquiNet path launches {counts}, want {want}")
 
@@ -987,6 +1040,7 @@ def flagship_phase(card, gen):
     from rnad_tpu_torch.env import engine, solver_device
     from rnad_tpu_torch.learn import rnad
     from rnad_tpu_torch.models import nets
+    from rnad_tpu_torch.ops import equinet as equinet_lib
     from rnad_tpu_torch.ops import fused_turn as fused_turn_lib
     from rnad_tpu_torch.ops import lookup as lookup_lib
     from rnad_tpu_torch.ops import rmplus as rmplus_lib
@@ -1007,13 +1061,15 @@ def flagship_phase(card, gen):
     fused_turn_lib.fused_turn.launches = 0
     lookup_lib.lookup.launches = 0
     rmplus_lib.rmplus.launches = 0
+    equinet_lib.equinet_frozen.launches = 0
     t0 = time.perf_counter()
     run = train.main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = {"k1": fused_turn_lib.fused_turn.launches,
               "k2": lookup_lib.lookup.launches,
-              "k3": rmplus_lib.rmplus.launches}
+              "k3": rmplus_lib.rmplus.launches,
+              "k4": equinet_lib.equinet_frozen.launches}
     peak = torch.cuda.max_memory_allocated() / 2**30
     tree, cfg, store = run.tree, run.cfg, run.store
     gen_line = next(m for m in capture.lines if m.startswith("tree generated"))
@@ -1037,7 +1093,8 @@ def flagship_phase(card, gen):
     log(f"flagship path: {steps} train steps + {len(evals)} NashConv evals "
         f"({chunks} chunks of {chunk} nodes) in {wall:.2f} s with the tree's "
         f"generation and store; launches K1 {counts['k1']}, K2 "
-        f"{counts['k2']}, K3 {counts['k3']}; peak device memory {peak:.3f} "
+        f"{counts['k2']}, K3 {counts['k3']}, K4 {counts['k4']}; peak device "
+        f"memory {peak:.3f} "
         f"GiB ({resident:.3f} GiB resident from earlier phases)")
     log(f"  loss first {losses[0]['loss']:.6f} last {losses[-1]['loss']:.6f};"
         f" NashConv " + ", ".join(f"{v:.6f}" for v in evals))
@@ -1048,8 +1105,10 @@ def flagship_phase(card, gen):
            if not math.isfinite(v)]
     if bad or len(evals) != 2 or not all(math.isfinite(v) for v in evals):
         raise AssertionError(f"flagship metrics: {bad}, evals {evals}")
+    # K4: the three frozen bf16 EquiNets once a learner step
     want = {"k1": 0, "k2": FLAGSHIP_STEPS * md,
-            "k3": FLAGSHIP_STEPS * (md + 1) + len(evals) * chunks}
+            "k3": FLAGSHIP_STEPS * (md + 1) + len(evals) * chunks,
+            "k4": FLAGSHIP_STEPS}
     if counts != want:
         raise AssertionError(f"flagship launches {counts}, want {want}")
     best = store.load_best_meta()
@@ -1185,8 +1244,8 @@ def flagship_phase(card, gen):
     check_step_against_cpu(tree.to("cpu"), cfg, again.net_config,
                               atol=2 * cfg.lr)
     cli_log.removeHandler(capture)
-    return {"k2": counts["k2"], "k3": counts["k3"], "lookup": lookup,
-            "rmplus": rm}
+    return {"k2": counts["k2"], "k3": counts["k3"], "k4": counts["k4"],
+            "lookup": lookup, "rmplus": rm}
 
 
 def k1_bound_of(fused_turn_lib, args, actions, A, T, store_obs=False):
@@ -2195,6 +2254,7 @@ def _counts():
 
 
 def _zero_counts():
+    from rnad_tpu_torch.ops import equinet as equinet_lib
     from rnad_tpu_torch.ops import fused_turn as fused_turn_lib
     from rnad_tpu_torch.ops import lookup as lookup_lib
     from rnad_tpu_torch.ops import rmplus as rmplus_lib
@@ -2203,6 +2263,7 @@ def _zero_counts():
     fused_turn_lib.fused_turn.launches_bf16 = 0
     lookup_lib.lookup.launches = 0
     rmplus_lib.rmplus.launches = 0
+    equinet_lib.equinet_frozen.launches = 0
 
 
 def _in_turns(names, step, iters=10):
@@ -2466,6 +2527,7 @@ def dp_flagship(card):
     chunk threshold).  Weights bitwise equal, NashConv within 1e-6.
     Returns the launch counts."""
     from rnad_tpu_torch import train
+    from rnad_tpu_torch.ops import equinet as equinet_lib
 
     argv = ["--load-tree", "flagship3"] + FLAGSHIP_RUN + ["--log-mod", "1"]
     for flag, value in DP_FLAGSHIP_CUTS:
@@ -2481,7 +2543,8 @@ def dp_flagship(card):
         runs[name] = train.main(argv + ["--name", f"flag_{name}"] + flag)
         torch.cuda.synchronize()
         walls[name] = time.perf_counter() - t0
-        counts[name] = _counts()
+        counts[name] = {**_counts(),
+                        "k4": equinet_lib.equinet_frozen.launches}
     dp, plain = runs["dp"], runs["plain"]
     if (dp.state.total_steps, plain.state.total_steps) != (
             DP_FLAGSHIP_STEPS, DP_FLAGSHIP_STEPS):
@@ -2491,7 +2554,8 @@ def dp_flagship(card):
     md = dp.tree.max_depth
     if (counts["dp"] != counts["plain"] or counts["dp"]["k1"] != 0
             or counts["dp"]["k2"] != DP_FLAGSHIP_STEPS * md
-            or counts["dp"]["k3"] <= DP_FLAGSHIP_STEPS * (md + 1)):
+            or counts["dp"]["k3"] <= DP_FLAGSHIP_STEPS * (md + 1)
+            or counts["dp"]["k4"] != DP_FLAGSHIP_STEPS):
         raise AssertionError(f"data-parallel flagship launches "
                              f"{counts['dp']}, plain {counts['plain']}")
     _assert_bitwise(dp, _weights(plain), "data-parallel flagship")

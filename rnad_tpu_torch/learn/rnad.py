@@ -54,8 +54,10 @@ the EMA target) instead of building new tensors.
 While a ``torch.profiler`` session records, the step's layers are spans on
 its timeline (``utils/timing.py::span``): ``rnad.train_step`` holds
 ``rnad.rollout`` and ``rnad.learn``, and the learner, in order,
-``rnad.learn.forward``, ``.frozen`` (not under "all"), ``.vtrace``,
-``.backward``, ``.allreduce`` (under a group) and ``.update``.
+``rnad.learn.forward``, ``.frozen`` (not under "all"; it holds
+``rnad.learn.frozen.fused`` where kernel K4 runs the three frozen bf16
+EquiNets), ``.vtrace``, ``.backward``, ``.allreduce`` (under a group) and
+``.update``.
 """
 
 from __future__ import annotations
@@ -77,6 +79,7 @@ from ..env.tree import GameTree
 from ..metrics import nashconv as nashconv_lib
 from ..metrics import nashconv_shard
 from ..models import common, nets
+from ..ops import equinet as equinet_ops
 from ..ops import obs_transform as obs_transform_lib
 from ..ops import stepping
 from ..parallel import tensor_parallel
@@ -470,7 +473,10 @@ def _frozen_passes(state: TrainState, cfg: RNaDConfig, fuse: str,
     """The frozen nets' passes the loss reads under ``fuse`` "frozen",
     "heads" or "off": (the target's logits, its values, the reg net's
     logits, the previous reg net's logits); the target's logits are None
-    under "heads" without ``detailed_metrics``."""
+    under "heads" without ``detailed_metrics``.  Under "off", bf16
+    EquiNets on the card that kernel K4 takes (``ops/equinet.py``'s
+    ``unsupported`` names nothing) run as one launch; every other net runs
+    its forwards."""
     dtype = frozen_dtype(state.net, cfg)
     if fuse == "frozen":  # the three frozen nets in one pair
         logits3, values3 = nets.mlp_multi_net_forward(
@@ -487,7 +493,16 @@ def _frozen_passes(state: TrainState, cfg: RNaDConfig, fuse: str,
         logits_t = (head(state.net_target, "policy")
                     if cfg.detailed_metrics else None)
         return logits_t, values_target, logits_reg, logits_reg_prev
-    # "off": every frozen net's whole forward
+    # "off": every frozen net's whole forward; bf16 EquiNets' in one
+    # kernel launch (K4) on the card
+    frozen = (state.net_target, state.net_reg, state.net_reg_)
+    if equinet_ops.unsupported(frozen, obs_flat, solver_feats, dtype) is None:
+        with timing.span("rnad.learn.frozen.fused"):
+            (logits_t, values_target), (logits_reg, _), (
+                logits_reg_prev, _) = equinet_ops.equinet_frozen(
+                    frozen, obs_flat, solver_feats, dtype,
+                    values=(True, False, False))
+        return logits_t, values_target, logits_reg, logits_reg_prev
     logits_t, values_target = state.net_target(obs_flat, solver_feats,
                                                dtype=dtype)
     logits_reg, _ = state.net_reg(obs_flat, solver_feats, dtype=dtype)

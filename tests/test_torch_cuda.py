@@ -14,21 +14,29 @@ near-tie); the transition of a lane whose actions agree is equal.  The RM+
 solver (K3) is held to its plain version by ``solver_device.agreement``:
 x, y and v within atol 1e-5 except on a counted share of games where
 float32 rounding in another order parted the two runs, which as a set are
-as good as the plain version's (mean and worst exploitability).
+as good as the plain version's (mean and worst exploitability).  The
+EquiNet's frozen passes (K4) keep the eager bf16 forward's rounding points
+and sum each product in the tensor cores' order, so an output parts from
+the eager one only where a sum lies near a bf16 rounding tie: on a bounded
+share of elements, by a bounded number of bf16 units in the last place.
 """
 
 import copy
+import ctypes
 import dataclasses
 
 import pytest
 import torch
 
+from rnad_tpu_torch import equinet_probe
 from rnad_tpu_torch.config import (NetConfig, RNaDConfig, ShapingRule,
                                    TreeConfig)
 from rnad_tpu_torch.env import engine, solver_device
 from rnad_tpu_torch.env import tree as tree_lib
 from rnad_tpu_torch.learn import rnad
 from rnad_tpu_torch.models import nets
+from rnad_tpu_torch.ops import _build
+from rnad_tpu_torch.ops import equinet as equinet_lib
 from rnad_tpu_torch.ops import fused_turn as fused_turn_lib
 from rnad_tpu_torch.ops import lookup as lookup_lib
 from rnad_tpu_torch.ops import rmplus as rmplus_lib
@@ -961,3 +969,122 @@ def test_rollout_tabular_on_the_card(dev):
     returns = engine.episode_returns(tg)
     se = float(returns.std()) / B ** 0.5
     assert abs(float(returns.mean()) - float(tree.root_value[1, 0])) < 3 * se
+
+
+# K4 against the eager passes: the share of elements that part and the
+# largest part in bf16 units in the last place (equinet_probe.differences)
+K4_DIFFER_SHARE = 0.02
+K4_MAX_ULPS = 4.0
+K4_CASES = {  # (n, A, C, depth, solver_iters, primed, obs dtype)
+    "flagship": (50000, 5, 64, 2, 32, True, torch.float32),
+    "a3_unprimed_c0_2": (3001, 3, 16, 2, 0, False, torch.float32),
+    "c128_depth4": (2000, 5, 128, 4, 16, True, torch.float32),
+    "a8_ragged": (17, 8, 32, 1, 8, False, torch.float32),
+    "one_observation": (1, 2, 48, 3, 8, True, torch.bfloat16),
+}
+
+
+def _k4_inputs(dev, n, A, C, depth, iters, primed, obs_dtype, seed=3):
+    frozen = equinet_probe.frozen_nets(A, C, depth, iters, primed, seed, dev)
+    obs = equinet_probe.observations(n, A, seed + 1, dev)
+    feats = nets.equinet_solver_features(frozen[0], obs) if iters else None
+    return frozen, obs.to(obs_dtype), feats
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(K4_CASES))
+def test_equinet_frozen_kernel_vs_eager(dev, case):
+    """Three frozen bf16 EquiNets in one K4 launch against their eager
+    forwards, on observations with illegal actions (zero cells), at the
+    flagship's shape, unprimed without solver features (c0 = 2), at
+    rnad_tpu's default width and depth (weights staged a block at a time),
+    with a ragged last tile, and on one bf16 observation."""
+    frozen, obs, feats = _k4_inputs(dev, *K4_CASES[case])
+    want = equinet_lib.equinet_frozen_plain(frozen, obs, feats,
+                                            torch.bfloat16)
+    before = equinet_lib.equinet_frozen.launches
+    got = equinet_lib.equinet_frozen(frozen, obs, feats, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert equinet_lib.equinet_frozen.launches == before + 1
+    for g, w in zip(got, want):
+        for x, y in zip(g, w):
+            assert x.shape == y.shape and x.dtype == torch.float32
+    for name, d in equinet_probe.compare(frozen, got, want, feats).items():
+        assert d["nonfinite"] == 0, (name, d)
+        assert d["differ_share"] <= K4_DIFFER_SHARE, (name, d)
+        assert d["max_ulps"] <= K4_MAX_ULPS, (name, d)
+
+
+@pytest.mark.cuda
+def test_equinet_frozen_kernel_is_bitwise_at_the_flagships_shape(dev):
+    """At the flagship's shape (A = 5, 64 channels, depth 2, primed: a
+    heads' fan of 72) K4 sums every product as cuBLAS does, so its outputs
+    are the eager passes' bit for bit."""
+    frozen, obs, feats = _k4_inputs(dev, *K4_CASES["flagship"])
+    want = equinet_lib.equinet_frozen_plain(frozen, obs, feats,
+                                            torch.bfloat16)
+    got = equinet_lib.equinet_frozen(frozen, obs, feats, torch.bfloat16)
+    for g, w in zip(got, want):
+        assert torch.equal(g[0], w[0]) and torch.equal(g[1], w[1])
+
+
+@pytest.mark.cuda
+def test_equinet_frozen_kernel_is_deterministic(dev):
+    frozen, obs, feats = _k4_inputs(dev, *K4_CASES["flagship"])
+    a = equinet_lib.equinet_frozen(frozen, obs, feats, torch.bfloat16)
+    b = equinet_lib.equinet_frozen(frozen, obs, feats, torch.bfloat16)
+    assert all(torch.equal(x, y) for g, h in zip(a, b) for x, y in zip(g, h))
+    # the values left out are not written, the others the same
+    c = equinet_lib.equinet_frozen(frozen, obs, feats, torch.bfloat16,
+                                   values=(True, False, False))
+    assert c[1][1] is None and c[2][1] is None
+    assert torch.equal(c[0][1], a[0][1])
+    assert all(torch.equal(c[k][0], a[k][0]) for k in range(3))
+
+
+@pytest.mark.cuda
+def test_equinet_frozen_kernel_rejects(dev):
+    """``unsupported`` names what the kernel does not take, on the card
+    too, and the kernel's own entry point refuses the shapes."""
+    frozen, obs, feats = _k4_inputs(dev, *K4_CASES["flagship"])
+    bf16 = torch.bfloat16
+    assert equinet_lib.unsupported(frozen, obs, feats, bf16) is None
+    assert "dtype" in equinet_lib.unsupported(frozen, obs, feats,
+                                              torch.float32)
+    assert "observations" in equinet_lib.unsupported(frozen, obs[:, :1],
+                                                     feats, bf16)
+    for A, C, why in ((9, 64, "A = 9"), (5, 72, "C = 72")):
+        bad = equinet_probe.frozen_nets(A, C, 1, 0, False, 0, dev)
+        assert why in equinet_lib.unsupported(
+            bad, equinet_probe.observations(4, A, 0, dev), None, bf16)
+    fn = _build.entry("equinet", "rnad_equinet_frozen", equinet_lib.ARGTYPES)
+    out = torch.empty(64, device=dev)
+    ptrs = (ctypes.c_void_p * 5)(*[out.data_ptr()] * 5)
+    stream = torch.cuda.current_stream().cuda_stream
+    for A, C, depth, k in ((9, 64, 2, 3), (5, 72, 2, 3), (5, 64, 0, 3),
+                           (5, 64, 2, 5)):
+        err = fn(obs.data_ptr(), None, None, None, out.data_ptr(), 1,
+                 ctypes.addressof(ptrs), ctypes.addressof(ptrs), 4, A, 2, C,
+                 depth, k, 0, stream)
+        assert err != 0
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            _build.check("equinet", "rnad_equinet_frozen", err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,per_step", [("bfloat16", 1), ("float32", 0)])
+def test_k4_engages_once_a_bf16_equinet_learner_step(dev, dtype, per_step):
+    """The learner's frozen passes run as one K4 launch a step for a bf16
+    EquiNet and stay eager for a float32 one; the step's loss is finite."""
+    tree = _tree("cpu", depth=4).to(dev)
+    packed = stepping.make_packed_tables(tree)
+    cfg = RNaDConfig(batch_size=256, eta=0.5, lr=5e-5, logit_clip=2.0)
+    net = nets.build_net(dataclasses.replace(EQUI, compute_dtype=dtype),
+                         torch.Generator().manual_seed(4)).to(dev)
+    state = rnad.init_train_state(net, torch.Generator(device=dev))
+    before = equinet_lib.equinet_frozen.launches
+    for _ in range(2):
+        traj = rnad.rollout(state, tree, packed, cfg)
+        metrics = rnad.learn_step(state, packed, traj, 0.5, cfg)
+        assert torch.isfinite(metrics["loss"]).all()
+    assert equinet_lib.equinet_frozen.launches - before == 2 * per_step
