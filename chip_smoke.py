@@ -21,11 +21,12 @@ Fifteen phases, and any failure exits nonzero (phase 15 runs before phase
    the plain version's as a set: mean and worst exploitability).  Times
    each kernel (K3 at both the learner's 327680 games and one rollout
    turn's 65536), its plain version and, for K2, ``torch.index_select``,
-   and prints each kernel's share of its bound.  K4 (the EquiNet's frozen
-   passes) against the nets' own forwards at the flagship learner's shape
-   (three bf16 EquiNets, A = 5, 64 channels, depth 2, primed, over 393,216
-   observations; ``equinet_probe.probe``): every output bitwise, two
-   launches equal; both timed against K4's bound.
+   and prints each kernel's share of its bound.  K4 (the EquiNet's no-grad
+   forwards) against the nets' own forwards at the flagship learner's
+   shape (three bf16 EquiNets, A = 5, 64 channels, depth 2, primed, over
+   393,216 observations) and at a flagship rollout turn's (one net over
+   65,536; ``equinet_probe.probe``): every output bitwise, two launches
+   equal; each timed against K4's bound.
 3. Drive the MLP path: the demo tree (eta_sweep's config, seed 0) and 30
    fused R-NaD train steps at 32768 lanes with a width-256 MLP through
    ``RNaD.run`` and ``final_eval``, with the kernels' launch counters set to
@@ -41,7 +42,8 @@ Fifteen phases, and any failure exits nonzero (phase 15 runs before phase
    per step max_depth + 1 launches of K3, max_depth of K2 (one a turn; the
    learner reads the stored observations) and none of K1, and
    one K3 launch per chunk of each chunked NashConv eval, and no K4
-   launch (the float32 EquiNet's frozen passes stay eager).  The same checks
+   launch (the float32 EquiNet's rollout, frozen passes and NashConv stay
+   eager).  The same checks
    and throughput as phase 3, the peak device memory, and one step at 256
    lanes on the card against the CPU.
 5. Drive the flagship path through the train CLI, ``rnad_tpu_torch.train.
@@ -50,8 +52,8 @@ Fifteen phases, and any failure exits nonzero (phase 15 runs before phase
    RM+ iterations) at 32768 lanes on the native generator's 785,768-node A =
    5 depth-6 tree, cut to 20 steps and 2 evals (the cuts are printed).
    Checks the tree's size, depth and hash; per step 6 launches of K2, 7
-   of K3, one of K4 (the three frozen nets) and none of K1, and one K3
-   launch per eval chunk; the step-0
+   of K3, 7 of K4 (one a rollout turn, one for the three frozen nets) and
+   none of K1, and one K3 and one K4 launch per eval chunk; the step-0
    NashConv of checkpoint (0, 0) within 3.1e-4 of ``rnad_tpu``'s 0.0154796;
    finite metrics, ``best.ckpt`` and ``metrics.jsonl`` written,
    ``best.json`` holding the lowest eval; a second ``main`` with the same
@@ -158,8 +160,9 @@ Fifteen phases, and any failure exits nonzero (phase 15 runs before phase
    on both ranks; (g) flagship-3 on phase 5's stored tree cut to one update
    period of 5 steps with ``--data-parallel`` (one NCCL rank: K3 and the
    bf16 EquiNet under the group, the eval through ``nashconv_sharded``)
-   against the plain run: launches equal (7 of K2 and of K3 a step, K3's
-   eval chunks, one of K4 a step), weights bitwise, NashConv within 1e-6.
+   against the plain run: launches equal (6 of K2 and 7 of K3 and of K4 a
+   step, K3's and K4's eval chunks), weights bitwise, NashConv within
+   1e-6.
 11. Drive the model axis (``parallel/tensor_parallel.py`` on
    ``runtime.grid``): (a) phase 3's config through ``RNaD`` on a 1 x 1
    grid (one NCCL rank: the nets tensor-parallel over a model axis of one,
@@ -275,6 +278,7 @@ EQUI_STEPS = 20
 RM_ITERS = 128
 # the flagship learner's observations: 32768 lanes x 12 half-steps
 EQUI_FROZEN_N = 393216
+EQUI_TURN_N = 65536  # one flagship rollout turn: two seats of 32768 lanes
 # flagship-3 (docs/runs/r4-flagship3.params.json): its tree, net and R-NaD
 # flags, then the cuts, each (flag, value, flagship-3's value)
 FLAGSHIP_TREE = ["--native-gen", "--max-actions", "5", "--max-transitions",
@@ -884,35 +888,40 @@ def check_rmplus_phase(run, gen):
 
 def check_equinet_phase():
     """K4 against its plain version (the nets' own forwards) at the
-    flagship learner's shape: three frozen bf16 EquiNets (A = 5, 64
+    flagship learner's shape, three frozen bf16 EquiNets (A = 5, 64
     channels, depth 2, primed, 128 RM+ iterations) over 393,216 random
-    observations with illegal actions, through ``equinet_probe.probe``.
-    Every output bitwise equal and two launches equal; times both.
-    Returns the numbers of K4's entry in the kernels line."""
+    observations with illegal actions, and at a flagship rollout turn's,
+    one net over 65,536, through ``equinet_probe.probe``.  Every output
+    bitwise equal and two launches equal; times both.  Returns the numbers
+    of K4's entry in the kernels line (the one net's under ``rollout``)."""
     from rnad_tpu_torch import equinet_probe
     from rnad_tpu_torch.ops import equinet as equinet_lib
 
     equinet_lib.equinet_frozen.launches = 0
-    res = equinet_probe.probe(EQUI_FROZEN_N, iters=20)
-    log(f"K4 equinet_frozen ({EQUI_FROZEN_N} observations x 3 nets, A = 5, "
-        f"C = 64, depth 2, primed): "
-        + ", ".join(f"{k} differ {v['differ_share']:.3g} (max "
-                    f"{v['max_ulps']:g} bf16 ulps)"
-                    for k, v in res["outputs"].items())
-        + f"; deterministic {res['deterministic']}; kernel "
-        f"{res['k4_ms']:.4f} ms, plain {res['eager_ms']:.4f} ms, bound "
-        f"{res['bound_ms']:.4f} ms ({res['bound_by']}; "
-        f"{res['operations']:.4g} operations, {res['io_bytes']:.4g} B), "
-        f"{res['k4_share_pct']:.1f} % of it")
-    parted = {k: v for k, v in res["outputs"].items()
-              if v["differ_share"] or v["nonfinite"]}
-    if parted or not res["deterministic"]:
-        raise AssertionError(f"K4 is not the eager passes bit for bit at the"
-                             f" flagship's shape: {res}")
-    return {"max_abs_err": 0.0, "ms": res["k4_ms"],
-            "plain_ms": res["eager_ms"], "bound_ms": res["bound_ms"],
-            "bound_by": res["bound_by"], "library_ms": None,
-            "observations": EQUI_FROZEN_N, "nets": 3,
+    out = {}
+    for n, nets_run in ((EQUI_FROZEN_N, 3), (EQUI_TURN_N, 1)):
+        res = equinet_probe.probe(n, iters=20, nets_run=nets_run)
+        log(f"K4 equinet_frozen ({n} observations x {nets_run} nets, A = 5,"
+            f" C = 64, depth 2, primed): "
+            + ", ".join(f"{k} differ {v['differ_share']:.3g} (max "
+                        f"{v['max_ulps']:g} bf16 ulps)"
+                        for k, v in res["outputs"].items())
+            + f"; deterministic {res['deterministic']}; kernel "
+            f"{res['k4_ms']:.4f} ms, plain {res['eager_ms']:.4f} ms, bound "
+            f"{res['bound_ms']:.4f} ms ({res['bound_by']}; "
+            f"{res['operations']:.4g} operations, {res['io_bytes']:.4g} B),"
+            f" {res['k4_share_pct']:.1f} % of it")
+        parted = {k: v for k, v in res["outputs"].items()
+                  if v["differ_share"] or v["nonfinite"]}
+        if parted or not res["deterministic"]:
+            raise AssertionError(f"K4 is not the eager forwards bit for bit "
+                                 f"at {n} x {nets_run}: {res}")
+        out[nets_run] = {"max_abs_err": 0.0, "ms": res["k4_ms"],
+                         "plain_ms": res["eager_ms"],
+                         "bound_ms": res["bound_ms"],
+                         "bound_by": res["bound_by"], "library_ms": None,
+                         "observations": n, "nets": nets_run}
+    return {**out[3], "rollout": out[1],
             "launches": equinet_lib.equinet_frozen.launches}
 
 
@@ -1105,10 +1114,11 @@ def flagship_phase(card, gen):
            if not math.isfinite(v)]
     if bad or len(evals) != 2 or not all(math.isfinite(v) for v in evals):
         raise AssertionError(f"flagship metrics: {bad}, evals {evals}")
-    # K4: the three frozen bf16 EquiNets once a learner step
+    # K4: the bf16 EquiNet's no-grad forward once a rollout turn and once
+    # an eval chunk, and the three frozen nets once a learner step
     want = {"k1": 0, "k2": FLAGSHIP_STEPS * md,
             "k3": FLAGSHIP_STEPS * (md + 1) + len(evals) * chunks,
-            "k4": FLAGSHIP_STEPS}
+            "k4": FLAGSHIP_STEPS * (md + 1) + len(evals) * chunks}
     if counts != want:
         raise AssertionError(f"flagship launches {counts}, want {want}")
     best = store.load_best_meta()
@@ -2552,10 +2562,12 @@ def dp_flagship(card):
                              f"{dp.state.total_steps} and "
                              f"{plain.state.total_steps} steps")
     md = dp.tree.max_depth
+    # K3 and K4 each once a rollout turn, once a learner step and once an
+    # eval chunk
     if (counts["dp"] != counts["plain"] or counts["dp"]["k1"] != 0
             or counts["dp"]["k2"] != DP_FLAGSHIP_STEPS * md
             or counts["dp"]["k3"] <= DP_FLAGSHIP_STEPS * (md + 1)
-            or counts["dp"]["k4"] != DP_FLAGSHIP_STEPS):
+            or counts["dp"]["k4"] != counts["dp"]["k3"]):
         raise AssertionError(f"data-parallel flagship launches "
                              f"{counts['dp']}, plain {counts['plain']}")
     _assert_bitwise(dp, _weights(plain), "data-parallel flagship")

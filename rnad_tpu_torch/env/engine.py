@@ -36,9 +36,11 @@ import torch
 from torch import nn
 
 from ..models import common, nets
+from ..ops import equinet as equinet_lib
 from ..ops import fused_turn as fused_turn_lib
 from ..ops import stepping
 from ..ops.obs_transform import ObsTransform
+from ..utils import timing
 from .tree import GameTree
 
 _TINY = torch.finfo(torch.float32).tiny
@@ -234,12 +236,15 @@ def generic_turn(packed: stepping.PackedTables, net: nn.Module,
                  indices: torch.Tensor, g_act: torch.Tensor,
                  g_chance: torch.Tensor,
                  obs_transform: Optional[ObsTransform] = None,
-                 eps: Optional[torch.Tensor] = None):
+                 eps: Optional[torch.Tensor] = None,
+                 params: Optional[torch.Tensor] = None):
     """One turn for any net (``rnad_tpu``'s generic turn): the lanes'
     packed rows (K2), both seats' observations as one (2B, 2, A, A) batch
     (lifted with the noise ``eps`` under ``obs_transform``) through ``net``
-    (for a solver EquiNet, one K3 launch), the masked policy, Gumbel-max
-    actions ``argmax(masked logits + g_act)`` and the transition with
+    (for a solver EquiNet, one K3 launch; for a plain bf16 EquiNet on the
+    card, then one K4 launch on ``params``, its ``equinet.pack``: see
+    ``equinet.forward_no_grad``), the masked policy, Gumbel-max actions
+    ``argmax(masked logits + g_act)`` and the transition with
     ``g_chance``.  Returns what ``fused_turn`` returns, then the (2B, C, A,
     A) observations the net saw."""
     A = packed.max_actions
@@ -249,7 +254,9 @@ def generic_turn(packed: stepping.PackedTables, net: nn.Module,
     obs = torch.cat([row_obs, col_obs], dim=0)
     if obs_transform is not None:
         obs = obs_transform.apply(obs, eps)
-    logits, values = net(obs)
+    with timing.span("rnad.rollout.forward"):
+        logits, values = equinet_lib.forward_no_grad(
+            net, obs, params, span="rnad.rollout.forward.fused")
     row_mask, col_mask = stepping.slice_action_masks(packed, rows)
     legal = torch.cat([row_mask, col_mask], dim=0)  # (2B, A)
     policy = common.masked_policy(logits, legal).reshape(2, B, A)
@@ -325,8 +332,9 @@ def rollout_from(tree: GameTree, packed: stepping.PackedTables,
             packed.rows, *weights, idx, g_act, g_ch, A=A, T=T,
             store_obs=store) + ((None,) if not store else ())
     else:
+        params = equinet_lib.packed_params(net)  # the turns' K4 weights
         turn = lambda idx, g_act, g_ch, eps=None: generic_turn(
-            packed, net, idx, g_act, g_ch, obs_transform, eps)
+            packed, net, idx, g_act, g_ch, obs_transform, eps, params)
     init = init_indices.to(device=device, dtype=torch.int32)
     b = B // lane_chunks
     recs = []  # (chunk, turn) -> the turn's record of the chunk's lanes

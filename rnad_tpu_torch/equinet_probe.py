@@ -1,7 +1,7 @@
-"""Kernel K4 (``ops/equinet.py``) against the learner's eager frozen passes,
-at the learner's shapes, on a CUDA card.
+"""Kernel K4 (``ops/equinet.py``) against the eager no-grad forwards, at
+the learner's and the rollout's shapes, on a CUDA card.
 
-    python3 -m rnad_tpu_torch.equinet_probe [--n 393216]
+    python3 -m rnad_tpu_torch.equinet_probe [--n 393216] [--nets 3]
 
 Three frozen EquiNets of the flagship's shape (A = 5, 64 channels, depth 2,
 128 RM+ iterations, primed, bfloat16; ``--channels``, ``--depth``,
@@ -9,14 +9,24 @@ Three frozen EquiNets of the flagship's shape (A = 5, 64 channels, depth 2,
 ``--seed`` with the primed heads drawn too (at zero they would hide the
 tower) and each frozen net moved off the others, run over ``--n`` random
 observations with illegal actions (value 0 on an illegal cell) and their
-solver features (K3).  Prints one JSON line: for the target's logits and
-values and both reg nets' logits, the share of elements that differ from
+solver features (K3); ``--nets 1`` keeps the first net alone, as a
+rollout turn (``--n 65536``) or a NashConv chunk launches it.  Prints one
+JSON line: for the target's logits and values and the reg nets' logits
+(those of the nets run), the share of elements that differ from
 the eager passes and the largest gap in bf16 units in the last place
 (``differences``); whether two launches agree bitwise; K4's time (CUDA
 events over ``--iters`` launches after a warm one), the eager passes'
 time, K4's bound (``operations`` at the H100 SXM's dense bf16 rate,
 ``io_bytes`` at its HBM rate) and its share, the card and its power limit.
-Without a card it exits nonzero.
+
+    python3 -m rnad_tpu_torch.equinet_probe --rollout-seeds 20
+
+instead plays flagship rollouts (the native generator's 785,768-node A = 5
+tree, 32,768 lanes, the primed bf16 EquiNet drawn from each seed 0, 1,
+...) twice on the same noise, with K4 in every generic turn and with the
+net's eager forward, and prints one JSON line a seed and a summary: the
+lanes whose indices or actions part, and the share of policy and value
+elements that differ.  Without a card it exits nonzero.
 """
 
 from __future__ import annotations
@@ -30,9 +40,11 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from .config import NetConfig
+from .config import NetConfig, ShapingRule, TreeConfig
+from .env import engine
+from .env import tree as tree_lib
 from .models import nets
-from .ops import equinet
+from .ops import equinet, stepping
 from .roofline import H100_SXM
 
 PEAK_BF16, PEAK_BYTES = H100_SXM.flops_bf16, H100_SXM.hbm_bytes_per_s
@@ -117,12 +129,14 @@ def differences(got: torch.Tensor, want: torch.Tensor,
 
 
 def compare(frozen, got, want, feats) -> dict:
-    """``differences`` of the target's logits and values and both
-    reg nets' logits, each primed output measured in units of its bf16
-    head (the output less the gate's term)."""
+    """``differences`` of the target's logits and values and the reg
+    nets' logits (of the nets in ``frozen``), each primed output measured
+    in units of its bf16 head (the output less the gate's term)."""
     out = {}
     for name, k, field in (("target_logits", 0, 0), ("target_values", 0, 1),
                            ("reg_logits", 1, 0), ("reg_prev_logits", 2, 0)):
+        if k >= len(frozen):
+            continue
         scale = None
         if frozen[k].primed:
             gate = (frozen[k].policy_prime_gate if field == 0
@@ -135,9 +149,10 @@ def compare(frozen, got, want, feats) -> dict:
 @torch.no_grad()
 def probe(n: int, A: int = 5, C: int = 64, depth: int = 2,
           solver_iters: int = 128, primed: bool = True, seed: int = 0,
-          iters: int = 20) -> dict:
+          iters: int = 20, nets_run: int = 3) -> dict:
     dev = torch.device("cuda")
-    frozen = frozen_nets(A, C, depth, solver_iters, primed, seed, dev)
+    frozen = frozen_nets(A, C, depth, solver_iters, primed, seed,
+                         dev)[:nets_run]
     obs = observations(n, A, seed + 1, dev)
     feats = (nets.equinet_solver_features(frozen[0], obs) if solver_iters
              else None)
@@ -149,15 +164,16 @@ def probe(n: int, A: int = 5, C: int = 64, depth: int = 2,
     got = equinet.equinet_frozen(frozen, obs, feats, dtype)
     again = equinet.equinet_frozen(frozen, obs, feats, dtype)
     c0 = equinet.input_channels(frozen[0])
-    ops = equinet.operations(n, A, C, depth, c0)
-    io = equinet.io_bytes(n, A, C, depth, 2, c0, primed=frozen[0].primed)
+    ops = equinet.operations(n, A, C, depth, c0, nets=nets_run)
+    io = equinet.io_bytes(n, A, C, depth, 2, c0, nets=nets_run,
+                          primed=frozen[0].primed)
     bound_s = max(ops / PEAK_BF16, io / PEAK_BYTES)
     k4 = _time_ms(lambda: equinet.equinet_frozen(frozen, obs, feats, dtype),
                   iters)
     eager = _time_ms(lambda: equinet.equinet_frozen_plain(
         frozen, obs, feats, dtype), max(1, iters // 4))
-    return {"n": n, "A": A, "C": C, "depth": depth, "c0": c0,
-            "primed": frozen[0].primed,
+    return {"n": n, "nets": nets_run, "A": A, "C": C, "depth": depth,
+            "c0": c0, "primed": frozen[0].primed,
             "outputs": compare(frozen, got, want, feats),
             "deterministic": all(torch.equal(x, y)
                                  for g, h in zip(got, again)
@@ -172,6 +188,58 @@ def probe(n: int, A: int = 5, C: int = 64, depth: int = 2,
             "power_limit": _power_limit()}
 
 
+# flagship-3's tree (docs/runs/r4-flagship3.params.json; the native
+# generator, seed 0: 785,768 nodes) and its rollout's lanes
+FLAGSHIP_TREE = TreeConfig(
+    max_actions=5, max_transitions=2, depth_bound=6,
+    transition_threshold=0.25,
+    depth_bound_rule=ShapingRule(delta=-1, stochastic_delta=-2,
+                                 stochastic_prob=0.55))
+FLAGSHIP_LANES = 32768
+
+
+class _Eager(torch.nn.Module):
+    """``net`` behind a module that is not an EquiNet: its own forward in
+    every generic turn, never K4."""
+
+    def __init__(self, net: torch.nn.Module):
+        super().__init__()
+        self.net = net
+
+    def forward(self, obs):
+        return self.net(obs)
+
+
+@torch.no_grad()
+def rollout_parts(seeds: int, lanes: int = FLAGSHIP_LANES,
+                  solver_iters: int = 128):
+    """Yields, for each seed, how far a flagship rollout with K4 parts
+    from the same rollout with the eager forward on the same noise."""
+    dev = torch.device("cuda")
+    tree = tree_lib.generate_tree_native(FLAGSHIP_TREE, seed=0,
+                                         device="cpu").to(dev)
+    packed = stepping.make_packed_tables(tree)
+    A, T = tree.max_actions, tree.max_transitions
+    init = torch.ones((lanes,), dtype=torch.int32, device=dev)
+    for seed in range(seeds):
+        net = frozen_nets(A, 64, 2, solver_iters, True, seed, dev)[0]
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        noise = [engine.turn_noise(lanes, A, T, gen, dev)
+                 for _ in range(tree.max_depth)]
+        before = equinet.equinet_frozen.launches
+        got, want = (engine.rollout_from(tree, packed, n, init, noise=noise)
+                     for n in (net, _Eager(net)))
+        parted = ((got.indices != want.indices).any(0)
+                  | (got.actions != want.actions).any(0))
+        yield {"seed": seed, "nodes": tree.size, "lanes": lanes,
+               "k4_launches": equinet.equinet_frozen.launches - before,
+               "lanes_parted": int(parted.sum()),
+               "policy_differ_share": float(
+                   (got.policy != want.policy).float().mean()),
+               "values_differ_share": float(
+                   (got.values != want.values).float().mean())}
+
+
 def main(argv: Optional[Sequence[str]] = None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--n", type=int, default=393216)
@@ -182,14 +250,33 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     parser.add_argument("--unprimed", action="store_true")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--iters", type=int, default=20)
+    parser.add_argument("--nets", type=int, default=3, choices=(1, 2, 3))
+    parser.add_argument("--rollout-seeds", type=int, default=0)
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("needs a CUDA card", file=sys.stderr)
         return 3
     torch.backends.cuda.matmul.allow_tf32 = False
+    if args.rollout_seeds:
+        rows = []
+        for row in rollout_parts(args.rollout_seeds,
+                                 solver_iters=args.solver_iters):
+            rows.append(row)
+            print(json.dumps(row), flush=True)
+        print(json.dumps({
+            "seeds": len(rows),
+            "lanes_parted": sum(r["lanes_parted"] for r in rows),
+            "of_lanes": sum(r["lanes"] for r in rows),
+            "policy_differ_share": max(r["policy_differ_share"]
+                                       for r in rows),
+            "values_differ_share": max(r["values_differ_share"]
+                                       for r in rows),
+            "device": torch.cuda.get_device_name(0),
+            "power_limit": _power_limit()}), flush=True)
+        return 0
     print(json.dumps(probe(args.n, args.actions, args.channels, args.depth,
                            args.solver_iters, not args.unprimed, args.seed,
-                           args.iters)), flush=True)
+                           args.iters, args.nets)), flush=True)
     return 0
 
 

@@ -28,6 +28,7 @@ import torch
 
 from ..env.tree import GameTree
 from ..models import common
+from ..ops import equinet as equinet_lib
 from ..ops.stepping import seat_observations
 
 _NEG_INF = -1e30
@@ -117,10 +118,12 @@ def nashconv_root(tree: GameTree, joint_policy: torch.Tensor
 
 def _joint_policy(net, ev: torch.Tensor, lg: torch.Tensor) -> torch.Tensor:
     """Both seats' policies (n, 2A) of ``net`` at the nodes whose
-    expected values and legality are ``ev`` and ``lg`` (n, 1, A, A)."""
+    expected values and legality are ``ev`` and ``lg`` (n, 1, A, A), in
+    one no-grad forward (``equinet.forward_no_grad``: K4 for a plain bf16
+    EquiNet on the card)."""
     row_obs, col_obs = seat_observations(ev, lg)
     obs = torch.cat([row_obs, col_obs], dim=0)
-    logits, _ = net(obs)
+    logits, _ = equinet_lib.forward_no_grad(net, obs)
     p = common.masked_policy(logits, obs[:, 1, :, 0])
     n = ev.shape[0]
     return torch.cat([p[:n], p[n:]], dim=-1)

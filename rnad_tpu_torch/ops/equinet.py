@@ -1,11 +1,12 @@
-"""Kernel K4: the EquiNet's frozen passes in one launch.
+"""Kernel K4: the EquiNet's no-grad forwards in one launch.
 
 The learner's three frozen nets (the EMA target and the regularization
 pair) run their whole forwards over the same observations without a
-gradient; ``equinet_frozen`` runs up to three such forwards of
-``nets.EquiNet``s in bfloat16 as one kernel (``csrc/equinet.cu``), which
-keeps every (N, A, A, C) activation in shared memory and writes only the
-nets' logits and the values asked for.
+gradient, and so do the rollout's net in every generic turn and exact
+NashConv's net over the tree; ``equinet_frozen`` runs one to three such
+forwards of ``nets.EquiNet``s in bfloat16 as one kernel
+(``csrc/equinet.cu``), which keeps every (N, A, A, C) activation in shared
+memory and writes only the nets' logits and the values asked for.
 It replaces no TPU kernel: ``rnad_tpu`` leaves the EquiNet to XLA, which
 fuses the layers' broadcast adds, where the port's eager forward makes a
 memory pass for each.
@@ -18,18 +19,23 @@ forward's by a bfloat16 rounding where a sum lies near a rounding tie.
 ``unsupported`` names what the kernel does not take, CPU tensors
 included (the learner then keeps the eager passes); the caller checks it
 once and then calls ``equinet_frozen``, which launches the kernel.
+``forward_no_grad`` is one net's ``net(obs)`` through that gate, for the
+rollout and NashConv.  ``pack`` lays the nets' parameters out as the
+kernel reads them, once for a rollout's turns (``packed_params``).
 ``equinet_frozen_plain`` is the nets' own forwards.
 ``equinet_frozen.launches`` counts the launches.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 from typing import List, Optional, Sequence, Tuple
 
 import torch
 
 from ..models import nets as nets_lib
+from ..utils import timing
 from . import _build
 
 MAX_ACTIONS = 8
@@ -160,25 +166,44 @@ def io_bytes(n: int, A: int, C: int, depth: int, cobs: int, c0: int,
     return reads + 4 * nets * params + 4 * nets * n * (A + 1)
 
 
+@torch.no_grad()
+def pack(nets: Sequence[nets_lib.EquiNet]) -> torch.Tensor:
+    """The nets' float32 parameters as the kernel reads them: each net's
+    ``leaves``, flattened, one net after the other."""
+    return torch.cat([t.detach().reshape(-1) for net in nets
+                      for t in leaves(net)])
+
+
+def packed_params(net) -> Optional[torch.Tensor]:
+    """``pack([net])`` where the kernel may take ``net`` (a plain bfloat16
+    EquiNet on a CUDA card), else None: a rollout packs its net once for
+    all its turns."""
+    if (type(net) is nets_lib.EquiNet and net.dtype == torch.bfloat16
+            and net.ex0.kernel.is_cuda):
+        return pack([net])
+    return None
+
+
 def equinet_frozen(nets: Sequence[nets_lib.EquiNet], obs: torch.Tensor,
                    solver_feats, dtype: torch.dtype,
-                   values: Optional[Sequence[bool]] = None) -> _Outputs:
+                   values: Optional[Sequence[bool]] = None,
+                   params: Optional[torch.Tensor] = None) -> _Outputs:
     """The EquiNets' forwards over ``obs`` (N, c, A, A) with the solver
     features ``solver_feats`` (from ``nets.equinet_solver_features``, or
     None for a net without them) in ``dtype``, as the nets' own forwards
     return them: each net's (logits (N, A), values (N,)), float32, in
     tensors of its own; ``values``, a flag a net, leaves out (None) the
-    values that are not read.  The caller has checked that
-    ``unsupported`` names nothing here."""
+    values that are not read.  ``params`` is ``pack(nets)``, packed here
+    where it is not given.  The caller has checked that ``unsupported``
+    names nothing here."""
     keep = list(values or [True] * len(nets))
     if len(keep) != len(nets):
         raise ValueError("equinet_frozen: one values flag a net")
     first = nets[0]
     N, cobs, A = obs.shape[0], obs.shape[1], first.max_actions
     dev = obs.device
-    with torch.no_grad():
-        params = torch.cat([t.detach().reshape(-1) for net in nets
-                            for t in leaves(net)])
+    if params is None:
+        params = pack(nets)
     out = [(torch.empty((N, A), dtype=torch.float32, device=dev),
             torch.empty((N,), dtype=torch.float32, device=dev) if k else None)
            for k in keep]
@@ -206,4 +231,34 @@ def equinet_frozen(nets: Sequence[nets_lib.EquiNet], obs: torch.Tensor,
 
 
 equinet_frozen.launches = 0  # kernel launches
+
+
+def solver_features(net, obs: torch.Tensor):
+    """The solver features ``EquiNet.forward`` computes for ``obs`` (N, c,
+    A, A) (from its first two channels, lifted or not), or None for a net
+    without them."""
+    if isinstance(net, nets_lib.EquiNet) and net.solver_iters:
+        return nets_lib._solver_features(obs.permute(0, 2, 3, 1),
+                                         net.solver_iters)
+    return None
+
+
+@torch.no_grad()
+def forward_no_grad(net, obs: torch.Tensor,
+                    params: Optional[torch.Tensor] = None,
+                    span: Optional[str] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """What ``net(obs)`` returns (any callable net), float32 logits (N, A)
+    and values (N,), without a gradient: one K4 launch where
+    ``unsupported`` names nothing for the net alone in its own dtype
+    (inside the span ``span``, where one is named; ``params`` is
+    ``pack([net])`` where the caller packed it), else the net's own
+    forward on the same solver features."""
+    feats = solver_features(net, obs)
+    if unsupported([net], obs, feats, getattr(net, "dtype", None)):
+        return net(obs) if feats is None else net(obs, feats)
+    with timing.span(span) if span else contextlib.nullcontext():
+        [(logits, values)] = equinet_frozen([net], obs, feats, net.dtype,
+                                            params=params)
+    return logits, values
 

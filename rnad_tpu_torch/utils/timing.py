@@ -3,9 +3,11 @@
 - ``span``: a named range on the profiler's timeline while a
   ``torch.profiler`` session records, and nothing otherwise.  The trainer
   opens one at each of its layers' boundaries (``rnad.train_step``,
-  ``rnad.rollout``, ``rnad.learn`` and its passes, ``rnad.buffer.sample``,
-  ``rnad.eval``, ``rnad.checkpoint``), so a trace ties each kernel and
-  each idle gap of the card to the layer that launched it.
+  ``rnad.rollout`` and its generic turns' ``rnad.rollout.forward``,
+  ``rnad.learn`` and its passes, ``rnad.buffer.sample``, ``rnad.eval``,
+  ``rnad.checkpoint``; ``.fused`` where kernel K4 runs a forward), so a
+  trace ties each kernel and each idle gap of the card to the layer that
+  launched it.
 - ``trace``: a ``torch.profiler`` trace of the CPU and, where there is a
   card, of its kernels; written as a Chrome trace under ``log_dir`` where
   one is given.

@@ -1072,10 +1072,13 @@ def test_equinet_frozen_kernel_rejects(dev):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,per_step", [("bfloat16", 1), ("float32", 0)])
-def test_k4_engages_once_a_bf16_equinet_learner_step(dev, dtype, per_step):
-    """The learner's frozen passes run as one K4 launch a step for a bf16
-    EquiNet and stay eager for a float32 one; the step's loss is finite."""
+@pytest.mark.parametrize("dtype,per_turn", [("bfloat16", 1), ("float32", 0)])
+def test_k4_engages_once_a_turn_and_once_a_bf16_equinet_learner_step(
+        dev, dtype, per_turn):
+    """A bf16 EquiNet's step launches K4 once in each rollout turn (the
+    generic turn's no-grad forward) and once in the learner (the frozen
+    passes): 1 + T launches a step of T turns; a float32 one stays eager.
+    The step's loss is finite."""
     tree = _tree("cpu", depth=4).to(dev)
     packed = stepping.make_packed_tables(tree)
     cfg = RNaDConfig(batch_size=256, eta=0.5, lr=5e-5, logit_clip=2.0)
@@ -1087,4 +1090,86 @@ def test_k4_engages_once_a_bf16_equinet_learner_step(dev, dtype, per_step):
         traj = rnad.rollout(state, tree, packed, cfg)
         metrics = rnad.learn_step(state, packed, traj, 0.5, cfg)
         assert torch.isfinite(metrics["loss"]).all()
-    assert equinet_lib.equinet_frozen.launches - before == 2 * per_step
+    assert equinet_lib.equinet_frozen.launches - before == (
+        2 * per_turn * (1 + tree.max_depth))
+
+
+# one net's no-grad forward through K4 (``equinet.forward_no_grad``): a
+# flagship rollout turn's 65,536 observations (two seats of 32,768 lanes)
+# and a flagship NashConv chunk's 41,942 (20,971 nodes)
+K4_ONE_NET = {"rollout_turn": 65536, "nashconv_chunk": 41942}
+
+
+def _flagship_net(dev, seed, solver_iters=32):
+    """A bf16 EquiNet of the flagship's shape, its primed heads drawn."""
+    return equinet_probe.frozen_nets(5, 64, 2, solver_iters, True, seed,
+                                     dev)[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(K4_ONE_NET))
+def test_forward_no_grad_kernel_vs_eager(dev, case):
+    """One bf16 EquiNet of the flagship's shape through
+    ``forward_no_grad`` (one K4 launch on its packed parameters) against
+    ``net(obs)`` on the same solver features."""
+    net = _flagship_net(dev, 3)
+    obs = equinet_probe.observations(K4_ONE_NET[case], 5, 4, dev)
+    feats = equinet_lib.solver_features(net, obs)
+    assert equinet_lib.unsupported([net], obs, feats, net.dtype) is None
+    want = net(obs, feats)
+    before = equinet_lib.equinet_frozen.launches
+    got = equinet_lib.forward_no_grad(net, obs, equinet_lib.pack([net]))
+    torch.cuda.synchronize()
+    assert equinet_lib.equinet_frozen.launches == before + 1
+    assert [t.shape for t in got] == [t.shape for t in want]
+    diffs = equinet_probe.compare((net,), [got], [want], feats)
+    for name, d in diffs.items():
+        assert d["nonfinite"] == 0, (name, d)
+        assert d["differ_share"] <= K4_DIFFER_SHARE, (name, d)
+        assert d["max_ulps"] <= K4_MAX_ULPS, (name, d)
+
+
+def _eager_forward(monkeypatch):
+    monkeypatch.setattr(equinet_lib, "forward_no_grad",
+                        lambda net, obs, *a, **k: net(obs))
+
+
+@pytest.mark.cuda
+def test_rollout_with_k4_is_the_eager_rollout(dev, monkeypatch):
+    """A flagship-shaped rollout (the primed bf16 EquiNet 64 x 2, A = 5,
+    32,768 lanes) with K4 in every generic turn plays the eager rollout's
+    episodes on the same noise: indices, actions, rewards, observations
+    and the policy and values equal."""
+    tree = _tree("cpu", A=5, depth=4).to(dev)
+    packed = stepping.make_packed_tables(tree)
+    net = _flagship_net(dev, 5, solver_iters=128)
+    B, A, T = 32768, tree.max_actions, tree.max_transitions
+    gen = torch.Generator(device=dev).manual_seed(6)
+    noise = [engine.turn_noise(B, A, T, gen, dev)
+             for _ in range(tree.max_depth)]
+    init = torch.ones((B,), dtype=torch.int32, device=dev)
+    play = lambda: engine.rollout_from(tree, packed, net, init, noise=noise,
+                                       store_obs=True)
+    before = equinet_lib.equinet_frozen.launches
+    fused = play()
+    assert equinet_lib.equinet_frozen.launches - before == tree.max_depth
+    _eager_forward(monkeypatch)
+    eager = play()
+    for f in ("indices", "actions", "rewards", "obs", "policy", "values"):
+        assert torch.equal(getattr(fused, f), getattr(eager, f)), f
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunks", [1, 3])
+def test_nashconv_with_k4_is_the_eager_nashconv(dev, monkeypatch, chunks):
+    """Exact NashConv of a bf16 EquiNet with K4 (one launch a chunk, or
+    one for the whole tree) within 1e-6 of the eager forward's."""
+    tree = _tree("cpu", A=5, depth=4).to(dev)
+    net = _flagship_net(dev, 7)
+    chunk = None if chunks == 1 else -(-tree.size // chunks)
+    before = equinet_lib.equinet_frozen.launches
+    got = float(rnad.nashconv(tree, net, chunk).nashconv())
+    assert equinet_lib.equinet_frozen.launches - before == chunks
+    _eager_forward(monkeypatch)
+    want = float(rnad.nashconv(tree, net, chunk).nashconv())
+    assert abs(got - want) <= 1e-6, (got, want)

@@ -1,8 +1,9 @@
-"""rnad_tpu_torch.ops.equinet (kernel K4, the EquiNet's frozen passes) on
-the CPU: its plain version is the nets' own forwards, the learner's frozen
-passes take it only for what the kernel takes (and keep every other net's
-eager passes, tensor for tensor), and its operation count is the
-benchmark's.  The kernel itself is held to the eager passes on the card
+"""rnad_tpu_torch.ops.equinet (kernel K4, the EquiNet's no-grad forwards)
+on the CPU: its plain version is the nets' own forwards, the learner's
+frozen passes, the rollout's generic turn and NashConv take it only for
+what the kernel takes (and keep every other net's eager forwards, tensor
+for tensor), and its operation count is the benchmark's.  The kernel
+itself is held to the eager forwards on the card
 (tests/test_torch_cuda.py).  Every comparison here is bitwise."""
 
 import json
@@ -11,10 +12,16 @@ import pytest
 import torch
 
 from benchmark.work import equinet as work_equinet
-from rnad_tpu_torch.config import NetConfig, RNaDConfig
+from rnad_tpu_torch.config import (NetConfig, ObsTransformConfig, RNaDConfig,
+                                   TreeConfig)
+from rnad_tpu_torch.env import engine
+from rnad_tpu_torch.env import tree as tree_lib
 from rnad_tpu_torch.learn import rnad
+from rnad_tpu_torch.metrics import nashconv
 from rnad_tpu_torch.models import nets
 from rnad_tpu_torch.ops import equinet as equinet_ops
+from rnad_tpu_torch.ops import obs_transform as obs_transform_lib
+from rnad_tpu_torch.ops import stepping
 from rnad_tpu_torch.parallel import tensor_parallel
 from rnad_tpu_torch.parallel.mesh import ModelGroup
 from rnad_tpu_torch.utils import timing
@@ -24,11 +31,12 @@ CPU_ONLY = "observations on cpu (the kernel runs on CUDA)"
 
 
 def _net(A=3, C=16, depth=2, solver_iters=8, prime=True, dtype="bfloat16",
-         seed=0, kind="EquiNet"):
+         seed=0, kind="EquiNet", in_channels=2):
     cfg = NetConfig(type=kind, max_actions=A, channels=C, depth=depth,
                     solver_iters=solver_iters, solver_prime=prime,
                     compute_dtype=dtype, width=16)
-    net = nets.build_net(cfg, torch.Generator().manual_seed(seed))
+    net = nets.build_net(cfg, torch.Generator().manual_seed(seed),
+                         in_channels)
     if kind == "EquiNet" and net.primed:  # move the zero heads off zero
         g = torch.Generator().manual_seed(seed + 100)
         with torch.no_grad():
@@ -282,3 +290,155 @@ def test_probe_differences_count_bf16_ulps():
     got[3] = float("nan")
     assert equinet_probe.differences(got, want)["nonfinite"] == 1
     assert equinet_probe.differences(want[:0], want[:0])["max_ulps"] == 0.0
+
+
+# the nets the no-grad forward (``forward_no_grad``: the rollout's generic
+# turn, NashConv) keeps eager: (net, its lift or None, what the gate names)
+LIFT = ObsTransformConfig(kind="lift", channels=8, sigma=0.1)
+
+
+def _lift(A=3):
+    return obs_transform_lib.make_obs_transform(LIFT, A)
+
+
+NO_GRAD = {
+    "mlp": (lambda: _net(kind="MLP", dtype="float32"), None,
+            "not plain EquiNets"),
+    "convnet": (lambda: _net(kind="ConvNet", C=8, depth=1), None,
+                "not plain EquiNets"),
+    "float32": (lambda: _net(dtype="float32"), None, "dtype"),
+    "bfloat16_on_the_cpu": (lambda: _net(), None, CPU_ONLY),
+    "tensor_parallel": (lambda: _tensor_parallel(_net()), None,
+                        "not plain EquiNets"),
+    "lifted": (lambda: _net(in_channels=obs_transform_lib.out_channels(LIFT)),
+               _lift, CPU_ONLY),
+}
+
+
+@pytest.mark.parametrize("name", sorted(NO_GRAD))
+def test_forward_no_grad_is_the_nets_own_forward(name):
+    """The gate names why the kernel does not take the net, and the helper
+    returns ``net(obs)`` bit for bit without a launch: on the generic
+    turn's observations (lifted ones for a lifted net) and, for a lifted
+    net, behind NashConv's noise-free lift (a callable: not an EquiNet)."""
+    make, lift, why = NO_GRAD[name]
+    net = make()
+    obs = _obs(3)
+    callers = [(net, obs)]
+    if lift is not None:
+        transform = lift()
+        eps = torch.randn((N, LIFT.channels, 3, 3),
+                          generator=torch.Generator().manual_seed(2))
+        callers = [(net, transform.apply(obs, eps)),
+                   (nashconv.lifted(net, transform), obs)]
+    before = equinet_ops.equinet_frozen.launches
+    for k, (fn, x) in enumerate(callers):
+        feats = equinet_ops.solver_features(fn, x)
+        named = equinet_ops.unsupported([fn], x, feats,
+                                        getattr(fn, "dtype", None))
+        assert (why if k == 0 else "not plain EquiNets") in named
+        with torch.no_grad():
+            want = fn(x)
+        _equal(equinet_ops.forward_no_grad(fn, x), want)
+    assert equinet_ops.equinet_frozen.launches == before
+
+
+def _tree(A=3):
+    cfg = TreeConfig(max_actions=A, max_transitions=2,
+                     transition_threshold=0.3, depth_bound=3)
+    return tree_lib.generate_tree(cfg, seed=0, device="cpu")
+
+
+def _eager_forward(monkeypatch):
+    """``forward_no_grad`` as the generic turn and NashConv ran it before
+    K4 took it: the net's own forward."""
+    monkeypatch.setattr(equinet_ops, "forward_no_grad",
+                        lambda net, obs, *a, **k: net(obs))
+
+
+def _fields(traj):
+    return [traj.indices, traj.policy, traj.actions, traj.rewards,
+            traj.values, traj.obs]
+
+
+@pytest.mark.parametrize("name", sorted(NO_GRAD))
+def test_rollout_and_nashconv_are_what_they_were(name, monkeypatch):
+    """For every net K4 does not take here (the bf16 EquiNet for being on
+    the CPU), the rollout (the generic turn, the MLP's too) and exact
+    NashConv (whole-tree and chunked, behind the lift where there is one)
+    are bitwise the eager forward's."""
+    make, lift, _ = NO_GRAD[name]
+    net, tree = make(), _tree()
+    transform = lift() if lift is not None else None
+    packed = stepping.make_packed_tables(tree)
+    init = torch.ones((64,), dtype=torch.int32)
+
+    def run():
+        traj = engine.rollout_from(
+            tree, packed, net, init, generator=torch.Generator()
+            .manual_seed(5), rows_actor="off", obs_transform=transform,
+            store_obs=True)
+        evals = [rnad.nashconv(tree, net, chunk, transform)
+                 for chunk in (None, tree.size // 3 + 1)]
+        return _fields(traj) + [t for r in evals
+                                for t in (r.row_best, r.col_best)]
+
+    got = run()
+    _eager_forward(monkeypatch)
+    _equal(got, run())
+
+
+def test_rollout_and_nashconv_route_the_net_through_the_kernel(
+        monkeypatch, tmp_path):
+    """Where the kernel engages (here on the CPU, with the gate naming
+    nothing and the plain version in the kernel's place), each generic
+    turn launches it once on the parameters the rollout packed once,
+    inside ``rnad.rollout.forward.fused`` within ``rnad.rollout.forward``,
+    and NashConv once a chunk: the same trajectory and values as the
+    eager forward."""
+    net, tree = _net(A=3, C=16), _tree()
+    packed = stepping.make_packed_tables(tree)
+    init = torch.ones((64,), dtype=torch.int32)
+    chunk = tree.size // 3 + 1
+    play = lambda: engine.rollout_from(
+        tree, packed, net, init, generator=torch.Generator().manual_seed(5),
+        store_obs=True)
+    want = _fields(play()) + [rnad.nashconv(tree, net, chunk).row_best]
+
+    packs, launches = [], []
+    monkeypatch.setattr(equinet_ops, "unsupported", lambda *a: None)
+    monkeypatch.setattr(equinet_ops, "packed_params", lambda n: (
+        packs.append(n) or equinet_ops.pack([n])))
+    monkeypatch.setattr(equinet_ops, "equinet_frozen", lambda *a, **k: (
+        launches.append(k["params"]) or equinet_ops.equinet_frozen_plain(
+            *a, values=k.get("values"))))
+    with timing.trace(str(tmp_path)):
+        got = _fields(play())
+    assert len(packs) == 1 and len(launches) == tree.max_depth
+    assert all(p is launches[0] and p is not None for p in launches)
+    _equal(got, want[:-1])
+    launches.clear()
+    _equal([rnad.nashconv(tree, net, chunk).row_best], want[-1:])
+    assert len(launches) == -(-tree.size // chunk)
+
+    events = json.loads((tmp_path / "trace.json").read_text())["traceEvents"]
+    spans = [(e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
+             if e.get("cat") == "user_annotation"]
+    outer = [s for s in spans if s[2] == "rnad.rollout.forward"]
+    inner = [s for s in spans if s[2] == "rnad.rollout.forward.fused"]
+    assert len(outer) == len(inner) == tree.max_depth
+    assert all(o[0] <= i[0] and i[1] <= o[1] for o, i in
+               zip(sorted(outer), sorted(inner)))
+
+
+def test_pack_is_the_kernels_parameter_order():
+    """``pack`` lays out each net's leaves in turn; ``packed_params`` packs
+    only what the kernel may take (a plain bf16 EquiNet on a card)."""
+    a, b = _net(seed=0), _net(seed=1)
+    want = torch.cat([t.reshape(-1) for n in (a, b)
+                      for t in equinet_ops.leaves(n)])
+    assert torch.equal(equinet_ops.pack([a, b]), want)
+    assert equinet_ops.pack([a]).numel() * 2 == want.numel()
+    for net in (a, _net(dtype="float32"), _net(kind="MLP"),
+                _tensor_parallel(_net())):
+        assert equinet_ops.packed_params(net) is None  # all on the CPU

@@ -77,7 +77,8 @@ def _one(spans, name):
     ("off", MLP), ("heads", MLP), ("frozen", MLP), ("all", MLP),
     ("off", EQUINET)], ids=["off", "heads", "frozen", "all", "equinet"])
 def test_train_step_spans_nest(small_tree, tmp_path, fuse, net):
-    """One fused step under a profiler: the step holds the rollout, then
+    """One fused step under a profiler: the step holds the rollout (which
+    holds each generic turn's net forward; the MLP's turns are K1's), then
     the learner, which holds its passes in order; "all" has no frozen
     pass of its own."""
     run = _run(small_tree, tmp_path, net, fuse_net_passes=fuse)
@@ -85,12 +86,16 @@ def test_train_step_spans_nest(small_tree, tmp_path, fuse, net):
     spans = _spans(tmp_path, lambda: run.train_step(run.state, 0.5))
     learner = [n for n in LEARNER
                if fuse != "all" or n != "rnad.learn.frozen"]
-    assert [s[2] for s in spans] == ["rnad.train_step", "rnad.rollout",
-                                     "rnad.learn"] + learner
+    turns = ["rnad.rollout.forward"] * (
+        run.tree.max_depth if net is EQUINET else 0)
+    assert [s[2] for s in spans] == ["rnad.train_step", "rnad.rollout"
+                                     ] + turns + ["rnad.learn"] + learner
     step, rollout, learn = (_one(spans, n) for n in
                             ("rnad.train_step", "rnad.rollout", "rnad.learn"))
     assert _within(rollout, step) and _within(learn, step)
     assert _in_order([rollout, learn])
+    forwards = [s for s in spans if s[2] == "rnad.rollout.forward"]
+    assert all(_within(f, rollout) for f in forwards) and _in_order(forwards)
     parts = [_one(spans, n) for n in learner]
     assert all(_within(p, learn) for p in parts) and _in_order(parts)
 
