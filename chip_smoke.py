@@ -26,7 +26,13 @@ Fifteen phases, and any failure exits nonzero (phase 15 runs before phase
    shape (three bf16 EquiNets, A = 5, 64 channels, depth 2, primed, over
    393,216 observations) and at a flagship rollout turn's (one net over
    65,536; ``equinet_probe.probe``): every output bitwise, two launches
-   equal; each timed against K4's bound.
+   equal; each timed against K4's bound.  K5 (the trainable net's
+   backward) once at the flagship learner's shape, one net over 393,216
+   observations with random nonzero gradients of its logits and values
+   (``equinet_probe.train_probe``): every leaf's gradient within
+   ``K5_LEAF_GAP`` of eager autograd's (relative to the leaf's largest),
+   the forward bitwise, two launches equal; the pass timed against the
+   eager pass and K5 against its bound.
 3. Drive the MLP path: the demo tree (eta_sweep's config, seed 0) and 30
    fused R-NaD train steps at 32768 lanes with a width-256 MLP through
    ``RNaD.run`` and ``final_eval``, with the kernels' launch counters set to
@@ -41,9 +47,9 @@ Fifteen phases, and any failure exits nonzero (phase 15 runs before phase
    tree (65440 nodes), counters zeroed just before and read just after:
    per step max_depth + 1 launches of K3, max_depth of K2 (one a turn; the
    learner reads the stored observations) and none of K1, and
-   one K3 launch per chunk of each chunked NashConv eval, and no K4
-   launch (the float32 EquiNet's rollout, frozen passes and NashConv stay
-   eager).  The same checks
+   one K3 launch per chunk of each chunked NashConv eval, and no K4 or K5
+   launch (the float32 EquiNet's rollout, learner, frozen passes and
+   NashConv stay eager).  The same checks
    and throughput as phase 3, the peak device memory, and one step at 256
    lanes on the card against the CPU.
 5. Drive the flagship path through the train CLI, ``rnad_tpu_torch.train.
@@ -52,8 +58,9 @@ Fifteen phases, and any failure exits nonzero (phase 15 runs before phase
    RM+ iterations) at 32768 lanes on the native generator's 785,768-node A =
    5 depth-6 tree, cut to 20 steps and 2 evals (the cuts are printed).
    Checks the tree's size, depth and hash; per step 6 launches of K2, 7
-   of K3, 7 of K4 (one a rollout turn, one for the three frozen nets) and
-   none of K1, and one K3 and one K4 launch per eval chunk; the step-0
+   of K3, 8 of K4 (one a rollout turn, one for the three frozen nets, one
+   for the learner's forward), 1 of K5 and none of K1, and one K3 and one
+   K4 launch per eval chunk; the step-0
    NashConv of checkpoint (0, 0) within 3.1e-4 of ``rnad_tpu``'s 0.0154796;
    finite metrics, ``best.ckpt`` and ``metrics.jsonl`` written,
    ``best.json`` holding the lowest eval; a second ``main`` with the same
@@ -160,9 +167,9 @@ Fifteen phases, and any failure exits nonzero (phase 15 runs before phase
    on both ranks; (g) flagship-3 on phase 5's stored tree cut to one update
    period of 5 steps with ``--data-parallel`` (one NCCL rank: K3 and the
    bf16 EquiNet under the group, the eval through ``nashconv_sharded``)
-   against the plain run: launches equal (6 of K2 and 7 of K3 and of K4 a
-   step, K3's and K4's eval chunks), weights bitwise, NashConv within
-   1e-6.
+   against the plain run: launches equal (6 of K2, 7 of K3, 8 of K4 and
+   1 of K5 a step, K3's and K4's eval chunks), weights bitwise, NashConv
+   within 1e-6.
 11. Drive the model axis (``parallel/tensor_parallel.py`` on
    ``runtime.grid``): (a) phase 3's config through ``RNaD`` on a 1 x 1
    grid (one NCCL rank: the nets tensor-parallel over a model axis of one,
@@ -279,6 +286,9 @@ RM_ITERS = 128
 # the flagship learner's observations: 32768 lanes x 12 half-steps
 EQUI_FROZEN_N = 393216
 EQUI_TURN_N = 65536  # one flagship rollout turn: two seats of 32768 lanes
+# K5's leaf gradients against eager autograd's, the largest gap over the
+# leaf's largest magnitude (bf16 roundings of float32 sums in another order)
+K5_LEAF_GAP = 0.02
 # flagship-3 (docs/runs/r4-flagship3.params.json): its tree, net and R-NaD
 # flags, then the cuts, each (flag, value, flagship-3's value)
 FLAGSHIP_TREE = ["--native-gen", "--max-actions", "5", "--max-transitions",
@@ -706,6 +716,9 @@ def main() -> int:
                   "learner_probe": 0, "rollout_probe": 0}
     k4_by_path = {"check": k4.pop("launches"), "equinet": equi["k4"],
                   "flagship": flag["k4"], "dp_flagship": dp["g"]["k4"]}
+    k5 = k4.pop("backward")
+    k5_by_path = {"equinet": equi["k5"], "flagship": flag["k5"],
+                  "dp_flagship": dp["g"]["k5"]}
     kernels = [
         {"name": "fused_turn", "route": "cuda",
          "source": "rnad_tpu_torch/csrc/fused_turn.cu",
@@ -740,6 +753,10 @@ def main() -> int:
          "source": "rnad_tpu_torch/csrc/equinet.cu",
          "replaces": None, "launches": sum(k4_by_path.values()),
          "launches_by_path": k4_by_path, **k4},
+        {"name": "equinet_backward", "route": "cuda",
+         "source": "rnad_tpu_torch/csrc/equinet.cu",
+         "replaces": None, "launches": sum(k5_by_path.values()),
+         "launches_by_path": k5_by_path, **k5},
         {"name": "lookup (flagship shapes)", "route": "cuda",
          "source": "rnad_tpu_torch/csrc/lookup.cu",
          "replaces": "rnad_tpu/ops/pallas_lookup.py:45",
@@ -921,7 +938,24 @@ def check_equinet_phase():
                          "bound_ms": res["bound_ms"],
                          "bound_by": res["bound_by"], "library_ms": None,
                          "observations": n, "nets": nets_run}
-    return {**out[3], "rollout": out[1],
+    res = equinet_probe.train_probe(EQUI_FROZEN_N, iters=5)
+    worst = max(v["rel_gap"] for v in res["k5"].values())
+    log(f"K5 equinet_backward ({EQUI_FROZEN_N} observations, one net, A = "
+        f"5, C = 64, depth 2, primed): forward bitwise "
+        f"{res['forward_bitwise']}, deterministic {res['deterministic']}, "
+        f"largest leaf gap to eager {worst:.3g} ("
+        + ", ".join(f"{k} {v['rel_gap']:.2g}" for k, v in res["k5"].items())
+        + f"); pass on K4 + K5 {res['kernels_ms']:.3f} ms, eager "
+        f"{res['eager_ms']:.3f} ms; K5 {res['k5_ms']:.3f} ms, bound "
+        f"{res['k5_bound_ms']:.4f} ms ({res['k5_share_pct']:.1f} %)")
+    if (not res["forward_bitwise"] or not res["deterministic"]
+            or res["nonfinite"] or not worst <= K5_LEAF_GAP):
+        raise AssertionError(f"K5 against eager autograd: {res}")
+    backward = {"max_abs_err": worst, "ms": res["k5_ms"],
+                "plain_ms": res["eager_ms"], "bound_ms": res["k5_bound_ms"],
+                "bound_by": "operations", "library_ms": None,
+                "observations": EQUI_FROZEN_N, "nets": 1}
+    return {**out[3], "rollout": out[1], "backward": backward,
             "launches": equinet_lib.equinet_frozen.launches}
 
 
@@ -947,6 +981,7 @@ def equinet_phase(run, card):
     lookup_lib.lookup.launches = 0
     rmplus_lib.rmplus.launches = 0
     equinet_lib.equinet_frozen.launches = 0
+    equinet_lib.equinet_backward.launches = 0
     t0 = time.perf_counter()
     run.run(log_mod=1)
     final = run.final_eval()
@@ -955,7 +990,8 @@ def equinet_phase(run, card):
     counts = {"k1": fused_turn_lib.fused_turn.launches,
               "k2": lookup_lib.lookup.launches,
               "k3": rmplus_lib.rmplus.launches,
-              "k4": equinet_lib.equinet_frozen.launches}
+              "k4": equinet_lib.equinet_frozen.launches,
+              "k5": equinet_lib.equinet_backward.launches}
     peak = torch.cuda.max_memory_allocated() / 2**30
     steps = run.state.total_steps
     losses = [m for _, m in run.history if "loss" in m]
@@ -963,7 +999,7 @@ def equinet_phase(run, card):
     log(f"EquiNet path: {steps} train steps + {len(evals)} NashConv evals "
         f"({chunks} chunks of {chunk} nodes each) in {wall:.2f} s; launches "
         f"K1 {counts['k1']}, K2 {counts['k2']}, K3 {counts['k3']}, K4 "
-        f"{counts['k4']}; peak "
+        f"{counts['k4']}, K5 {counts['k5']}; peak "
         f"device memory {peak:.3f} GiB")
     log(f"  loss first {losses[0]['loss']:.6f} last {losses[-1]['loss']:.6f};"
         f" NashConv " + ", ".join(f"{v:.6f}" for v in evals))
@@ -978,9 +1014,10 @@ def equinet_phase(run, card):
         raise AssertionError(f"expected a boundary eval and a final one: "
                              f"{evals}")
     # K2 a turn; the learner solves the stored observations (K3) without
-    # a regather; the float32 EquiNet's frozen passes stay eager (no K4)
+    # a regather; the float32 EquiNet's passes stay eager (no K4, no K5)
     want = {"k1": 0, "k2": EQUI_STEPS * md,
-            "k3": EQUI_STEPS * (md + 1) + len(evals) * chunks, "k4": 0}
+            "k3": EQUI_STEPS * (md + 1) + len(evals) * chunks, "k4": 0,
+            "k5": 0}
     if counts != want:
         raise AssertionError(f"EquiNet path launches {counts}, want {want}")
 
@@ -1071,6 +1108,7 @@ def flagship_phase(card, gen):
     lookup_lib.lookup.launches = 0
     rmplus_lib.rmplus.launches = 0
     equinet_lib.equinet_frozen.launches = 0
+    equinet_lib.equinet_backward.launches = 0
     t0 = time.perf_counter()
     run = train.main(argv)
     torch.cuda.synchronize()
@@ -1078,7 +1116,8 @@ def flagship_phase(card, gen):
     counts = {"k1": fused_turn_lib.fused_turn.launches,
               "k2": lookup_lib.lookup.launches,
               "k3": rmplus_lib.rmplus.launches,
-              "k4": equinet_lib.equinet_frozen.launches}
+              "k4": equinet_lib.equinet_frozen.launches,
+              "k5": equinet_lib.equinet_backward.launches}
     peak = torch.cuda.max_memory_allocated() / 2**30
     tree, cfg, store = run.tree, run.cfg, run.store
     gen_line = next(m for m in capture.lines if m.startswith("tree generated"))
@@ -1102,7 +1141,8 @@ def flagship_phase(card, gen):
     log(f"flagship path: {steps} train steps + {len(evals)} NashConv evals "
         f"({chunks} chunks of {chunk} nodes) in {wall:.2f} s with the tree's "
         f"generation and store; launches K1 {counts['k1']}, K2 "
-        f"{counts['k2']}, K3 {counts['k3']}, K4 {counts['k4']}; peak device "
+        f"{counts['k2']}, K3 {counts['k3']}, K4 {counts['k4']}, K5 "
+        f"{counts['k5']}; peak device "
         f"memory {peak:.3f} "
         f"GiB ({resident:.3f} GiB resident from earlier phases)")
     log(f"  loss first {losses[0]['loss']:.6f} last {losses[-1]['loss']:.6f};"
@@ -1115,10 +1155,12 @@ def flagship_phase(card, gen):
     if bad or len(evals) != 2 or not all(math.isfinite(v) for v in evals):
         raise AssertionError(f"flagship metrics: {bad}, evals {evals}")
     # K4: the bf16 EquiNet's no-grad forward once a rollout turn and once
-    # an eval chunk, and the three frozen nets once a learner step
+    # an eval chunk, the three frozen nets and the learner's forward once
+    # a learner step; K5 the learner's backward once a step
     want = {"k1": 0, "k2": FLAGSHIP_STEPS * md,
             "k3": FLAGSHIP_STEPS * (md + 1) + len(evals) * chunks,
-            "k4": FLAGSHIP_STEPS * (md + 1) + len(evals) * chunks}
+            "k4": FLAGSHIP_STEPS * (md + 2) + len(evals) * chunks,
+            "k5": FLAGSHIP_STEPS}
     if counts != want:
         raise AssertionError(f"flagship launches {counts}, want {want}")
     best = store.load_best_meta()
@@ -1255,7 +1297,7 @@ def flagship_phase(card, gen):
                               atol=2 * cfg.lr)
     cli_log.removeHandler(capture)
     return {"k2": counts["k2"], "k3": counts["k3"], "k4": counts["k4"],
-            "lookup": lookup, "rmplus": rm}
+            "k5": counts["k5"], "lookup": lookup, "rmplus": rm}
 
 
 def k1_bound_of(fused_turn_lib, args, actions, A, T, store_obs=False):
@@ -2274,6 +2316,7 @@ def _zero_counts():
     lookup_lib.lookup.launches = 0
     rmplus_lib.rmplus.launches = 0
     equinet_lib.equinet_frozen.launches = 0
+    equinet_lib.equinet_backward.launches = 0
 
 
 def _in_turns(names, step, iters=10):
@@ -2554,7 +2597,8 @@ def dp_flagship(card):
         torch.cuda.synchronize()
         walls[name] = time.perf_counter() - t0
         counts[name] = {**_counts(),
-                        "k4": equinet_lib.equinet_frozen.launches}
+                        "k4": equinet_lib.equinet_frozen.launches,
+                        "k5": equinet_lib.equinet_backward.launches}
     dp, plain = runs["dp"], runs["plain"]
     if (dp.state.total_steps, plain.state.total_steps) != (
             DP_FLAGSHIP_STEPS, DP_FLAGSHIP_STEPS):
@@ -2563,11 +2607,13 @@ def dp_flagship(card):
                              f"{plain.state.total_steps} steps")
     md = dp.tree.max_depth
     # K3 and K4 each once a rollout turn, once a learner step and once an
-    # eval chunk
+    # eval chunk, K4 once more a learner step (the learner's forward) and
+    # K5 once a step (its backward, this rank's gradient)
     if (counts["dp"] != counts["plain"] or counts["dp"]["k1"] != 0
             or counts["dp"]["k2"] != DP_FLAGSHIP_STEPS * md
             or counts["dp"]["k3"] <= DP_FLAGSHIP_STEPS * (md + 1)
-            or counts["dp"]["k4"] != counts["dp"]["k3"]):
+            or counts["dp"]["k4"] != counts["dp"]["k3"] + DP_FLAGSHIP_STEPS
+            or counts["dp"]["k5"] != DP_FLAGSHIP_STEPS):
         raise AssertionError(f"data-parallel flagship launches "
                              f"{counts['dp']}, plain {counts['plain']}")
     _assert_bitwise(dp, _weights(plain), "data-parallel flagship")

@@ -21,12 +21,27 @@ time, K4's bound (``operations`` at the H100 SXM's dense bf16 rate,
 
     python3 -m rnad_tpu_torch.equinet_probe --rollout-seeds 20
 
-instead plays flagship rollouts (the native generator's 785,768-node A = 5
+plays flagship rollouts (the native generator's 785,768-node A = 5
 tree, 32,768 lanes, the primed bf16 EquiNet drawn from each seed 0, 1,
 ...) twice on the same noise, with K4 in every generic turn and with the
 net's eager forward, and prints one JSON line a seed and a summary: the
 lanes whose indices or actions part, and the share of policy and value
-elements that differ.  Without a card it exits nonzero.
+elements that differ.
+
+    python3 -m rnad_tpu_torch.equinet_probe --train [--n 393216] [--ties]
+
+takes one trainable net of that shape (``--nets`` is ignored) through its
+learner's pass, forward and backward with random nonzero gradients of the
+logits and values: on K4 and K5 (``equinet.forward_train``) and eagerly
+(``EquiNet.forward`` under autograd), and prints one JSON line: each
+leaf's largest gap to the eager gradient over the leaf's largest
+magnitude, and its share of elements that differ, for K5 and for the
+plain twin (``equinet_backward_plain``); whether the forwards agree
+bitwise and two backward launches do; both passes' times (CUDA events
+over ``--iters`` passes after a warm one), K5's alone and its bound
+(``backward_operations`` at the dense bf16 rate).  ``--ties`` rounds the
+payoffs to a few levels so that many cells tie in the max pools.  Without
+a card it exits nonzero.
 """
 
 from __future__ import annotations
@@ -188,6 +203,83 @@ def probe(n: int, A: int = 5, C: int = 64, depth: int = 2,
             "power_limit": _power_limit()}
 
 
+def tied(obs: torch.Tensor) -> torch.Tensor:
+    """``obs`` with its payoffs rounded to multiples of 1/2, so that cells
+    of a row or a column tie (the max pools' gradient splits between
+    them)."""
+    out = obs.clone()
+    out[:, 0] = torch.round(out[:, 0] * 2) / 2
+    return out
+
+
+def leaf_gaps(got, want) -> list:
+    """For each leaf, the largest gap to ``want`` over ``want``'s largest
+    magnitude, and the share of elements that differ."""
+    out = []
+    for g, w in zip(got, want):
+        scale = float(w.abs().max()) if w.numel() else 0.0
+        gap = float((g - w).abs().max()) if w.numel() else 0.0
+        out.append({"rel_gap": gap / scale if scale else gap,
+                    "differ_share": float((g != w).float().mean())})
+    return out
+
+
+def train_probe(n: int, A: int = 5, C: int = 64, depth: int = 2,
+                solver_iters: int = 128, primed: bool = True, seed: int = 0,
+                iters: int = 10, ties: bool = False) -> dict:
+    """The learner's pass of one trainable bf16 EquiNet on K4 and K5
+    against the eager pass (the module docstring's ``--train``)."""
+    dev = torch.device("cuda")
+    net = frozen_nets(A, C, depth, solver_iters, primed, seed,
+                      dev)[0].requires_grad_(True)
+    obs = observations(n, A, seed + 1, dev)
+    if ties:
+        obs = tied(obs)
+    feats = (nets.equinet_solver_features(net, obs) if solver_iters
+             else None)
+    if not equinet.trains(net, obs, feats):
+        raise ValueError("K4 and K5 do not take this net")
+    g = torch.Generator(device=dev).manual_seed(seed + 2)
+    dl = torch.randn((n, A), generator=g, device=dev)
+    dv = torch.randn((n,), generator=g, device=dev)
+    leaves = equinet.leaves(net)
+
+    def grads(forward):
+        out = forward()
+        return out, torch.autograd.grad(out, leaves, (dl, dv))
+
+    (lg_e, v_e), want = grads(lambda: net(obs, feats))
+    (lg_k, v_k), got = grads(lambda: equinet.forward_train(net, obs, feats))
+    _, again = grads(lambda: equinet.forward_train(net, obs, feats))
+    plain = equinet.equinet_backward_plain(net, obs, feats, dl, dv)
+    params = equinet.pack([net])
+    k5 = _time_ms(lambda: equinet.equinet_backward(net, obs, feats, params,
+                                                   dl, dv), iters)
+    kernels = _time_ms(lambda: grads(lambda: equinet.forward_train(
+        net, obs, feats)), iters)
+    eager = _time_ms(lambda: grads(lambda: net(obs, feats)),
+                     max(1, iters // 2))
+    c0 = equinet.input_channels(net)
+    ops = equinet.backward_operations(n, A, C, depth, c0)
+    order = {id(p): k for k, p in net.named_parameters()}
+    names = [order[id(p)] for p in leaves]
+    return {"n": n, "A": A, "C": C, "depth": depth, "c0": c0,
+            "primed": net.primed, "ties": ties,
+            "forward_bitwise": bool(torch.equal(lg_k, lg_e)
+                                    and torch.equal(v_k, v_e)),
+            "k5": dict(zip(names, leaf_gaps(got, want))),
+            "plain": dict(zip(names, leaf_gaps(plain, want))),
+            "k5_vs_plain": dict(zip(names, leaf_gaps(got, plain))),
+            "deterministic": all(torch.equal(x, y)
+                                 for x, y in zip(got, again)),
+            "nonfinite": sum(int((~torch.isfinite(x)).sum()) for x in got),
+            "kernels_ms": kernels, "eager_ms": eager, "k5_ms": k5,
+            "k5_operations": ops, "k5_bound_ms": 1e3 * ops / PEAK_BF16,
+            "k5_share_pct": 100.0 * 1e3 * ops / PEAK_BF16 / k5,
+            "device": torch.cuda.get_device_name(dev),
+            "power_limit": _power_limit()}
+
+
 # flagship-3's tree (docs/runs/r4-flagship3.params.json; the native
 # generator, seed 0: 785,768 nodes) and its rollout's lanes
 FLAGSHIP_TREE = TreeConfig(
@@ -252,6 +344,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     parser.add_argument("--iters", type=int, default=20)
     parser.add_argument("--nets", type=int, default=3, choices=(1, 2, 3))
     parser.add_argument("--rollout-seeds", type=int, default=0)
+    parser.add_argument("--train", action="store_true")
+    parser.add_argument("--ties", action="store_true")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("needs a CUDA card", file=sys.stderr)
@@ -273,6 +367,12 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                                        for r in rows),
             "device": torch.cuda.get_device_name(0),
             "power_limit": _power_limit()}), flush=True)
+        return 0
+    if args.train:
+        print(json.dumps(train_probe(
+            args.n, args.actions, args.channels, args.depth,
+            args.solver_iters, not args.unprimed, args.seed, args.iters,
+            args.ties)), flush=True)
         return 0
     print(json.dumps(probe(args.n, args.actions, args.channels, args.depth,
                            args.solver_iters, not args.unprimed, args.seed,

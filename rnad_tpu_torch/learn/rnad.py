@@ -454,6 +454,10 @@ def learn_loss(state: TrainState, packed: stepping.PackedTables,
             logits, v_raw = logits4[:, 0], values4[:, 0]
             frozen = (logits4[:, 1].detach(), values4[:, 1].detach(),
                       logits4[:, 2].detach(), logits4[:, 3].detach())
+        elif equinet_ops.trains(state.net, obs_flat, inputs.solver_feats):
+            # a bf16 EquiNet on the card: forward on K4, backward on K5
+            logits, v_raw = equinet_ops.forward_train(
+                state.net, obs_flat, inputs.solver_feats)
         else:
             logits, v_raw = nets.forward_train(
                 state.net, obs_flat, valid.reshape(T * B),

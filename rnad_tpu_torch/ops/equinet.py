@@ -24,6 +24,21 @@ rollout and NashConv.  ``pack`` lays the nets' parameters out as the
 kernel reads them, once for a rollout's turns (``packed_params``).
 ``equinet_frozen_plain`` is the nets' own forwards.
 ``equinet_frozen.launches`` counts the launches.
+
+Kernel K5 (``equinet_backward``, in the same source) is the backward of one
+trainable net's forward: ``forward_train`` is ``net(obs, feats)`` as one
+autograd function (``EquiNetTrain``) whose forward is a K4 launch that
+saves only its inputs and the packed parameters, and whose backward is
+one K5 launch that recomputes each tile's forward with K4's tile code and
+takes the gradient back through it on chip, then one launch that adds the
+blocks' partial sums in a fixed order: a float32 gradient for each of the
+net's ``leaves``, bf16-valued where the forward casts the leaf to
+bfloat16, equal from run to run.  ``backward_unsupported`` names the
+shapes K5 does not take (beside ``unsupported``'s); ``trains`` is the
+learner's gate.  ``equinet_backward_plain`` is K5's computation in plain
+PyTorch: the same recompute, the same pooled gradients and tie split, the
+same rounding points in the compute dtype.  ``equinet_backward.launches``
+counts K5's launches.
 """
 
 from __future__ import annotations
@@ -49,6 +64,19 @@ SOLVER_CHANNELS = 6
 ARGTYPES = ((ctypes.c_void_p,) * 5
             + (ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
                ctypes.c_int64) + (ctypes.c_int32,) * 6 + (ctypes.c_void_p,))
+
+# rnad_equinet_backward(obs, feats, log_x, v_rm, params, per_net, dlogits,
+#                       dvalue, partial, max_blocks, grads, N, A, cobs, C,
+#                       depth, primed, stream)
+BACKWARD_ARGTYPES = ((ctypes.c_void_p,) * 5 + (ctypes.c_int64,)
+                     + (ctypes.c_void_p,) * 3 + (ctypes.c_int32,
+                                                 ctypes.c_void_p,
+                                                 ctypes.c_int64)
+                     + (ctypes.c_int32,) * 5 + (ctypes.c_void_p,))
+MAX_TRAIN_CHANNELS = 64
+# the 16-row slices of the kernels' weight gradients that K5's threads hold
+# in registers, four a warp of its 8
+MAX_TRAIN_SLICES = 32
 
 # each net's (logits (N, A), values (N,) or None)
 _Outputs = List[Tuple[torch.Tensor, Optional[torch.Tensor]]]
@@ -262,3 +290,207 @@ def forward_no_grad(net, obs: torch.Tensor,
                                             params=params)
     return logits, values
 
+
+def backward_slices(C: int, depth: int) -> int:
+    """The 16-row slices of the kernels' weight gradients: layer 0's six
+    blocks (at most 16 input channels each) and six blocks of C / 16 a
+    layer after it."""
+    return 6 + (depth - 1) * 6 * (C // 16)
+
+
+def backward_unsupported(net) -> Optional[str]:
+    """Why K5 cannot take the backward of ``net``'s forward, where
+    ``unsupported([net], ...)`` names nothing, or None: it takes C up to 64
+    (its weights resident in shared memory beside a tile's activations
+    and their gradients) with at most ``MAX_TRAIN_SLICES`` 16-row slices
+    of weight gradient (depth 5 at C = 16, 3 at C = 32, 2 at C = 48 and
+    64)."""
+    C, depth = net.channels, net.depth
+    if C > MAX_TRAIN_CHANNELS:
+        return f"C = {C} (the backward takes up to {MAX_TRAIN_CHANNELS})"
+    if backward_slices(C, depth) > MAX_TRAIN_SLICES:
+        return (f"depth {depth} at C = {C} ({backward_slices(C, depth)} "
+                f"weight-gradient slices, at most {MAX_TRAIN_SLICES})")
+    return None
+
+
+def trains(net, obs: torch.Tensor, solver_feats) -> bool:
+    """Whether the learner's pass of ``net`` over ``obs`` runs on K4 and
+    K5 (``forward_train``): a net both kernels take, in its own dtype."""
+    return (unsupported([net], obs, solver_feats,
+                        getattr(net, "dtype", None)) is None
+            and backward_unsupported(net) is None)
+
+
+def backward_operations(n: int, A: int, C: int, depth: int, c0: int) -> int:
+    """K5's products over n observations, an FMA counting two: the
+    recomputed forward, every product's weight gradient (as many as the
+    forward's) and the input gradient of every layer after the first (the
+    heads' input gradient is a broadcast product, one a tower element)."""
+    forward = operations(n, A, C, depth, c0, nets=1)
+    rows = n * (A * A + 4 * A + 1)
+    inputs = (depth - 1) * 2 * rows * C * C + 2 * n * A * C + 2 * n * C
+    return 2 * forward + inputs
+
+
+def _split(flat: torch.Tensor, net) -> List[torch.Tensor]:
+    """``flat`` (``pack([net])``'s layout) as a tensor a leaf."""
+    shapes = [leaf.shape for leaf in leaves(net)]
+    parts = flat.split([leaf.numel() for leaf in leaves(net)])
+    return [part.view(shape) for part, shape in zip(parts, shapes)]
+
+
+def equinet_backward(net: nets_lib.EquiNet, obs: torch.Tensor,
+                     solver_feats, params: torch.Tensor,
+                     dlogits: torch.Tensor, dvalue: torch.Tensor
+                     ) -> List[torch.Tensor]:
+    """The gradient of each of ``net``'s ``leaves`` (float32, the leaf's
+    shape) from the gradients ``dlogits`` (N, A) and ``dvalue`` (N,) of
+    its forward over ``obs`` with ``solver_feats`` in the net's dtype: one
+    K5 launch and one launch that adds its blocks' sums.  ``params`` is
+    ``pack([net])``.  The caller has checked that ``trains`` holds."""
+    N, cobs = obs.shape[0], obs.shape[1]
+    dev = obs.device
+    grads = torch.empty((params.numel(),), dtype=torch.float32, device=dev)
+    if N == 0:
+        return _split(grads.zero_(), net)
+    blocks = torch.cuda.get_device_properties(dev).multi_processor_count
+    partial = torch.empty((blocks, params.numel()), dtype=torch.float32,
+                          device=dev)
+    obs = obs.float().contiguous()
+    dlogits = dlogits.float().contiguous()
+    dvalue = dvalue.float().contiguous()
+    feats = log_x = v_rm = None
+    if net.solver_iters:
+        feats, log_x, v_rm = (t.contiguous() for t in solver_feats)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    fn = _build.entry("equinet", "rnad_equinet_backward", BACKWARD_ARGTYPES)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(obs.data_ptr(), ptr(feats),
+                 ptr(log_x) if net.primed else None,
+                 ptr(v_rm) if net.primed else None, params.data_ptr(),
+                 params.numel(), dlogits.data_ptr(), dvalue.data_ptr(),
+                 partial.data_ptr(), blocks, grads.data_ptr(), N,
+                 net.max_actions, cobs, net.channels, net.depth,
+                 int(net.primed), stream)
+    _build.check("equinet", "rnad_equinet_backward", err)
+    equinet_backward.launches += 1
+    return _split(grads, net)
+
+
+equinet_backward.launches = 0  # K5 launches (each with its sum)
+
+
+@torch.no_grad()
+def equinet_backward_plain(net: nets_lib.EquiNet, obs: torch.Tensor,
+                           solver_feats, dlogits: torch.Tensor,
+                           dvalue: torch.Tensor,
+                           dtype: Optional[torch.dtype] = None
+                           ) -> List[torch.Tensor]:
+    """K5's computation in plain PyTorch: ``net``'s forward over ``obs``
+    in ``dtype`` (the net's own by default) recomputed with each layer's
+    input kept, then the gradient of each leaf taken back by hand as
+    autograd takes it through ``EquiNet.forward``, rounding to ``dtype``
+    where autograd's bf16 graph rounds: the incoming gradients, each
+    product, each pooled sum, each mean's and max's broadcast and each add
+    of the input gradient (in the order the engine accumulates them), and
+    each leaf's gradient once.  The max pools' gradient splits evenly
+    between tied maxima.  Float32 sums in torch's order; in float32 every
+    rounding is the identity."""
+    dtype = dtype or net.dtype
+    rnd = lambda t: t.to(dtype).float()
+    A, C, depth = net.max_actions, net.channels, net.depth
+    x = obs.permute(0, 2, 3, 1)
+    if net.solver_iters:
+        feats, log_x, v_rm = solver_feats
+        x = torch.cat([x, feats], dim=-1)
+    hs = [x.to(dtype)]
+    for i in range(depth):
+        hs.append(torch.relu(getattr(net, f"ex{i}")(hs[-1], dtype)))
+    x0, top = hs[0], hs[-1]
+    dl, dv = rnd(dlogits), rnd(dvalue)
+    row = torch.cat([top.mean(dim=2), x0.mean(dim=2)], dim=-1).float()
+    glob = torch.cat([top.mean(dim=(1, 2)), x0.mean(dim=(1, 2))],
+                     dim=-1).float()
+    heads = [torch.einsum("naf,na->f", row, dl)[None], dl.sum()[None],
+             torch.einsum("nf,n->f", glob, dv)[None], dv.sum()[None]]
+    wp, wv = rnd(net.policy.weight[0, :C]), rnd(net.value.weight[0, :C])
+    d_row = rnd(rnd(dl[..., None] * wp) * (1.0 / A))  # (N, A, C)
+    d_glob = rnd(rnd(dv[:, None] * wv) * (1.0 / (A * A)))  # (N, C)
+    dz = rnd(d_row[:, :, None] + d_glob[:, None, None])
+    dz = torch.where(top.float() > 0, dz, torch.zeros_like(dz))
+    layers = [None] * depth
+    for l in reversed(range(depth)):
+        h = hs[l]
+        hf, cin = h.float(), h.shape[-1]
+        rows_ = rnd(dz.sum(2))  # (N, A, C): the row pools' gradient
+        cols_ = rnd(dz.sum(1))
+        glob_ = rnd(dz.sum((1, 2)))
+        pools = [hf, h.mean(dim=2).float(), h.mean(dim=1).float(),
+                 h.mean(dim=(1, 2)).float(), h.amax(dim=2).float(),
+                 h.amax(dim=1).float()]
+        grads = [dz, rows_, cols_, glob_, rows_, cols_]
+        kernel = torch.cat([p.reshape(-1, cin).t() @ g.reshape(-1, C)
+                            for p, g in zip(pools, grads)])
+        layers[l] = [kernel, dz.sum((0, 1, 2))]
+        if l == 0:
+            break
+        W = rnd(getattr(net, f"ex{l}").kernel)
+        prods = [rnd(g @ W[k * cin:(k + 1) * cin].t())
+                 for k, g in enumerate(grads)]
+        zero = torch.zeros_like(hf)
+        ties_r = hf == pools[4][:, :, None]
+        ties_c = hf == pools[5][:, None]
+        x4 = torch.where(ties_r, rnd(prods[4][:, :, None]
+                                     / ties_r.sum(2, keepdim=True)), zero)
+        x5 = torch.where(ties_c, rnd(prods[5][:, None]
+                                     / ties_c.sum(1, keepdim=True)), zero)
+        dh = rnd(x5 + x4)
+        dh = rnd(dh + rnd(prods[3] * (1.0 / (A * A)))[:, None, None])
+        dh = rnd(dh + rnd(prods[2] * (1.0 / A))[:, None])
+        dh = rnd(dh + rnd(prods[1] * (1.0 / A))[:, :, None])
+        dh = rnd(dh + prods[0])
+        dz = torch.where(hf > 0, dh, zero)
+    out = [rnd(g) for layer in layers for g in layer] + [rnd(g)
+                                                         for g in heads]
+    if net.primed:
+        out += [(dlogits * log_x).sum(), (dvalue * v_rm).sum()]
+    return out
+
+
+class EquiNetTrain(torch.autograd.Function):
+    """``net(obs, feats)`` with a gradient for each of ``net``'s leaves
+    (the trailing inputs): the forward one K4 launch (inside the span
+    ``rnad.learn.forward.fused``, with the parameters' pack), saving only
+    the observations, the solver features and the pack; the backward one
+    K5 launch and its sum (inside ``rnad.learn.backward.fused``)."""
+
+    @staticmethod
+    def forward(ctx, net, obs, n_feats, *rest):
+        feats = rest[:n_feats] or None
+        with timing.span("rnad.learn.forward.fused"):
+            params = pack([net])
+            [(logits, values)] = equinet_frozen([net], obs, feats, net.dtype,
+                                                params=params)
+        ctx.net, ctx.n_feats = net, n_feats
+        ctx.save_for_backward(obs, params, *rest[:n_feats])
+        return logits, values
+
+    @staticmethod
+    def backward(ctx, dlogits, dvalue):
+        obs, params, *feats = ctx.saved_tensors
+        with timing.span("rnad.learn.backward.fused"):
+            grads = equinet_backward(ctx.net, obs, feats or None, params,
+                                     dlogits, dvalue)
+        return (None, None, None) + (None,) * ctx.n_feats + tuple(grads)
+
+
+def forward_train(net: nets_lib.EquiNet, obs: torch.Tensor, solver_feats
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """What ``net(obs, solver_feats)`` returns, float32 logits (N, A) and
+    values (N,), differentiable with respect to every parameter of the
+    net: forward on K4, backward on K5 (``EquiNetTrain``).  The caller has
+    checked that ``trains`` holds."""
+    feats = tuple(solver_feats) if solver_feats is not None else ()
+    return EquiNetTrain.apply(net, obs, len(feats), *feats, *leaves(net))

@@ -19,6 +19,10 @@ EquiNet's frozen passes (K4) keep the eager bf16 forward's rounding points
 and sum each product in the tensor cores' order, so an output parts from
 the eager one only where a sum lies near a bf16 rounding tie: on a bounded
 share of elements, by a bounded number of bf16 units in the last place.
+The trainable net's backward (K5) keeps eager autograd's bf16 rounding
+points but sums the weight gradients' float32 terms in its own order, so
+each leaf's gradient lies within a bounded gap of autograd's, relative to
+the leaf's largest element.
 """
 
 import copy
@@ -1076,9 +1080,10 @@ def test_equinet_frozen_kernel_rejects(dev):
 def test_k4_engages_once_a_turn_and_once_a_bf16_equinet_learner_step(
         dev, dtype, per_turn):
     """A bf16 EquiNet's step launches K4 once in each rollout turn (the
-    generic turn's no-grad forward) and once in the learner (the frozen
-    passes): 1 + T launches a step of T turns; a float32 one stays eager.
-    The step's loss is finite."""
+    generic turn's no-grad forward) and twice in the learner (the frozen
+    passes, and the learner's own forward under ``forward_train``), and
+    K5 once (the learner's backward): 2 + T K4 launches a step of T turns;
+    a float32 one stays eager.  The step's loss is finite."""
     tree = _tree("cpu", depth=4).to(dev)
     packed = stepping.make_packed_tables(tree)
     cfg = RNaDConfig(batch_size=256, eta=0.5, lr=5e-5, logit_clip=2.0)
@@ -1086,12 +1091,14 @@ def test_k4_engages_once_a_turn_and_once_a_bf16_equinet_learner_step(
                          torch.Generator().manual_seed(4)).to(dev)
     state = rnad.init_train_state(net, torch.Generator(device=dev))
     before = equinet_lib.equinet_frozen.launches
+    before_k5 = equinet_lib.equinet_backward.launches
     for _ in range(2):
         traj = rnad.rollout(state, tree, packed, cfg)
         metrics = rnad.learn_step(state, packed, traj, 0.5, cfg)
         assert torch.isfinite(metrics["loss"]).all()
     assert equinet_lib.equinet_frozen.launches - before == (
-        2 * per_turn * (1 + tree.max_depth))
+        2 * per_turn * (2 + tree.max_depth))
+    assert equinet_lib.equinet_backward.launches - before_k5 == 2 * per_turn
 
 
 # one net's no-grad forward through K4 (``equinet.forward_no_grad``): a
@@ -1173,3 +1180,103 @@ def test_nashconv_with_k4_is_the_eager_nashconv(dev, monkeypatch, chunks):
     _eager_forward(monkeypatch)
     want = float(rnad.nashconv(tree, net, chunk).nashconv())
     assert abs(got - want) <= 1e-6, (got, want)
+
+
+# K5 (the trainable net's backward) against eager autograd: each leaf's
+# largest gap over the leaf's largest magnitude (equinet_probe.leaf_gaps)
+K5_LEAF_GAP = 0.02
+K5_CASES = {  # (n, A, C, depth, solver_iters, primed)
+    "flagship_393216": (393216, 5, 64, 2, 32, True),
+    "a3_unprimed_c0_2": (3001, 3, 16, 2, 0, False),
+    "a4_c32_depth3": (2000, 4, 32, 3, 8, True),
+    "a8_ragged": (17, 8, 64, 2, 8, False),
+    "one_observation": (1, 2, 48, 1, 8, True),
+}
+
+
+def _k5_holds(res):
+    assert res["forward_bitwise"], res
+    assert res["deterministic"] and res["nonfinite"] == 0, res
+    for name, d in res["k5"].items():
+        assert d["rel_gap"] <= K5_LEAF_GAP, (name, res["k5"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(K5_CASES))
+def test_equinet_backward_kernel_vs_eager_autograd(dev, case):
+    """The learner's pass on K4 and K5 (``forward_train``) with random
+    nonzero gradients of the logits and values: the forward bitwise the
+    eager one, each leaf's gradient within ``K5_LEAF_GAP`` of eager
+    autograd's (at the flagship's shape over 393,216 observations, as the
+    learner runs it; unprimed without solver features; three layers; A =
+    8 with a ragged tile; one observation), two backward launches bitwise
+    equal."""
+    n, A, C, depth, iters, primed = K5_CASES[case]
+    before = equinet_lib.equinet_backward.launches
+    res = equinet_probe.train_probe(n, A, C, depth, iters, primed, iters=1)
+    assert equinet_lib.equinet_backward.launches > before
+    _k5_holds(res)
+
+
+@pytest.mark.cuda
+def test_equinet_backward_kernel_splits_tied_maxima(dev):
+    """Payoffs rounded to halves, so that many cells of a row or column
+    tie in the max pools: K5 splits their gradient as autograd does."""
+    _k5_holds(equinet_probe.train_probe(65536, iters=1, ties=True))
+
+
+@pytest.mark.cuda
+def test_equinet_backward_kernel_rejects(dev):
+    """``backward_unsupported`` names the widths and depths K5 does not
+    take (the learner keeps the eager pass there), and the kernel's entry
+    point refuses them."""
+    bf16 = torch.bfloat16
+    for A, C, depth, why in ((5, 128, 2, "C = 128"),
+                             (5, 64, 3, "depth 3 at C = 64")):
+        net = equinet_probe.frozen_nets(A, C, depth, 8, True, 0, dev)[0]
+        obs = equinet_probe.observations(4, A, 0, dev)
+        feats = equinet_lib.solver_features(net, obs)
+        assert equinet_lib.unsupported([net], obs, feats, bf16) is None
+        assert why in equinet_lib.backward_unsupported(net)
+        assert not equinet_lib.trains(net, obs, feats)
+    fn = _build.entry("equinet", "rnad_equinet_backward",
+                      equinet_lib.BACKWARD_ARGTYPES)
+    buf = torch.zeros(4096, device=dev)
+    stream = torch.cuda.current_stream().cuda_stream
+    for A, C, depth in ((9, 64, 2), (5, 128, 1), (5, 64, 3), (5, 24, 1)):
+        err = fn(buf.data_ptr(), None, None, None, buf.data_ptr(), 1,
+                 buf.data_ptr(), buf.data_ptr(), buf.data_ptr(), 1,
+                 buf.data_ptr(), 4, A, 2, C, depth, 0, stream)
+        assert err != 0
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            _build.check("equinet", "rnad_equinet_backward", err)
+
+
+@pytest.mark.cuda
+def test_learner_step_on_k5_is_the_eager_steps_loss(dev, monkeypatch):
+    """A flagship-shaped bf16 EquiNet's learner step with its pass on K4
+    and K5 reports the eager step's loss bit for bit (the forward is K4's,
+    bitwise) and updates the weights within two learning rates of it (a
+    gradient element that parts by a bf16 rounding moves Adam's step by
+    at most the rate)."""
+    tree = _tree("cpu", A=5, depth=4).to(dev)
+    packed = stepping.make_packed_tables(tree)
+    cfg = RNaDConfig(batch_size=4096, eta=0.5, lr=5e-5, logit_clip=2.0)
+    net = _flagship_net(dev, 9, solver_iters=32).requires_grad_(True)
+    state = rnad.init_train_state(net, torch.Generator(device=dev))
+    traj = rnad.rollout(state, tree, packed, cfg)
+
+    def step():
+        s = copy.deepcopy(state)
+        before = equinet_lib.equinet_backward.launches
+        metrics = rnad.learn_step(s, packed, traj, 0.5, cfg)
+        return (metrics, equinet_lib.equinet_backward.launches - before,
+                [p.detach().clone() for p in s.net.parameters()])
+
+    fused, k5, weights = step()
+    monkeypatch.setattr(equinet_lib, "trains", lambda *a: False)
+    eager, k5_eager, weights_eager = step()
+    assert (k5, k5_eager) == (1, 0)
+    assert torch.equal(fused["loss"], eager["loss"])
+    for w, v in zip(weights, weights_eager):
+        assert float((w - v).abs().max()) <= 2 * cfg.lr

@@ -73,14 +73,46 @@ def _one(spans, name):
     return found[0]
 
 
-@pytest.mark.parametrize("fuse,net", [
-    ("off", MLP), ("heads", MLP), ("frozen", MLP), ("all", MLP),
-    ("off", EQUINET)], ids=["off", "heads", "frozen", "all", "equinet"])
-def test_train_step_spans_nest(small_tree, tmp_path, fuse, net):
+def _kernels_on_the_cpu(monkeypatch):
+    """The EquiNet kernels' gate open on the CPU, their plain versions in
+    their places (K4's for the rollout's, the frozen and the learner's
+    forwards, K5's for the learner's backward): the spans a bf16 EquiNet
+    step opens on the card."""
+    from rnad_tpu_torch.ops import equinet as equinet_ops
+
+    monkeypatch.setattr(equinet_ops, "unsupported", lambda *a: None)
+    monkeypatch.setattr(
+        equinet_ops, "equinet_frozen",
+        lambda nets_, obs, feats, dtype, values=None, params=None:
+        equinet_ops.equinet_frozen_plain(nets_, obs, feats, dtype, values))
+    monkeypatch.setattr(
+        equinet_ops, "equinet_backward",
+        lambda net, obs, feats, params, dlogits, dvalue:
+        equinet_ops.equinet_backward_plain(net, obs, feats, dlogits, dvalue))
+
+
+FUSED = {"rnad.rollout.forward": "rnad.rollout.forward.fused",
+         "rnad.learn.forward": "rnad.learn.forward.fused",
+         "rnad.learn.frozen": "rnad.learn.frozen.fused",
+         "rnad.learn.backward": "rnad.learn.backward.fused"}
+
+
+@pytest.mark.parametrize("fuse,net,kernels", [
+    ("off", MLP, False), ("heads", MLP, False), ("frozen", MLP, False),
+    ("all", MLP, False), ("off", EQUINET, False), ("off", EQUINET, True)],
+    ids=["off", "heads", "frozen", "all", "equinet", "equinet_kernels"])
+def test_train_step_spans_nest(small_tree, tmp_path, monkeypatch, fuse, net,
+                               kernels):
     """One fused step under a profiler: the step holds the rollout (which
     holds each generic turn's net forward; the MLP's turns are K1's), then
     the learner, which holds its passes in order; "all" has no frozen
-    pass of its own."""
+    pass of its own.  Where the EquiNet kernels run (here their plain
+    versions on the CPU), each turn's forward holds
+    ``rnad.rollout.forward.fused`` and the learner's forward, frozen and
+    backward passes each hold their ``.fused`` span (K4's forward, K4's
+    three frozen nets, K5)."""
+    if kernels:
+        _kernels_on_the_cpu(monkeypatch)
     run = _run(small_tree, tmp_path, net, fuse_net_passes=fuse)
     run.train_step(run.state, 0.5)
     spans = _spans(tmp_path, lambda: run.train_step(run.state, 0.5))
@@ -88,8 +120,11 @@ def test_train_step_spans_nest(small_tree, tmp_path, fuse, net):
                if fuse != "all" or n != "rnad.learn.frozen"]
     turns = ["rnad.rollout.forward"] * (
         run.tree.max_depth if net is EQUINET else 0)
+    with_fused = lambda names: [m for n in names for m in (
+        [n, FUSED[n]] if kernels and n in FUSED else [n])]
     assert [s[2] for s in spans] == ["rnad.train_step", "rnad.rollout"
-                                     ] + turns + ["rnad.learn"] + learner
+                                     ] + with_fused(turns) + [
+        "rnad.learn"] + with_fused(learner)
     step, rollout, learn = (_one(spans, n) for n in
                             ("rnad.train_step", "rnad.rollout", "rnad.learn"))
     assert _within(rollout, step) and _within(learn, step)
@@ -98,6 +133,11 @@ def test_train_step_spans_nest(small_tree, tmp_path, fuse, net):
     assert all(_within(f, rollout) for f in forwards) and _in_order(forwards)
     parts = [_one(spans, n) for n in learner]
     assert all(_within(p, learn) for p in parts) and _in_order(parts)
+    if kernels:
+        for outer, inner in FUSED.items():
+            pairs = zip(sorted(s for s in spans if s[2] == outer),
+                        sorted(s for s in spans if s[2] == inner))
+            assert all(_within(i, o) for o, i in pairs)
 
 
 def test_buffered_step_samples_in_a_span(small_tree, tmp_path):
