@@ -6,7 +6,7 @@ import dataclasses
 from benchmark import cells
 
 MLP = "mlp256-demo.train-b262k"
-FLAGSHIP = "flagship3.train-b32k"
+FLAGSHIP = "flagship3.train-b65k"
 LANES = 64
 
 

@@ -41,7 +41,7 @@ def test_cell_found_by_name(w):
 
 def test_kernel_metrics_go_to_their_cells():
     mlp = {m["name"] for m in cells.find("mlp256-demo.train-b262k").per_layer}
-    flag = {m["name"] for m in cells.find("flagship3.train-b32k").per_layer}
+    flag = {m["name"] for m in cells.find("flagship3.train-b65k").per_layer}
     assert "k1_roofline" in mlp and "k3_roofline" not in mlp
     assert "k3_roofline" in flag and "k1_roofline" not in flag
 
