@@ -15,9 +15,10 @@ the actor net's inference and the action sampling.  It runs on the
 reference demo tree (A = 3, depth bound 4 with the stochastic rule, seed 0)
 with the width-256 MLP, each turn one launch of kernel K1
 (``env/engine.py::rollout_from`` under ``rows_actor="auto"``), the behavior
-policy recorded as (T, A, B) (``policy_minor``, as bench.py rolls out), the
-Gumbel noise drawn on the device from a ``torch.Generator``.  ``(1 << 26)
-// B`` rollouts run back to back at B = 32768 and at 131072 lanes; the better
+policy recorded as (T, B, A) (bench.py records the batch-minor (T, A, B)
+record of rnad_tpu's TPU layout, which the port does not run), the Gumbel
+noise drawn on the device from a ``torch.Generator``.  ``(1 << 26) // B``
+rollouts run back to back at B = 32768 and at 131072 lanes; the better
 rate is the headline and both are in ``rollout_rates``.  bench.py's two
 self-checks ride in the timed loop on the device and are read once, at its
 end, where the host clock stops: the lowest per-lane std of the episode
@@ -200,16 +201,15 @@ def rollout_fn(tree: tree_lib.GameTree, packed: stepping.PackedTables,
                net: torch.nn.Module, batch: int,
                generator: torch.Generator, rows_actor: str = "auto",
                actor_dtype: torch.dtype = torch.float32,
-               lane_chunks: int = 1, policy_minor: bool = False
+               lane_chunks: int = 1
                ) -> Callable[[], engine.Trajectory]:
     """One rollout of ``batch`` lanes from the root, its noise drawn from
-    ``generator``, in ``lane_chunks`` sub-batches, the behavior policy
-    recorded (T, A, B) under ``policy_minor``."""
+    ``generator``, in ``lane_chunks`` sub-batches."""
     init = torch.ones((batch,), dtype=torch.int32, device=tree.device)
     return lambda: engine.rollout_from(
         tree, packed, net, init, tree.max_depth, generator=generator,
         rows_actor=rows_actor, actor_dtype=actor_dtype,
-        lane_chunks=lane_chunks, policy_minor=policy_minor)
+        lane_chunks=lane_chunks)
 
 
 def train_setup(tree: tree_lib.GameTree, packed: stepping.PackedTables):
@@ -238,8 +238,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     rates = {}
     for batch in ROLLOUT_BATCHES:
         dt, _ = time_rollouts(rollout_fn(tree, packed, net, batch,
-                                         generator, policy_minor=True),
-                              rollout_iters(batch))
+                                         generator), rollout_iters(batch))
         rates[batch] = half_steps * batch / dt
     best = max(rates, key=rates.get)
 

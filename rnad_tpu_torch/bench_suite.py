@@ -19,8 +19,9 @@ BENCH_SUITE.md`` (never to ``docs/PERF.md``, which is the JAX package's):
   ``--net`` (the width-256 MLP or the ConvNet 16x1) on the engine's route
   as ``RNaD`` takes it: kernel K1 for the MLP, its bfloat16-operand
   variant under ``--actor-dtype bfloat16``, the generic turn (one K2
-  launch a turn) for the ConvNet, the behavior policy recorded as (T, A,
-  B) (``policy_minor``) and the lanes rolled out in ``lane_chunks``
+  launch a turn) for the ConvNet, the behavior policy recorded as (T, B,
+  A) (the tool records (T, A, B) for rnad_tpu's batch-minor learner, which
+  the port does not run) and the lanes rolled out in ``lane_chunks``
   sub-batches of at most ``--max-lanes-per-chunk`` lanes (the smallest
   chunk count that divides B; the row records it where it is above 1).
   With ``--fused-turn``,
@@ -204,12 +205,11 @@ def main(argv: Optional[Sequence[str]] = None) -> List[Dict]:
             return {}
         return roofline.annotate(work, seconds * 1e3)
 
-    def rollout_row(metric, B, rows_actor, dtype, lane_chunks=1,
-                    policy_minor=False, **extra):
+    def rollout_row(metric, B, rows_actor, dtype, lane_chunks=1, **extra):
         n = rollout_iters(B)
         dt, traj = bench.time_rollouts(
             bench.rollout_fn(tree, packed, net, B, generator, rows_actor,
-                             nets.DTYPES[dtype], lane_chunks, policy_minor),
+                             nets.DTYPES[dtype], lane_chunks),
             n)
         work = None
         if mlp:
@@ -256,7 +256,7 @@ def main(argv: Optional[Sequence[str]] = None) -> List[Dict]:
     for B in args.batches:
         chunks = lane_chunks(B, args.max_lanes_per_chunk)
         rollout_row("rollout_env_steps_per_s", B, "auto", args.actor_dtype,
-                    chunks, True,
+                    chunks,
                     **({"actor_dtype": args.actor_dtype}
                        if args.actor_dtype != "float32" else {}))
         if args.fused_turn:

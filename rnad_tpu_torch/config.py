@@ -158,9 +158,10 @@ class RNaDConfig:
     vtrace_mode: str = "auto"
     frozen_net_dtype: str = "float32"
     # Every mode computes the same losses.  The port runs "heads" for the
-    # MLP ("auto", "heads", "frozen", "all") and "off" for the EquiNet
-    # ("auto", "off"); learn/rnad.py::resolve_fuse_mode raises as rnad_tpu
-    # does on the other pairs.
+    # MLP ("auto", "heads") and "off" for any net ("auto" for the others);
+    # learn/rnad.py::resolve_fuse_mode raises as rnad_tpu does on the
+    # other pairs.  rnad_tpu's packed "frozen" and "all" lost to "heads" on
+    # the TPU and on the H100: RNaD raises NotImplementedError for them.
     fuse_net_passes: str = "auto"
     detailed_metrics: bool = True
     # True: the rollout stores each half-step's observation (K1 writes the
@@ -170,6 +171,9 @@ class RNaDConfig:
     store_rollout_obs: bool = True
     rollout_rows_actor: str = "auto"
     rollout_actor_dtype: str = "float32"
+    # The port runs the (T, B, A) layout ("bma"; "auto" resolves to it, as
+    # in rnad_tpu off a TPU); rnad_tpu's batch-minor "amb" exists for the
+    # TPU's 128-lane tile, and RNaD raises NotImplementedError for it.
     learner_layout: str = "auto"
     flat_optimizer: bool = False
     reg_anchor: str = "target"

@@ -21,16 +21,16 @@ observation transform (``ops/obs_transform.py``) the rollout always stores
 each half-step's lifted, noisy observation: the noise is no function of
 the state, and the learner must read the bits the actor saw.
 
-The rollout's variants are ``rnad_tpu``'s: ``lane_chunks`` rolls the lanes
-out as sequential sub-batches (bounding the peak memory of a turn's
-intermediates) and ``policy_minor`` records the behavior policy as (T, A,
-B) for the batch-minor learner.
+``lane_chunks``, as in ``rnad_tpu``, rolls the lanes out as sequential
+sub-batches (bounding the peak memory of a turn's intermediates).  The
+behavior policy is recorded (T, B, A) only: ``rnad_tpu``'s (T, A, B)
+record feeds its batch-minor learner, which the port does not run.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Sequence, Tuple
+from typing import ClassVar, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -56,10 +56,7 @@ class Trajectory:
     state."""
 
     indices: torch.Tensor  # (T, B) int32, state id at each half-step
-    # the mover's behavior policy mu, f32, laid out as ``policy_layout``
-    # says: "bma" (T, B, A), or "amb" (T, A, B) for the batch-minor
-    # learner; read it through policy_bma() / policy_amb()
-    policy: torch.Tensor
+    policy: torch.Tensor  # (T, B, A) f32, the mover's behavior policy mu
     actions: torch.Tensor  # (T, B) int32, sampled action ids
     rewards: torch.Tensor  # (T, B) f32, row-player reward (zero-sum)
     values: torch.Tensor  # (T, B) f32, actor value estimates (mover's POV)
@@ -67,7 +64,9 @@ class Trajectory:
     # lifted (C = lifted channels + 1); channel 1 is the legal matrix in
     # both, so the mover's mask is obs[..., 1, :, 0]
     obs: Optional[torch.Tensor] = None
-    policy_layout: str = "bma"
+    # ``rnad_tpu``'s name of the policy record's layout, always (T, B, A);
+    # a class constant, so not a field
+    policy_layout: ClassVar[str] = "bma"
 
     @property
     def num_half_steps(self) -> int:
@@ -79,17 +78,12 @@ class Trajectory:
 
     @property
     def num_actions(self) -> int:
-        return self.policy.shape[-1 if self.policy_layout == "bma" else -2]
+        return self.policy.shape[-1]
 
     def policy_bma(self) -> torch.Tensor:
-        """The behavior policy as (T, B, A), whatever its layout."""
-        return (self.policy if self.policy_layout == "bma"
-                else self.policy.transpose(-1, -2))
-
-    def policy_amb(self) -> torch.Tensor:
-        """The behavior policy as batch-minor (T, A, B)."""
-        return (self.policy if self.policy_layout == "amb"
-                else self.policy.transpose(-1, -2))
+        """The behavior policy (T, B, A), ``policy`` itself, under
+        ``rnad_tpu``'s name, which the benchmark's harness reads."""
+        return self.policy
 
     @property
     def turns(self) -> torch.Tensor:
@@ -279,7 +273,7 @@ def rollout_from(tree: GameTree, packed: stepping.PackedTables,
                  obs_transform: Optional[ObsTransform] = None,
                  store_obs: bool = False,
                  obs_dtype: torch.dtype = torch.float32,
-                 lane_chunks: int = 1, policy_minor: bool = False,
+                 lane_chunks: int = 1,
                  actor_dtype: torch.dtype = torch.float32) -> Trajectory:
     """Plays ``num_turns`` turns (default ``tree.max_depth``) from the
     per-lane states ``init_indices`` (B,) under ``net``'s policy, each turn
@@ -307,11 +301,7 @@ def rollout_from(tree: GameTree, packed: stepping.PackedTables,
     (``local_noise``), so the chunked rollout plays the whole rollout's
     episodes.  Given a ``generator``, each chunk draws its own turns'
     noise in chunk order: like ``rnad_tpu``'s per-chunk keys, a chunked
-    run then plays other, equally valid episodes than an unchunked one.
-
-    ``policy_minor`` records the behavior policy as (T, A, B)
-    (``policy_layout="amb"``), the batch-minor learner's layout: one
-    transpose of the whole record after the stitch."""
+    run then plays other, equally valid episodes than an unchunked one."""
     if num_turns is None:
         num_turns = tree.max_depth
     B = init_indices.shape[0]
@@ -363,13 +353,9 @@ def rollout_from(tree: GameTree, packed: stepping.PackedTables,
         parts = [torch.cat([r[i] for r in chunk], 0) for chunk in recs]
         return parts[0] if len(parts) == 1 else torch.cat(parts, 1)
 
-    policy = cat(1)
-    if policy_minor:
-        policy = policy.transpose(1, 2).contiguous()
-    return Trajectory(indices=cat(0), policy=policy, actions=cat(2),
+    return Trajectory(indices=cat(0), policy=cat(1), actions=cat(2),
                       rewards=cat(3), values=cat(4),
-                      obs=cat(5) if store else None,
-                      policy_layout="amb" if policy_minor else "bma")
+                      obs=cat(5) if store else None)
 
 
 def tabular_noise(batch_size: int, A: int, T: int,

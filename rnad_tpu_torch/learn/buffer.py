@@ -25,28 +25,14 @@ from ..env.engine import Trajectory
 from ..utils import timing
 
 
-# the fields with lanes along axis 1 ("bma" trajectories)
-LANE_FIELDS = tuple(f.name for f in dataclasses.fields(Trajectory)
-                    if f.name != "policy_layout")
-
-
-def check_lane_major(trajs: Sequence[Trajectory]) -> None:
-    """Raises for a trajectory whose policy is recorded "amb" (T, A, B):
-    code that takes lanes along axis 1 of every field would take actions
-    there.  ``rnad_tpu`` records "amb" on the on-policy path only
-    (``rnad.policy_minor_record``)."""
-    if any(t.policy_layout != "bma" for t in trajs):
-        raise ValueError("lanes are taken along axis 1 of every field, so "
-                         "this takes 'bma' trajectories only; an 'amb' "
-                         "policy record is made for the on-policy learner "
-                         "alone")
+# every field has its lanes along axis 1
+LANE_FIELDS = tuple(f.name for f in dataclasses.fields(Trajectory))
 
 
 def collate_slots(slots: Sequence[Trajectory],
                   lanes: Sequence[torch.Tensor]) -> Trajectory:
     """Gathers ``lanes[i]`` along lane axis 1 of every field of
     ``slots[i]`` (``obs`` included where stored) and concatenates."""
-    check_lane_major(slots)
     fields = {}
     for name in LANE_FIELDS:
         parts = [getattr(t, name) for t in slots]
@@ -67,7 +53,6 @@ class TrajectoryBuffer:
         return len(self.slots)
 
     def append(self, traj: Trajectory) -> None:
-        check_lane_major([traj])
         self.slots.append(traj)
         while len(self.slots) > self.max_size:
             self.slots.popleft()

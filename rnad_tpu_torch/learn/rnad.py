@@ -12,19 +12,18 @@ alpha-interpolated reward transform and two-player v-trace, the NeuRD and
 critic losses, the optax global-norm clip, Adam with the optax formulas
 (b1=0 by default) and the EMA target update.  The net passes follow
 ``fuse_net_passes``: "heads" (the MLP: the EMA target's value head and the
-regularization pair's policy heads), "off" (each frozen net's whole
-forward; "auto" for every other net), "frozen" (the depth-1 MLP: the three
-frozen nets as one packed matmul pair, ``nets.mlp_multi_net_forward``) or
-"all" (the learner and the three frozen nets in one pair, in the learner's
-dtype).  The frozen passes compute in ``frozen_net_dtype`` where it is
-bfloat16 (the nets' float32 weights cast per layer, as ``rnad_tpu``'s
-``net.clone(dtype=...)`` does) and in the net's own dtype otherwise.
-``learner_layout="amb"`` runs the policies, the v-trace and the losses in
-the batch-minor (T, A, B) layout (``learn/vtrace.py``'s second half;
-"auto" is the (T, B, A) layout, as ``rnad_tpu`` off a TPU), and
-``flat_optimizer`` runs the clip + Adam + EMA tail on one raveled vector
-(``flat_optimizer_update``, ``flat_ema_update``) where ``rnad_tpu``'s
-``use_flat`` rule allows it, bitwise the per-leaf tail.  The
+regularization pair's policy heads) or "off" (each frozen net's whole
+forward; "auto" for every other net).  The frozen passes compute in
+``frozen_net_dtype`` where it is bfloat16 (the nets' float32 weights cast
+per layer, as ``rnad_tpu``'s ``net.clone(dtype=...)`` does) and in the
+net's own dtype otherwise.  The policies, the v-trace and the losses run
+in the (T, B, A) layout, and ``flat_optimizer`` runs the clip + Adam + EMA
+tail on one raveled vector (``flat_optimizer_update``,
+``flat_ema_update``) where ``rnad_tpu``'s ``use_flat`` rule allows it,
+bitwise the per-leaf tail.  The port does not run ``rnad_tpu``'s
+batch-minor ``learner_layout="amb"``, which exists for the TPU's 128-lane
+tile, nor its packed ``fuse_net_passes`` "frozen" and "all", which lost to
+"heads" on the TPU and on the H100; ``check_supported`` refuses them.  The
 ``RNaD`` host loop owns the run's lifecycle (a fresh start or a bit-exact
 resume from the run store), the (m, n, alpha) schedule, regularization
 rotation (``reg_anchor`` "target", "best" or "fixed"), checkpoints, exact
@@ -54,10 +53,9 @@ the EMA target) instead of building new tensors.
 While a ``torch.profiler`` session records, the step's layers are spans on
 its timeline (``utils/timing.py::span``): ``rnad.train_step`` holds
 ``rnad.rollout`` and ``rnad.learn``, and the learner, in order,
-``rnad.learn.forward``, ``.frozen`` (not under "all"; it holds
-``rnad.learn.frozen.fused`` where kernel K4 runs the three frozen bf16
-EquiNets), ``.vtrace``, ``.backward``, ``.allreduce`` (under a group) and
-``.update``.
+``rnad.learn.forward``, ``.frozen`` (it holds ``rnad.learn.frozen.fused``
+where kernel K4 runs the three frozen bf16 EquiNets), ``.vtrace``,
+``.backward``, ``.allreduce`` (under a group) and ``.update``.
 """
 
 from __future__ import annotations
@@ -67,7 +65,7 @@ import dataclasses
 import logging
 import math
 import time
-from typing import Callable, Dict, List, Optional, Tuple, Union
+from typing import Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -303,63 +301,32 @@ def neurd_scale_for(cfg: RNaDConfig, total_steps: int) -> float:
 def resolve_fuse_mode(net: nn.Module, cfg: RNaDConfig) -> str:
     """Resolves ``cfg.fuse_net_passes`` against the net family as
     ``rnad_tpu`` does, with its errors.  "auto" is "heads" for the MLP (the
-    only family with separable heads) and "off" otherwise; "frozen" (the
-    three frozen nets in one packed matmul pair) and "all" (the learner
-    too, so in the learner's dtype) need a depth-1 MLP."""
+    only family with separable heads) and "off" otherwise; ``rnad_tpu``'s
+    packed modes raise (``check_fuse_mode``)."""
     mode = cfg.fuse_net_passes
     is_mlp = isinstance(net, nets.MLP)
     if mode == "auto":
         return "heads" if is_mlp else "off"
-    if mode == "heads":
-        if not is_mlp:
-            raise ValueError(
-                f"fuse_net_passes='heads' requires an MLP (the only family "
-                f"with separable heads); got {type(net).__name__}")
-        return mode
-    if mode in ("frozen", "all"):
-        if not (is_mlp and net.depth == 1):
-            raise ValueError(
-                f"fuse_net_passes={mode!r} requires a depth-1 MLP "
-                f"(mlp_multi_net_forward packing); got "
-                f"{type(net).__name__} with depth "
-                f"{getattr(net, 'depth', '?')}")
-        if mode == "all" and frozen_dtype(net, cfg) != net.dtype:
-            raise ValueError(
-                f"fuse_net_passes='all' runs all four nets in the learner's "
-                f"compute dtype ({str(net.dtype).split('.')[-1]}); set "
-                f"frozen_net_dtype to match (got "
-                f"{cfg.frozen_net_dtype!r}) or use 'frozen'")
-        return mode
-    if mode != "off":
-        raise ValueError(f"unknown fuse_net_passes mode {mode!r}")
+    check_fuse_mode(mode)
+    if mode == "heads" and not is_mlp:
+        raise ValueError(
+            f"fuse_net_passes='heads' requires an MLP (the only family "
+            f"with separable heads); got {type(net).__name__}")
     return mode
 
 
-def resolve_learner_layout(cfg: RNaDConfig, use_assoc: bool,
-                           max_actions: Optional[int] = None) -> bool:
-    """True where the policies, the v-trace and the losses run in the
-    batch-minor (T, A, B) layout, with ``rnad_tpu``'s errors: the
-    associative v-trace keeps the (T, B, A) layout, and the batch-minor
-    discretizer covers A <= 16.  "auto" is the (T, B, A) layout, as
-    ``rnad_tpu`` resolves it off a TPU."""
-    mode = cfg.learner_layout
-    if mode not in ("bma", "amb", "auto"):
-        raise ValueError(f"unknown learner_layout {mode!r}")
-    if use_assoc:
-        if mode == "amb":
-            raise ValueError(
-                "learner_layout='amb' applies to the sequential-scan "
-                "v-trace only; vtrace_mode selected the associative path "
-                "at this trajectory length — use learner_layout='auto'")
-        return False
-    if max_actions is not None and max_actions > 16:
-        if mode == "amb":
-            raise ValueError(
-                "learner_layout='amb' requires max_actions <= 16 (the "
-                f"batch-minor policy discretizer's cap); this tree has "
-                f"max_actions={max_actions} — use learner_layout='auto'")
-        return False
-    return mode == "amb"
+def check_fuse_mode(mode: str) -> None:
+    """Raises ``NotImplementedError`` for ``rnad_tpu``'s packed modes, the
+    depth-1 MLP's frozen nets ("frozen") or all four nets ("all") in one
+    matmul pair, which lost to "heads" on the TPU (``rnad_tpu/config.py``)
+    and on the H100, and ``ValueError`` for an unknown mode."""
+    if mode in ("frozen", "all"):
+        raise NotImplementedError(
+            f"fuse_net_passes: the port runs 'heads' (the MLP) and 'off', "
+            f"not {mode!r}, whose packed matmul pair lost to 'heads' on the "
+            f"TPU and on the H100; use 'auto'")
+    if mode not in ("auto", "heads", "off"):
+        raise ValueError(f"unknown fuse_net_passes mode {mode!r}")
 
 
 def frozen_dtype(net: nn.Module, cfg: RNaDConfig) -> torch.dtype:
@@ -396,29 +363,6 @@ def learner_inputs(state: TrainState, packed: stepping.PackedTables,
     return LearnerInputs(obs_flat=obs_flat, masks=masks, solver_feats=feats)
 
 
-@dataclasses.dataclass(frozen=True)
-class _Layout:
-    """The policy, v-trace and loss functions of one learner layout."""
-
-    policy: Callable
-    log_policy: Callable
-    process_policy: Callable
-    v_trace_both: Callable
-    get_loss_v: Callable
-    get_loss_nerd: Callable
-    action_axis: int
-
-
-_LAYOUTS = {
-    False: _Layout(common.masked_policy, common.masked_log_policy,
-                   vtrace.process_policy, vtrace.v_trace_both,
-                   vtrace.get_loss_v, vtrace.get_loss_nerd, -1),
-    True: _Layout(common.masked_policy_minor, common.masked_log_policy_minor,
-                  vtrace.process_policy_minor, vtrace.v_trace_both_minor,
-                  vtrace.get_loss_v_minor, vtrace.get_loss_nerd_minor, -2),
-}
-
-
 def learn_loss(state: TrainState, packed: stepping.PackedTables,
                traj: engine.Trajectory, alpha: float, cfg: RNaDConfig,
                neurd_scale: float = 1.0,
@@ -441,20 +385,12 @@ def learn_loss(state: TrainState, packed: stepping.PackedTables,
     "per_rank" (``learn_step``)."""
     fuse = resolve_fuse_mode(state.net, cfg)
     T, B = traj.rewards.shape
-    frozen = None
     with timing.span("rnad.learn.forward"):
         if inputs is None:
             inputs = learner_inputs(state, packed, traj)
         valid = traj.valid()
         obs_flat, masks = inputs.obs_flat, inputs.masks
-        if fuse == "all":  # the learner and the frozen nets in one pair
-            logits4, values4 = nets.mlp_multi_net_forward(
-                [state.net, state.net_target, state.net_reg, state.net_reg_],
-                obs_flat, state.net.dtype)
-            logits, v_raw = logits4[:, 0], values4[:, 0]
-            frozen = (logits4[:, 1].detach(), values4[:, 1].detach(),
-                      logits4[:, 2].detach(), logits4[:, 3].detach())
-        elif equinet_ops.trains(state.net, obs_flat, inputs.solver_feats):
+        if equinet_ops.trains(state.net, obs_flat, inputs.solver_feats):
             # a bf16 EquiNet on the card: forward on K4, backward on K5
             logits, v_raw = equinet_ops.forward_train(
                 state.net, obs_flat, inputs.solver_feats)
@@ -463,10 +399,9 @@ def learn_loss(state: TrainState, packed: stepping.PackedTables,
                 state.net, obs_flat, valid.reshape(T * B),
                 inputs.solver_feats,
                 group if batch_norm == "global" else None)
-    if frozen is None:
-        with torch.no_grad(), timing.span("rnad.learn.frozen"):
-            frozen = _frozen_passes(state, cfg, fuse, obs_flat,
-                                    inputs.solver_feats)
+    with torch.no_grad(), timing.span("rnad.learn.frozen"):
+        frozen = _frozen_passes(state, cfg, fuse, obs_flat,
+                                inputs.solver_feats)
     with timing.span("rnad.learn.vtrace"):
         return _losses(traj, alpha, cfg, neurd_scale, group, valid, masks,
                        logits, v_raw, frozen)
@@ -474,19 +409,13 @@ def learn_loss(state: TrainState, packed: stepping.PackedTables,
 
 def _frozen_passes(state: TrainState, cfg: RNaDConfig, fuse: str,
                    obs_flat: torch.Tensor, solver_feats) -> Tuple:
-    """The frozen nets' passes the loss reads under ``fuse`` "frozen",
-    "heads" or "off": (the target's logits, its values, the reg net's
-    logits, the previous reg net's logits); the target's logits are None
-    under "heads" without ``detailed_metrics``.  Under "off", bf16
-    EquiNets on the card that kernel K4 takes (``ops/equinet.py``'s
-    ``unsupported`` names nothing) run as one launch; every other net runs
-    its forwards."""
+    """The frozen nets' passes the loss reads under ``fuse`` "heads" or
+    "off": (the target's logits, its values, the reg net's logits, the
+    previous reg net's logits); the target's logits are None under "heads"
+    without ``detailed_metrics``.  Under "off", bf16 EquiNets on the card
+    that kernel K4 takes (``ops/equinet.py``'s ``unsupported`` names
+    nothing) run as one launch; every other net runs its forwards."""
     dtype = frozen_dtype(state.net, cfg)
-    if fuse == "frozen":  # the three frozen nets in one pair
-        logits3, values3 = nets.mlp_multi_net_forward(
-            [state.net_target, state.net_reg, state.net_reg_], obs_flat,
-            dtype)
-        return (logits3[:, 0], values3[:, 0], logits3[:, 1], logits3[:, 2])
     if fuse == "heads":
         # the target contributes its value, the reg pair their policies;
         # the target's policy feeds one diagnostic only
@@ -530,47 +459,41 @@ def _losses(traj: engine.Trajectory, alpha: float, cfg: RNaDConfig,
     # alpha and 1 - alpha rounded as float32, as rnad_tpu computes them
     alpha_f32 = np.float32(alpha)
     alpha, one_minus_alpha = float(alpha_f32), float(np.float32(1) - alpha_f32)
-    minor = resolve_learner_layout(cfg, cfg.vtrace_mode == "associative", A)
-    L = _LAYOUTS[minor]
-    # the layout of every (T, B, A) tensor, and of the value columns
-    lay = ((lambda x: x.transpose(-1, -2).contiguous()) if minor
-           else (lambda x: x))
-    col = (lambda x: x) if minor else (lambda x: x[..., None])
 
     logits = logits.reshape(T, B, A)
-    logits_l, masks_l = lay(logits), lay(masks)
-    v = col(v_raw.reshape(T, B))
-    pi = L.policy(logits_l, masks_l)
-    log_pi = L.log_policy(logits_l, masks_l)
+    v = v_raw.reshape(T, B)[..., None]
+    pi = common.masked_policy(logits, masks)
+    log_pi = common.masked_log_policy(logits, masks)
 
     with torch.no_grad():
-        tba = lambda x: lay(x.reshape(T, B, A))
-        v_target_net = col(values_target.reshape(T, B))
-        log_pi_reg = L.log_policy(tba(logits_reg), masks_l)
-        log_pi_reg_prev = L.log_policy(tba(logits_reg_prev), masks_l)
-        pi_target = (L.policy(tba(logits_t), masks_l)
+        tba = lambda x: x.reshape(T, B, A)
+        v_target_net = values_target.reshape(T, B)[..., None]
+        log_pi_reg = common.masked_log_policy(tba(logits_reg), masks)
+        log_pi_reg_prev = common.masked_log_policy(tba(logits_reg_prev),
+                                                   masks)
+        pi_target = (common.masked_policy(tba(logits_t), masks)
                      if cfg.detailed_metrics else None)
 
-        pi_processed = L.process_policy(
-            pi.detach(), masks_l, cfg.n_discrete, cfg.epsilon_threshold)
+        pi_processed = vtrace.process_policy(
+            pi.detach(), masks, cfg.n_discrete, cfg.epsilon_threshold)
         log_policy_reg = log_pi.detach() - (
             alpha * log_pi_reg + one_minus_alpha * log_pi_reg_prev)
-        acting_policy = (traj.policy_amb().contiguous() if minor
-                         else traj.policy_bma())
+        acting_policy = traj.policy
         vt_both = (vtrace_assoc.v_trace_both_assoc
-                   if cfg.vtrace_mode == "associative" else L.v_trace_both)
+                   if cfg.vtrace_mode == "associative"
+                   else vtrace.v_trace_both)
         v_t2, played2, pol_t2 = vt_both(
             v_target_net, valid, player_id, acting_policy, pi_processed,
-            log_policy_reg, lay(traj.actions_oh()), traj.rewards,
+            log_policy_reg, traj.actions_oh(), traj.rewards,
             eta=cfg.eta, lambda_=1.0, c=cfg.c_bar, rho=cfg.roh_bar,
             gamma=cfg.vtrace_gamma)
 
-    loss_v = L.get_loss_v([v, v], [v_t2[0], v_t2[1]],
-                          [played2[0], played2[1]], gsum)
-    is_vector = col(torch.ones_like(valid))
-    loss_nerd = L.get_loss_nerd(
-        [logits_l, logits_l], [pi_processed, pi_processed],
-        [pol_t2[0], pol_t2[1]], valid, player_id, masks_l,
+    loss_v = vtrace.get_loss_v([v, v], [v_t2[0], v_t2[1]],
+                               [played2[0], played2[1]], gsum)
+    is_vector = torch.ones_like(valid)[..., None]
+    loss_nerd = vtrace.get_loss_nerd(
+        [logits, logits], [pi_processed, pi_processed],
+        [pol_t2[0], pol_t2[1]], valid, player_id, masks,
         [is_vector, is_vector], clip=cfg.neurd_clip,
         threshold=cfg.logit_clip, global_sum=gsum)
     loss = (cfg.value_loss_weight * loss_v
@@ -584,9 +507,8 @@ def _losses(traj: engine.Trajectory, alpha: float, cfg: RNaDConfig,
                 metrics.values())))))
         return loss, metrics
     with torch.no_grad():
-        axis = L.action_axis
-        uniform_policy = masks_l / torch.clamp(
-            masks_l.sum(axis, keepdim=True), min=1e-30)
+        uniform_policy = masks / torch.clamp(
+            masks.sum(-1, keepdim=True), min=1e-30)
         klds = {"entropy": (pi, uniform_policy),
                 "entropy_target": (pi_target, uniform_policy),
                 "actor_learner_kld": (pi, acting_policy)}
@@ -596,7 +518,7 @@ def _losses(traj: engine.Trajectory, alpha: float, cfg: RNaDConfig,
                 "traj_len": valid.sum(0).mean(),
                 "logit_mean": logit_mean,
                 "logit_max": (logits - logit_mean).abs().max()})
-            metrics.update({k: nashconv_lib.kld(p, q, valid, masks_l, axis)
+            metrics.update({k: nashconv_lib.kld(p, q, valid, masks)
                             for k, (p, q) in klds.items()})
             return loss, metrics
         # one all-reduce of the losses' shares and every diagnostic's
@@ -605,7 +527,7 @@ def _losses(traj: engine.Trajectory, alpha: float, cfg: RNaDConfig,
                  logits.new_tensor(float(logits.numel())), valid.sum(),
                  valid.new_tensor(float(B))]
         for p, q in klds.values():
-            parts.extend(nashconv_lib.kld_sums(p, q, valid, masks_l, axis))
+            parts.extend(nashconv_lib.kld_sums(p, q, valid, masks))
         sums = gsum(torch.stack(parts))
         metrics = dict(zip(metrics, sums[:3]))
         logit_mean = sums[3] / sums[4]
@@ -651,25 +573,13 @@ def resolve_obs_transform(net_config: NetConfig, tree: GameTree,
     return tf.to(tree.device)
 
 
-def policy_minor_record(cfg: RNaDConfig, max_actions: int) -> bool:
-    """Whether the training rollout records the behavior policy as (T, A,
-    B), ``rnad_tpu``'s rule: the record is the learner's acting policy, so
-    it follows the resolved learner layout, but only on the on-policy
-    path (the replay buffer collates along lane axis 1, so buffered
-    rollouts stay "bma")."""
-    on_policy = cfg.n_batches_per_buffer == 1 and cfg.buffer_mod == 1
-    return resolve_learner_layout(cfg, cfg.vtrace_mode == "associative",
-                                  max_actions) and on_policy
-
-
 def rollout(state: TrainState, tree: GameTree, packed: stepping.PackedTables,
             cfg: RNaDConfig, noise=None,
             obs_transform: Optional[obs_transform_lib.ObsTransform] = None
             ) -> engine.Trajectory:
     """The training rollout: ``batch_size`` episodes from the root, storing
     the observations where ``store_rollout_obs`` says (the lifted ones
-    under ``obs_transform`` always) and recording the behavior policy as
-    ``policy_minor_record`` says."""
+    under ``obs_transform`` always)."""
     with timing.span("rnad.rollout"):
         init = torch.ones((cfg.batch_size,), dtype=torch.int32,
                           device=packed.rows.device)
@@ -677,7 +587,6 @@ def rollout(state: TrainState, tree: GameTree, packed: stepping.PackedTables,
             tree, packed, state.net, init, tree.max_depth, noise=noise,
             generator=state.generator, rows_actor=cfg.rollout_rows_actor,
             obs_transform=obs_transform, store_obs=cfg.store_rollout_obs,
-            policy_minor=policy_minor_record(cfg, tree.max_actions),
             obs_dtype=obs_storage_dtype(state.net, cfg),
             actor_dtype=nets.DTYPES[cfg.rollout_actor_dtype])
 
@@ -803,8 +712,8 @@ def nashconv(tree: GameTree, net: nn.Module,
 
 
 def check_supported(cfg: RNaDConfig, net_config: NetConfig) -> None:
-    """Raises ``NotImplementedError`` naming each config field the port
-    does not implement yet, and ``ValueError`` on unknown modes."""
+    """Raises ``NotImplementedError`` naming each config field whose value
+    the port does not implement, and ``ValueError`` on unknown modes."""
     if cfg.frozen_net_dtype not in nets.DTYPES:
         raise NotImplementedError(
             f"frozen_net_dtype: the port computes in "
@@ -812,19 +721,20 @@ def check_supported(cfg: RNaDConfig, net_config: NetConfig) -> None:
     if cfg.vtrace_mode not in ("scan", "associative", "auto"):
         raise ValueError(f"unknown vtrace_mode {cfg.vtrace_mode!r}; expected "
                          "'scan', 'associative' or 'auto'")
-    if cfg.vtrace_mode == "associative" and cfg.learner_layout == "amb":
-        raise ValueError(
-            "learner_layout='amb' applies to the sequential-scan "
-            "v-trace only; vtrace_mode selected the associative path "
-            "at this trajectory length — use learner_layout='auto'")
+    if cfg.learner_layout == "amb":
+        raise NotImplementedError(
+            "learner_layout: the port runs the (T, B, A) layout ('bma', "
+            "which 'auto' resolves to off a TPU), not 'amb', whose "
+            "batch-minor layout exists for the TPU's 128-lane tile")
+    if cfg.learner_layout not in ("bma", "auto"):
+        raise ValueError(f"unknown learner_layout {cfg.learner_layout!r}")
     if cfg.rollout_actor_dtype not in ("float32", "bfloat16"):
         raise ValueError(f"rows-actor compute_dtype must be float32 or "
                          f"bfloat16, got {cfg.rollout_actor_dtype}")
     if cfg.reg_anchor not in ("target", "best", "fixed"):
         raise ValueError(f"unknown reg_anchor {cfg.reg_anchor!r}; "
                          "expected 'target', 'best' or 'fixed'")
-    if cfg.fuse_net_passes not in ("auto", "heads", "off", "frozen", "all"):
-        raise ValueError(f"unknown fuse_net_passes {cfg.fuse_net_passes!r}")
+    check_fuse_mode(cfg.fuse_net_passes)
     if cfg.lr_schedule not in ("constant", "cosine"):
         raise ValueError(f"unknown lr_schedule {cfg.lr_schedule!r}")
     if cfg.lr_schedule == "cosine" and cfg.lr_decay_steps <= 0:
@@ -979,8 +889,6 @@ class RNaD:
                                self.obs_transform is not None,
                                nets.DTYPES[self.cfg.rollout_actor_dtype])
         resolve_fuse_mode(state.net, self.cfg)
-        resolve_learner_layout(self.cfg, self.cfg.vtrace_mode == "associative",
-                               self.tree.max_actions)
         resumed = False
         fresh = not self.store.exists() or self.store.latest() is None
         if self._world is not None:

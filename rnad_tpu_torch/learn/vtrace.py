@@ -1,6 +1,5 @@
 """Two-player V-trace with the R-NaD reward transform, plus the NeuRD and
-critic losses, in the (T, B, A) layout and in the batch-minor (T, A, B)
-layout of ``learner_layout="amb"``.
+critic losses, in the (T, B, A) layout.
 
 Counterpart of ``rnad_tpu/learn/vtrace.py``.
 The JAX reverse ``lax.scan`` is a Python loop over T here, and the vmap
@@ -267,211 +266,6 @@ def get_loss_nerd(logit_list: Sequence[torch.Tensor],
                 * apply_force_with_threshold(
                     logits, adv_pi, threshold,
                     torch.zeros_like(logits))).sum(-1)
-        total = total - renormalize(nerd, valid * (player_ids == k),
-                                    global_sum)
-    return total
-
-
-# ---------------------------------------------------------------------------
-# The batch-minor layout (``learner_layout="amb"``)
-#
-# The same computations with every (T, B, A) tensor as (T, A, B) and every
-# (T, B, 1) value column as (T, B): the same elementwise operations in the
-# same order and the same reductions over A, so each result is bitwise the
-# (T, B, A) function's after the permute (tests/test_torch_vtrace_minor.py).
-# ---------------------------------------------------------------------------
-
-
-def policy_ratio_minor(pi: torch.Tensor, mu: torch.Tensor,
-                       actions_oh: torch.Tensor, valid: torch.Tensor
-                       ) -> torch.Tensor:
-    """``policy_ratio`` for (T, A, B) policies; returns (T, B)."""
-    prob = lambda p: (actions_oh * p).sum(-2) * valid + (1 - valid)
-    return prob(pi) / torch.clamp(prob(mu), min=1e-30)
-
-
-def _v_trace_players_minor(v, valid, player_id, acting_policy,
-                           merged_policy, merged_log_policy, p_others,
-                           actions_oh, reward, players, *, eta, lambda_, c,
-                           rho, gamma):
-    """``_v_trace_players`` in the batch-minor layout: ``v`` (T, B),
-    ``p_others`` and ``reward`` (P, T, B), the policies and ``actions_oh``
-    (T, A, B).  Returns (v_target (P, T, B), learning_output (P, T, A,
-    B))."""
-    T = valid.shape[0]
-    P = len(players)
-    ratio = policy_ratio_minor(merged_policy, acting_policy, actions_oh,
-                               valid)
-    inv_mu = policy_ratio_minor(torch.ones_like(merged_policy),
-                                acting_policy, actions_oh, valid)
-    inv_mu = torch.clamp(inv_mu, max=_IS_CAP)
-    ratio = torch.clamp(ratio, max=_IS_CAP)
-
-    eta_reg_entropy = (-eta
-                       * (merged_policy * merged_log_policy).sum(-2)
-                       * p_others)  # (P, T, B)
-    eta_log_policy = (-eta * merged_log_policy
-                      * p_others[:, :, None, :])  # (P, T, A, B)
-    mine = torch.stack([player_id == p for p in players])  # (P, T, B)
-
-    B = valid.shape[1]
-    zeros_b = v.new_zeros((P, B))
-    ones_b = v.new_ones((P, B))
-    c_reward, c_unc, c_next_v, c_next_vt, c_is = (
-        zeros_b, zeros_b, zeros_b, zeros_b, ones_b)
-    v_targets = [None] * T
-    outputs = [None] * T
-    for t in reversed(range(T)):
-        cs, v_t, r_t, ent_t = ratio[t], v[t], reward[:, t], eta_reg_entropy[:, t]
-        valid_t, mine_t = valid[t] > 0, mine[:, t]
-        inv_mu_t, aoh_t, elp_t = inv_mu[t], actions_oh[t], eta_log_policy[:, t]
-
-        reward_uncorrected = r_t + gamma * c_unc + ent_t
-        discounted_reward = r_t + gamma * c_reward
-
-        our_v_target = (
-            v_t
-            + torch.clamp(cs * c_is, max=rho)
-            * (reward_uncorrected + gamma * c_next_v - v_t)
-            + lambda_
-            * torch.clamp(cs * c_is, max=c)
-            * gamma * (c_next_vt - c_next_v))
-
-        our_learning_output = (
-            v_t + elp_t
-            + aoh_t * inv_mu_t
-            * (discounted_reward[:, None, :]
-               + (gamma * c_is * c_next_vt)[:, None, :]
-               - v_t))
-
-        opp_reward = torch.clamp(ent_t + cs * discounted_reward,
-                                 -_IS_CAP, _IS_CAP)
-        opp_is = torch.clamp(cs * c_is, max=_IS_CAP)
-
-        m1 = mine_t & valid_t
-        o1 = ~mine_t & valid_t
-        c_reward = torch.where(o1, opp_reward, zeros_b)
-        c_unc = torch.where(o1, reward_uncorrected, zeros_b)
-        v_t_b = v_t.expand(P, B)
-        c_next_v = torch.where(m1, v_t_b,
-                               torch.where(o1, gamma * c_next_v, zeros_b))
-        c_next_vt = torch.where(m1, our_v_target,
-                                torch.where(o1, gamma * c_next_vt, zeros_b))
-        c_is = torch.where(o1, opp_is, ones_b)
-
-        v_targets[t] = torch.where(m1, our_v_target,
-                                   torch.zeros_like(our_v_target))
-        outputs[t] = torch.where(m1[:, None, :], our_learning_output,
-                                 torch.zeros_like(our_learning_output))
-    return torch.stack(v_targets, 1), torch.stack(outputs, 1)
-
-
-def v_trace_minor(v, valid, player_id, acting_policy, merged_policy,
-                  merged_log_policy, p_others, actions_oh, reward,
-                  player: int, *, eta: float, lambda_: float = 1.0,
-                  c: float = 1.0, rho: float = 1.0, gamma: float = 1.0
-                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """``v_trace`` in the batch-minor layout: v, ``p_others`` (without its
-    trailing 1), valid, player_id and reward (T, B), the policies and
-    actions_oh (T, A, B).  Returns (v_target (T, B), has_played (T, B),
-    learning_output (T, A, B))."""
-    v_t, out = _v_trace_players_minor(
-        v, valid, player_id, acting_policy, merged_policy, merged_log_policy,
-        p_others[None], actions_oh, reward[None], [player], eta=eta,
-        lambda_=lambda_, c=c, rho=rho, gamma=gamma)
-    return v_t[0], has_played(valid, player_id, player), out[0]
-
-
-def v_trace_both_minor(v, valid, player_id, acting_policy, merged_policy,
-                       merged_log_policy, actions_oh, reward, *, eta: float,
-                       lambda_: float = 1.0, c: float = 1.0,
-                       rho: float = 1.0, gamma: float = 1.0
-                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """``v_trace_both`` in the batch-minor layout; outputs stacked (2,
-    ...)."""
-    rewards2 = torch.stack([reward, -reward])
-    p_others2 = torch.stack([player_others(player_id, valid, 0)[..., 0],
-                             player_others(player_id, valid, 1)[..., 0]])
-    v_t, out = _v_trace_players_minor(
-        v, valid, player_id, acting_policy, merged_policy, merged_log_policy,
-        p_others2, actions_oh, rewards2, [0, 1], eta=eta, lambda_=lambda_,
-        c=c, rho=rho, gamma=gamma)
-    played = torch.stack([has_played(valid, player_id, 0),
-                          has_played(valid, player_id, 1)])
-    return v_t, played, out
-
-
-def process_policy_minor(policy: torch.Tensor, mask: torch.Tensor,
-                         n_disc: int, epsilon_threshold: float = 0.03
-                         ) -> torch.Tensor:
-    """``process_policy`` for (..., A, B) policies (action axis -2); the
-    branchless pairwise discretizer covers A <= 16, as ``rnad_tpu``'s."""
-    n_actions = policy.shape[-2]
-    if n_actions > 16:
-        raise NotImplementedError(
-            "process_policy_minor covers the branchless pairwise form only "
-            "(A <= 16); use the (T, B, A) path for wider action spaces")
-    keep = mask * ((policy >= epsilon_threshold).to(policy.dtype)
-                   + (policy.amax(-2, keepdim=True)
-                      < epsilon_threshold).to(policy.dtype))
-    keep = torch.clamp(keep, max=1.0)
-    p = keep * policy
-    p = p / torch.clamp(p.sum(-2, keepdim=True), min=1e-30)
-
-    blocks = torch.ceil(n_disc * p)
-    ps = [p[..., i, :] for i in range(n_actions)]
-    bs = [blocks[..., i, :] for i in range(n_actions)]
-    granted = []
-    for i in range(n_actions):
-        excl = torch.zeros_like(ps[i])
-        for j in range(n_actions):
-            if j == i:
-                continue
-            before = (ps[j] > ps[i]) if j > i else (ps[j] >= ps[i])
-            excl = excl + bs[j] * before
-        granted.append(torch.minimum(torch.clamp(n_disc - excl, min=0.0),
-                                     bs[i]))
-    return torch.stack(granted, dim=-2) / n_disc
-
-
-def get_loss_v_minor(v_list: Sequence[torch.Tensor],
-                     v_target_list: Sequence[torch.Tensor],
-                     mask_list: Sequence[torch.Tensor],
-                     global_sum=None) -> torch.Tensor:
-    """``get_loss_v`` with (T, B) values (no trailing singleton)."""
-    total = 0.0
-    for v_n, v_target, mask in zip(v_list, v_target_list, mask_list):
-        err = mask * (v_n - v_target.detach()) ** 2
-        err, n = err.sum(), mask.sum()
-        if global_sum is not None:
-            n = global_sum(n)
-        total = total + err / (n + (n == 0.0))
-    return total
-
-
-def get_loss_nerd_minor(logit_list: Sequence[torch.Tensor],
-                        policy_list: Sequence[torch.Tensor],
-                        q_vr_list: Sequence[torch.Tensor],
-                        valid: torch.Tensor, player_ids: torch.Tensor,
-                        legal_actions: torch.Tensor,
-                        importance_sampling_correction: Sequence[torch.Tensor],
-                        clip: float = 100.0, threshold: float = 2.0,
-                        global_sum=None) -> torch.Tensor:
-    """``get_loss_nerd`` for (T, A, B) logits, policies and targets; the
-    importance-sampling corrections are (T, B)."""
-    total = 0.0
-    for k, (logit_pi, pi, q_vr, is_c) in enumerate(
-            zip(logit_list, policy_list, q_vr_list,
-                importance_sampling_correction)):
-        adv_pi = q_vr - (pi * q_vr).sum(-2, keepdim=True)
-        adv_pi = is_c[:, None, :] * adv_pi
-        adv_pi = torch.clamp(adv_pi, -clip, clip).detach()
-
-        logits = logit_pi - (logit_pi * legal_actions).mean(-2, keepdim=True)
-        nerd = (legal_actions
-                * apply_force_with_threshold(
-                    logits, adv_pi, threshold,
-                    torch.zeros_like(logits))).sum(-2)
         total = total - renormalize(nerd, valid * (player_ids == k),
                                     global_sum)
     return total

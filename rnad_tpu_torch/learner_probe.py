@@ -1,5 +1,5 @@
 """Learner-step throughput matrix: the net-pass strategy x dtype, and the
-batch-minor layout and the raveled optimizer tail, at one batch.
+raveled optimizer tail, at one batch.
 
 Counterpart of ``tools/learner_probe.py``.
 
@@ -7,10 +7,12 @@ Counterpart of ``tools/learner_probe.py``.
         [--width 256] [--only PATTERNS] [--tree demo|NAME] \\
         [--vtrace scan,associative] [--cpu]
 
-For each of the tool's 16 labelled configs (``fuse_net_passes`` off,
-heads, frozen, all; the MLP and its frozen passes in float32 or bfloat16;
-"light" turns the detailed metrics off; "amb" is
-``learner_layout="amb"``, "flat" ``flat_optimizer``) it times the fused
+For each of the tool's labelled configs that the port runs, 8 of its 16
+(``fuse_net_passes`` off and heads; the MLP and its frozen passes in
+float32 or bfloat16; "light" turns the detailed metrics off, "flat" is
+``flat_optimizer``; the tool's "frozen", "all" and "amb" rows are
+``rnad_tpu`` strategies that ``learn/rnad.py::check_supported`` refuses,
+as they lost or tied on the TPU and on the H100), it times the fused
 train step (``make_train_step``: rollout, regather, learner and frozen
 passes, v-trace, losses, clip + Adam, EMA) of the width-``--width`` MLP at
 ``--batch`` lanes on the demo tree (``bench.TREE_CONFIG``, the tool's) or
@@ -65,20 +67,12 @@ from .utils import checkpoint
 COMBOS = [
     ("f32/off", "float32", "float32", "off"),
     ("f32/heads", "float32", "float32", "heads"),
-    ("f32/frozen", "float32", "float32", "frozen"),
-    ("f32/all", "float32", "float32", "all"),
     ("f32+frozenbf16/off", "float32", "bfloat16", "off"),
     ("f32+frozenbf16/heads", "float32", "bfloat16", "heads"),
     ("bf16/off", "bfloat16", "bfloat16", "off"),
     ("bf16/heads", "bfloat16", "bfloat16", "heads"),
     ("bf16/heads-light", "bfloat16", "bfloat16", "heads-light"),
-    ("bf16/frozen", "bfloat16", "bfloat16", "frozen"),
-    ("bf16/all", "bfloat16", "bfloat16", "all"),
-    ("f32/heads-amb", "float32", "float32", "heads-amb"),
-    ("f32/heads-amb-flat", "float32", "float32", "heads-amb-flat"),
     ("f32/heads-flat", "float32", "float32", "heads-flat"),
-    ("bf16/heads-amb", "bfloat16", "bfloat16", "heads-amb"),
-    ("bf16/heads-amb-flat", "bfloat16", "bfloat16", "heads-amb-flat"),
 ]
 NET_SEED, NOISE_SEED, WARM_SEED = 0, 1, 9
 ALPHA = 0.5
@@ -108,13 +102,12 @@ def configs(combo: Combo, batch: int, width: int, A: int
     """The tool's ``RNaDConfig`` and MLP of one config."""
     _, net_dtype, frozen_dtype, fuse, vtrace_mode = combo
     fuse, *mods = fuse.split("-")
-    if not set(mods) <= {"light", "amb", "flat"}:
+    if not set(mods) <= {"light", "flat"}:
         raise ValueError(f"unknown modifiers {mods}")
     cfg = RNaDConfig(batch_size=batch, eta=0.2, bounds=(1,), delta_m=(1,),
                      lr=1e-3, gamma_averaging=0.01, logit_clip=2.0,
                      frozen_net_dtype=frozen_dtype, fuse_net_passes=fuse,
                      detailed_metrics="light" not in mods,
-                     learner_layout="amb" if "amb" in mods else "bma",
                      flat_optimizer="flat" in mods, vtrace_mode=vtrace_mode)
     return cfg, NetConfig(type="MLP", max_actions=A, width=width,
                           compute_dtype=net_dtype)
@@ -163,8 +156,6 @@ def measure(combo: Combo, tree: tree_lib.GameTree,
     rnad.check_supported(cfg, net_cfg)
     state = fresh_state(net_cfg, device, NET_SEED)
     rnad.resolve_fuse_mode(state.net, cfg)
-    rnad.resolve_learner_layout(cfg, cfg.vtrace_mode == "associative",
-                                tree.max_actions)
     loss_ref = split_loss(state, tree, packed, cfg)
     train_step = rnad.make_train_step(tree, packed, cfg)
     warm = fresh_state(net_cfg, device, WARM_SEED)

@@ -185,19 +185,18 @@ def mean_nashconv_by_depth(tree: GameTree,
 
 
 def kld_sums(p: torch.Tensor, q: torch.Tensor, valid: torch.Tensor,
-             legal_actions: torch.Tensor, action_axis: int = -1
+             legal_actions: torch.Tensor
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``kld``'s numerator and valid count, which data-parallel ranks sum
     before they divide."""
-    sel = (valid.unsqueeze(action_axis) * legal_actions) > 0
+    sel = (valid.unsqueeze(-1) * legal_actions) > 0
     safe = lambda x: torch.log(torch.clamp(x, min=1e-30))
     terms = torch.where(sel, p * (safe(p) - safe(q)), torch.zeros_like(p))
     return terms.sum(), valid.sum()
 
 
 def kld(p: torch.Tensor, q: torch.Tensor, valid: torch.Tensor,
-        legal_actions: torch.Tensor, action_axis: int = -1) -> torch.Tensor:
-    """Masked KL divergence diagnostic over (T, B, A) policies, or
-    batch-minor (T, A, B) ones under ``action_axis=-2``."""
-    total, count = kld_sums(p, q, valid, legal_actions, action_axis)
+        legal_actions: torch.Tensor) -> torch.Tensor:
+    """Masked KL divergence diagnostic over (T, B, A) policies."""
+    total, count = kld_sums(p, q, valid, legal_actions)
     return total / torch.clamp(count, min=1.0)

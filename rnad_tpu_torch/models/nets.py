@@ -38,7 +38,7 @@ generator.
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -104,16 +104,6 @@ class MLP(nn.Module):
         """One head's forward (``mlp_head_eval``); the tensor-parallel MLP
         (``parallel/tensor_parallel.py``) computes it on its shards."""
         return mlp_head_eval(self, obs_flat, head, dtype)
-
-    def packed_forward(self, x: torch.Tensor, w0: torch.Tensor,
-                       b0: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
-                       dtype: torch.dtype) -> torch.Tensor:
-        """The two products of ``mlp_multi_net_forward``'s packed pair on
-        (N, din) inputs ``x``, each in ``dtype`` followed by its bias add
-        in ``dtype``; the tensor-parallel MLP sums the second over the
-        model axis."""
-        h = torch.relu(x @ w0.to(dtype) + b0.to(dtype))
-        return h @ w1.to(dtype) + b1.to(dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -646,25 +636,3 @@ def mlp_head_eval(net: MLP, obs_flat: torch.Tensor, head: str,
         h = torch.relu(_dense(getattr(net, name), h, dtype))
     out = _dense(getattr(net, f"{head}_fc1"), h, dtype).float()
     return out[:, 0] if head == "value" else out
-
-
-def mlp_multi_net_forward(nets: Sequence[MLP], obs_flat: torch.Tensor,
-                          dtype: torch.dtype
-                          ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """n depth-1 MLPs' forwards over the same observations as one matmul
-    pair (``rnad_tpu``'s ``mlp_multi_net_forward``): each net's fused pair
-    (``mlp_fused_weights``), the W0s concatenated along the hidden axis
-    into (din, n 2W) and the W1s placed block-diagonally into (n 2W, n (A +
-    1)), computed in ``dtype``.  Gradients reach only the nets whose
-    weights require them.  Returns float32 (logits (N, n, A), values (N,
-    n))."""
-    A = nets[0].max_actions
-    fused = [mlp_fused_weights(net) for net in nets]
-    w0 = torch.cat([f[0] for f in fused], 1)
-    b0 = torch.cat([f[1] for f in fused])
-    w1 = torch.block_diag(*[f[2] for f in fused])
-    b1 = torch.cat([f[3] for f in fused])
-    x = obs_flat.reshape(obs_flat.shape[0], -1).to(dtype)
-    out = nets[0].packed_forward(x, w0, b0, w1, b1, dtype).float()
-    out = out.reshape(-1, len(nets), A + 1)
-    return out[..., :A], out[..., A]

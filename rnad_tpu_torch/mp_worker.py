@@ -138,10 +138,9 @@ TRAJ_FIELDS = ("indices", "policy", "actions", "rewards", "obs")
 
 def saved_fields(traj) -> dict:
     """The trajectory's fields that ``--traj-out`` keeps, as numpy arrays:
-    lanes along axis 1 (the policy as (T, B, A) whatever its record's
-    layout), the observations where the rollout stored them."""
+    lanes along axis 1, the observations where the rollout stored
+    them."""
     fields = {k: getattr(traj, k) for k in TRAJ_FIELDS}
-    fields["policy"] = traj.policy_bma()
     return {k: v.float().cpu().numpy() if k == "obs" else v.cpu().numpy()
             for k, v in fields.items() if v is not None}
 

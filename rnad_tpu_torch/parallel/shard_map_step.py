@@ -83,8 +83,7 @@ def make_shard_map_train_step(tree: GameTree, cfg: RNaDConfig,
 
 
 def lane_slice(traj: engine.Trajectory, lanes: slice) -> engine.Trajectory:
-    """The lanes ``lanes`` of a time-major "bma" trajectory."""
-    buffer_lib.check_lane_major([traj])
+    """The lanes ``lanes`` of a time-major trajectory."""
     return engine.Trajectory(**{
         name: None if getattr(traj, name) is None
         else getattr(traj, name)[:, lanes].contiguous()

@@ -2,12 +2,12 @@
 
     python3 -m rnad_tpu_torch.profile_step \
         [--net mlp|equinet|flagship|offpol|convnet] \
-        [--fuse-net-passes MODE] [--learner-layout bma|amb] \
-        [--flat-optimizer]
+        [--fuse-net-passes off|heads|auto] [--flat-optimizer]
 
-``--fuse-net-passes``, ``--learner-layout`` and ``--flat-optimizer`` set
-the learner step's options on any config, so its phases and kernel count
-can be read for each variant.
+``--fuse-net-passes`` and ``--flat-optimizer`` set the learner step's
+options on any config, so its phases and kernel count can be read for
+each variant.  The learner runs one layout, (T, B, A), so there is no
+layout option.
 
 ``--net mlp`` (the default) builds the demo tree (eta_sweep's config, seed
 0) and the MLP path's ``RNaD`` trainer (32768 lanes, MLP width 256).
@@ -110,11 +110,9 @@ NATIVE = ("flagship", "offpol")  # trees of the native generator
 
 
 def variant(cfg: RNaDConfig, fuse_net_passes: Optional[str] = None,
-            learner_layout: Optional[str] = None,
             flat_optimizer: bool = False) -> RNaDConfig:
     """``cfg`` with the learner step's options that are given."""
     kw = {"fuse_net_passes": fuse_net_passes,
-          "learner_layout": learner_layout,
           "flat_optimizer": flat_optimizer or None}
     return dataclasses.replace(cfg, **{k: v for k, v in kw.items()
                                        if v is not None})
@@ -230,11 +228,12 @@ def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--net", choices=sorted(CONFIGS), default="mlp")
     parser.add_argument("--fuse-net-passes", default=None,
-                        choices=["off", "heads", "frozen", "all", "auto"],
-                        help="override the config's net-pass strategy")
-    parser.add_argument("--learner-layout", default=None,
-                        choices=["bma", "amb", "auto"],
-                        help="override the config's learner layout")
+                        choices=["off", "heads", "auto"],
+                        help="override the config's net-pass strategy "
+                             "('heads' for the MLP only); rnad_tpu's packed "
+                             "'frozen' and 'all' lost to 'heads' on the TPU "
+                             "and on the H100, and the port does not run "
+                             "them")
     parser.add_argument("--flat-optimizer", action="store_true",
                         help="clip + Adam + EMA on one raveled vector")
     args = parser.parse_args()
@@ -244,8 +243,7 @@ def main() -> None:
                            "--format=csv,noheader"], capture_output=True,
                           text=True, timeout=60, check=True).stdout.strip()
     tree_cfg, net_cfg, cfg = CONFIGS[args.net]
-    cfg = variant(cfg, args.fuse_net_passes, args.learner_layout,
-                  args.flat_optimizer)
+    cfg = variant(cfg, args.fuse_net_passes, args.flat_optimizer)
     gen = (tree_lib.generate_tree_native if args.net in NATIVE
            else tree_lib.generate_tree)
     tree = gen(tree_cfg, seed=0, device="cuda")
@@ -269,8 +267,7 @@ def main() -> None:
     if net_cfg.type == "MLP" and cfg.obs_transform.kind == "none":
         bounds, work = roofline_rows(run, phases, counts)
     print(f"train step at B={cfg.batch_size}, {net_cfg}, fuse_net_passes "
-          f"{cfg.fuse_net_passes}, learner_layout {cfg.learner_layout}, "
-          f"flat optimizer {rnad.uses_flat_optimizer(cfg, run.state)}, "
+          f"{cfg.fuse_net_passes}, flat optimizer {rnad.uses_flat_optimizer(cfg, run.state)}, "
           f"obs_transform "
           f"{cfg.obs_transform.kind}, buffer {cfg.n_batches_per_buffer} "
           f"slots / mod {cfg.buffer_mod}: {step:.4f} ms device time; peak "

@@ -12,9 +12,11 @@ Variants (comma list via ``--variants``), the tool's grammar:
   the Gumbel-max actions and the transition;
 - ``fused``: every turn one launch of kernel K1 (``rows_actor="on"``);
 - ``chunkN`` and ``fused_chunkN``: the same with ``lane_chunks=N``, the
-  lanes rolled out as N sequential sub-batches (``env/engine.py``);
-- ``*_pmin`` (``base_pmin``, ``fused_pmin``, ``fused_pmin_chunkN``): the
-  behavior policy recorded as (T, A, B) (``policy_minor``).
+  lanes rolled out as N sequential sub-batches (``env/engine.py``).
+
+The tool's ``*_pmin`` variants record the behavior policy as (T, A, B) for
+``rnad_tpu``'s batch-minor learner; the port records (T, B, A) only, so
+it has none.
 
 It rolls out on the tool's tree (the reference demo tree, A = 3, depth
 bound 4, seed 0; ``bench.TREE_CONFIG``) with the tool's width-256 MLP
@@ -30,7 +32,7 @@ positive, or it raises; a mean return outside [-1, 1] is flagged on a
 
 Prints one JSON row a variant (``variant``, ``half_steps_per_s``,
 ``dt_s``: the timed loop's seconds, ``mean_return``, ``lane_chunks``,
-``policy_minor``, ``k1_per_rollout`` and ``k2_per_rollout``: the kernels'
+``k1_per_rollout`` and ``k2_per_rollout``: the kernels'
 launches a timed rollout, counted on the card only, ``peak_mem_gib``: the
 device's peak memory over the variant, on the card only, ``device``,
 ``power_limit_w``), then each variant's rate over ``base``'s where
@@ -53,29 +55,28 @@ from .env import tree as tree_lib
 from .ops import fused_turn, lookup, stepping
 
 BATCH, ITERS = 1 << 17, 256  # the tool's defaults
-_VARIANT = re.compile(r"(base|fused)(_pmin)?(?:_chunk(\d+))?|chunk(\d+)")
+_VARIANT = re.compile(r"(base|fused)(?:_chunk(\d+))?|chunk(\d+)")
 
 
-def parse(name: str) -> Tuple[bool, bool, int]:
-    """(fused, policy_minor, lane_chunks) of a variant name; raises
-    ValueError for a name outside the tool's grammar."""
+def parse(name: str) -> Tuple[bool, int]:
+    """(fused, lane_chunks) of a variant name; raises ValueError for a
+    name outside the port's part of the tool's grammar."""
     m = _VARIANT.fullmatch(name)
     if not m:
         raise ValueError(f"unknown variant {name}")
-    return (m.group(1) == "fused", m.group(2) is not None,
-            int(m.group(3) or m.group(4) or 1))
+    return m.group(1) == "fused", int(m.group(2) or m.group(3) or 1)
 
 
 def measure(name: str, tree: tree_lib.GameTree,
             packed: stepping.PackedTables, net: torch.nn.Module, batch: int,
             iters: int, card: Dict) -> Dict:
     """One variant's row; raises where the lanes collapse."""
-    fused, pmin, chunks = parse(name)
+    fused, chunks = parse(name)
     device = tree.device
     generator = torch.Generator(device=device).manual_seed(1)
     rollout = bench.rollout_fn(tree, packed, net, batch, generator,
                                "on" if fused else "off",
-                               lane_chunks=chunks, policy_minor=pmin)
+                               lane_chunks=chunks)
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     for _ in range(bench.WARM_ROLLOUTS):
@@ -106,7 +107,6 @@ def measure(name: str, tree: tree_lib.GameTree,
     return {"variant": name,
             "half_steps_per_s": traj.num_half_steps * batch * iters / dt,
             "dt_s": dt, "mean_return": mean_return, "lane_chunks": chunks,
-            "policy_minor": pmin,
             "k1_per_rollout": (fused_turn.fused_turn.launches - k1) / iters,
             "k2_per_rollout": (lookup.lookup.launches - k2) / iters,
             "peak_mem_gib": peak, **card}
@@ -132,7 +132,7 @@ def main(argv: Optional[Sequence[str]] = None) -> List[Dict]:
     args = p.parse_args(argv)
     names = args.variants.split(",")
     for name in names:  # before any work
-        _, _, chunks = parse(name)
+        _, chunks = parse(name)
         if chunks < 1 or args.batch % chunks:
             raise ValueError(f"{name}: {args.batch} lanes do not split "
                              f"into {chunks} chunks")

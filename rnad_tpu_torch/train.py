@@ -112,18 +112,22 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--gamma-avg", type=float, default=None,
                    help="EMA rate of the target net (gamma_averaging)")
     p.add_argument("--fuse-net-passes", default=None,
-                   choices=["off", "heads", "frozen", "all", "auto"],
+                   choices=["off", "heads", "auto"],
                    help="net-pass strategy (RNaDConfig.fuse_net_passes): "
-                        "'frozen' packs the 3 frozen nets of a depth-1 MLP "
-                        "into one matmul pair, 'all' the learner too")
+                        "'heads' (the MLP) runs only the heads the loss "
+                        "reads, 'off' every frozen net's whole forward; "
+                        "rnad_tpu's packed 'frozen' and 'all' lost to "
+                        "'heads' on the TPU and on the H100, and the port "
+                        "does not run them")
     p.add_argument("--frozen-dtype", default=None,
                    choices=["float32", "bfloat16"],
                    help="dtype of the 3 frozen-net learner forwards")
     p.add_argument("--learner-layout", default=None,
-                   choices=["bma", "amb", "auto"],
+                   choices=["bma", "auto"],
                    help="layout of the learner's policies, v-trace and "
-                        "losses: (T, B, A) 'bma' or batch-minor (T, A, B) "
-                        "'amb' (bitwise the same values); 'auto' is 'bma'")
+                        "losses: the port runs (T, B, A) 'bma', which "
+                        "'auto' is; rnad_tpu's batch-minor 'amb' exists "
+                        "for the TPU's 128-lane tile")
     p.add_argument("--flat-optimizer", action="store_true", default=None,
                    help="clip + Adam + EMA on one raveled vector (bitwise "
                         "the per-leaf update; constant lr and float32 "

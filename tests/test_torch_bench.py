@@ -78,8 +78,26 @@ SUITE_METRICS = ["tree_generation", "rollout_env_steps_per_s",
                  "train_env_steps_per_s_bf16", "nashconv_eval"]
 
 
+@pytest.fixture
+def jax_native_loaded(monkeypatch):
+    """rnad_tpu's native library loaded in this process.  rnad_tpu builds
+    it in place (``rnad_tpu/native.py::_build``) the first time a process
+    asks for it, and a process that loads it while another is still
+    writing it gives up for the rest of its life (``_load_failed``): from
+    then on rnad_tpu's numpy generator solves its levels with the numpy
+    simplex, whose values round otherwise (another content hash), and its
+    native generator raises.  Test workers that start together race so, and
+    the worker that lost fails here for what an earlier file did.  The
+    library is whole by now, so the loader gets one more try."""
+    from rnad_tpu import native as jax_native
+
+    if jax_native._load_failed:
+        monkeypatch.setattr(jax_native, "_load_failed", False)
+    assert jax_native.get_solver_lib() is not None
+
+
 @pytest.mark.parametrize("which", ["bench", "suite_demo", "suite_big4"])
-def test_trees_hash_as_rnad_tpus(which):
+def test_trees_hash_as_rnad_tpus(which, jax_native_loaded):
     if which == "bench":
         got = torch_tree_lib.generate_tree(bench.TREE_CONFIG, seed=0,
                                            device="cpu")

@@ -776,7 +776,7 @@ def test_fused_turn_stored_obs_vs_plain(dev, A, T, width, B, dtype):
 @pytest.mark.parametrize("chunks", [2, 4])
 def test_k1_rollout_chunks_are_the_whole_rollout(dev, chunks):
     """On the same full-batch noise a chunked K1 rollout is bitwise the
-    whole one, observations and the batch-minor record included."""
+    whole one, observations included."""
     tree = _tree(dev, depth=4)
     packed = stepping.make_packed_tables(tree)
     net = nets.MLP(3, 256, generator=torch.Generator().manual_seed(7)).to(
@@ -789,10 +789,9 @@ def test_k1_rollout_chunks_are_the_whole_rollout(dev, chunks):
     roll = lambda **kw: engine.rollout_from(tree, packed, net, init,
                                             noise=noise, rows_actor="on",
                                             store_obs=True, **kw)
-    whole, part = roll(), roll(lane_chunks=chunks, policy_minor=True)
-    for f in ("indices", "actions", "rewards", "values", "obs"):
+    whole, part = roll(), roll(lane_chunks=chunks)
+    for f in ("indices", "policy", "actions", "rewards", "values", "obs"):
         assert torch.equal(getattr(part, f), getattr(whole, f)), f
-    assert torch.equal(part.policy_bma(), whole.policy)
 
 
 @pytest.mark.cuda

@@ -1,33 +1,32 @@
-"""The learner step's own options of rnad_tpu_torch (``fuse_net_passes``
-"frozen" and "all", ``flat_optimizer``) against rnad_tpu's and against the
-port's own default step.
+"""The learner step's own options of rnad_tpu_torch against rnad_tpu's
+strategies and against the port's own default step.
 
 Sizes are tests/test_rnad.py's ``small_cfg`` on the conftest's small tree:
 an MLP of width 16, 48 lanes.
 
-- ``nets.mlp_multi_net_forward`` for n = 3 and 4 against rnad_tpu's:
-  within 1e-6 in float32; in bfloat16 against rnad_tpu run op by op
-  (``jax.disable_jit``, whose layers round as flax's ``dtype`` says; see
-  tests/test_torch_nets_depth_dtype.py) within tests/test_torch_bf16.py's
-  ``BF16_ATOL`` / ``BF16_RTOL``.  Gradients reach only the nets that
-  require them.
-- One learner step of each mode ("off", "heads", "frozen" with float32 and
-  with bfloat16 frozen passes, "all", and ``flat_optimizer``) on rnad_tpu's
-  rollout against rnad_tpu's step of the same mode: losses rtol 1e-5,
-  weights and target rtol 2e-6 and atol 1e-7 (tests/test_rnad.py::
+- One learner step on rnad_tpu's rollout against rnad_tpu's step under
+  each of its strategies: ``fuse_net_passes`` "off", "heads", "frozen" and
+  "all", ``frozen_net_dtype`` float32 and bfloat16, ``flat_optimizer``,
+  ``detailed_metrics`` off, the associative v-trace and the batch-minor
+  ``learner_layout="amb"``.  The port runs "heads" and
+  "off" in the (T, B, A) layout only; where rnad_tpu runs "frozen", "all"
+  or "amb" (which lost or tied on the TPU and on the H100) the port runs
+  its default, with the rest of the strategy, since rnad_tpu says every
+  mode computes the same losses.  Losses rtol
+  1e-5, weights and target rtol 2e-6 and atol 1e-7 (tests/test_rnad.py::
   test_fuse_net_passes_same_update), except where rnad_tpu's gradient is
   below 1e-6: there Adam with b1 = 0 steps a gradient that is 0 but for
   rounding by up to lr either way in either package, and the weight is
-  held within 2 lr.  The bfloat16 frozen step is held against rnad_tpu's
-  op by op.  The port's "frozen" and "all" steps against its own "heads"
-  step at the same tolerances.
+  held within 2 lr.  The bfloat16 frozen steps are held against rnad_tpu's
+  op by op (``jax.disable_jit``, whose layers round as flax's ``dtype``
+  says; see tests/test_torch_nets_depth_dtype.py).
 - ``flat_optimizer``: three port steps bitwise the per-leaf steps
   (weights, target, both moments, count); ``rnad_tpu``'s rule (a cosine
   schedule and bfloat16 leaves take the per-leaf path); a finite EquiNet
   step; a run stored with the flag resumes bitwise without it and the
   other way round, through ``RunStore``.
 - Under two gloo ranks (tests/torch_dist_worker.py, tests/
-  torch_tp_worker.py): flat + "frozen" under a ``DataGroup`` against the
+  torch_tp_worker.py): flat + "heads" under a ``DataGroup`` against the
   one-rank step, and under a 1 x 2 grid (the model axis) against the
   port's unsharded step, at tests/test_torch_parallel.py's tolerances.
 """
@@ -50,7 +49,6 @@ from rnad_tpu_torch.learn import rnad as torch_rnad
 from rnad_tpu_torch.models import nets as torch_nets
 from rnad_tpu_torch.ops import stepping as torch_stepping
 from rnad_tpu_torch.utils import checkpoint
-from tests.test_torch_bf16 import BF16_ATOL, BF16_RTOL
 from tests.test_torch_rnad_offpolicy import _flat
 from tests.torch_parity import torch_trajectory, torch_tree
 
@@ -123,68 +121,6 @@ def _port_step(small_tree, traj, state, **kw):
 
 
 # ---------------------------------------------------------------------------
-# the packed matmul pair
-# ---------------------------------------------------------------------------
-
-
-def _flax_params(seed):
-    net = _jax_net()
-    return jax.tree.map(np.asarray, jax_nets.init_variables(
-        net, jax.random.PRNGKey(seed), A)["params"])
-
-
-def _torch_mlp(params, dtype=torch.float32):
-    net = torch_nets.MLP(A, WIDTH, dtype=dtype)
-    net.load_state_dict(torch_nets.params_from_flax(params))
-    return net
-
-
-@pytest.mark.parametrize("n", [3, 4])
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_multi_net_forward_matches(n, dtype):
-    params = [_flax_params(seed) for seed in range(n)]
-    obs = np.random.default_rng(n).normal(size=(64, 2, A, A)).astype(
-        np.float32)
-    jnet = _jax_net(dtype)
-    if dtype == "float32":
-        want = jax_nets.mlp_multi_net_forward(jnet, params, jnp.asarray(obs))
-        tol = dict(rtol=0, atol=1e-6)
-    else:
-        with jax.disable_jit():
-            want = jax_nets.mlp_multi_net_forward(jnet, params,
-                                                  jnp.asarray(obs))
-        tol = dict(rtol=BF16_RTOL, atol=BF16_ATOL)
-    tdtype = torch_nets.DTYPES[dtype]
-    got = torch_nets.mlp_multi_net_forward(
-        [_torch_mlp(p, tdtype) for p in params],
-        torch.from_numpy(obs).reshape(64, -1), tdtype)
-    for g, w in zip(got, want):
-        assert g.dtype == torch.float32
-        np.testing.assert_allclose(g.detach().numpy(), np.asarray(w), **tol)
-    # each net's slot is its own forward
-    if dtype == "float32":
-        for i, p in enumerate(params):
-            logits, values = _torch_mlp(p)(torch.from_numpy(obs))
-            np.testing.assert_allclose(got[0][:, i].detach().numpy(),
-                                       logits.detach().numpy(), atol=1e-6)
-            np.testing.assert_allclose(got[1][:, i].detach().numpy(),
-                                       values.detach().numpy(), atol=1e-6)
-
-
-def test_multi_net_forward_gradients_reach_only_live_nets():
-    live, frozen = _torch_mlp(_flax_params(0)), _torch_mlp(_flax_params(1))
-    frozen.requires_grad_(False)
-    obs = torch.from_numpy(np.random.default_rng(0).normal(
-        size=(32, 2 * A * A)).astype(np.float32))
-    logits, values = torch_nets.mlp_multi_net_forward([live, frozen], obs,
-                                                      torch.float32)
-    (logits.sum() + values.sum()).backward()
-    assert all(p.grad is not None and p.grad.abs().sum() > 0
-               for p in live.parameters())
-    assert all(p.grad is None for p in frozen.parameters())
-
-
-# ---------------------------------------------------------------------------
 # the learner steps against rnad_tpu's
 # ---------------------------------------------------------------------------
 
@@ -196,7 +132,36 @@ MODES = {
                         frozen_net_dtype="bfloat16"),
     "all": dict(fuse_net_passes="all"),
     "flat": dict(flat_optimizer=True),
+    "amb-off": dict(learner_layout="amb", fuse_net_passes="off"),
+    "amb-frozen": dict(learner_layout="amb", fuse_net_passes="frozen"),
+    "amb-all": dict(learner_layout="amb", fuse_net_passes="all"),
+    "amb-flat": dict(learner_layout="amb", flat_optimizer=True),
+    "heads-bf16": dict(fuse_net_passes="heads", frozen_net_dtype="bfloat16"),
+    "off-bf16": dict(fuse_net_passes="off", frozen_net_dtype="bfloat16"),
+    "amb-heads-bf16": dict(learner_layout="amb", fuse_net_passes="heads",
+                           frozen_net_dtype="bfloat16"),
+    "amb-frozen-bf16": dict(learner_layout="amb", fuse_net_passes="frozen",
+                            frozen_net_dtype="bfloat16"),
+    # the losses and the gradient norm only
+    "light": dict(detailed_metrics=False),
+    "off-light": dict(fuse_net_passes="off", detailed_metrics=False),
+    "frozen-light": dict(fuse_net_passes="frozen", detailed_metrics=False),
+    "all-light": dict(fuse_net_passes="all", detailed_metrics=False),
+    "amb-light": dict(learner_layout="amb", detailed_metrics=False),
+    # the associative v-trace
+    "assoc-frozen": dict(fuse_net_passes="frozen",
+                         vtrace_mode="associative"),
+    "assoc-all": dict(fuse_net_passes="all", vtrace_mode="associative"),
 }
+
+
+def port_kw(kw):
+    """What the port runs of rnad_tpu's strategy ``kw``: all of it but
+    the batch-minor layout and the packed fuse modes, where it runs its
+    default."""
+    return {k: v for k, v in kw.items()
+            if k != "learner_layout"
+            and not (k == "fuse_net_passes" and v in ("frozen", "all"))}
 
 
 @pytest.mark.parametrize("mode", sorted(MODES))
@@ -205,7 +170,7 @@ def test_learner_step_matches_rnad_tpu(small_tree, mode):
     bf16 = kw.get("frozen_net_dtype") == "bfloat16"
     traj, state, new, metrics, zero = jax_learner_step(small_tree, eager=bf16,
                                                        **kw)
-    tstate, tmetrics = _port_step(small_tree, traj, state, **kw)
+    tstate, tmetrics = _port_step(small_tree, traj, state, **port_kw(kw))
     assert set(tmetrics) == set(metrics)
     for k in ("loss", "loss_v", "loss_nerd"):
         np.testing.assert_allclose(tmetrics[k].item(), float(metrics[k]),
@@ -214,21 +179,9 @@ def test_learner_step_matches_rnad_tpu(small_tree, mode):
     assert_close(tstate.net_target, new.variables_target["params"], zero)
 
 
-@pytest.mark.parametrize("mode", ["frozen", "all"])
-def test_packed_modes_match_heads(small_tree, mode):
-    traj, state, _, _, zero = jax_learner_step(small_tree, seed=1)
-    heads, hm = _port_step(small_tree, traj, state, fuse_net_passes="heads")
-    packed, pm = _port_step(small_tree, traj, state, fuse_net_passes=mode)
-    np.testing.assert_allclose(pm["loss"].item(), hm["loss"].item(),
-                               rtol=1e-5)
-    for name in ("net", "net_target"):
-        assert_close(getattr(packed, name), torch_nets.params_to_flax(
-            getattr(heads, name)), zero)
-
-
 def test_fuse_modes_resolve_to_themselves():
     mlp = torch_nets.MLP(A, WIDTH)
-    for mode in ("off", "heads", "frozen", "all"):
+    for mode in ("off", "heads"):
         assert torch_rnad.resolve_fuse_mode(
             mlp, torch_config.RNaDConfig(fuse_net_passes=mode)) == mode
 
@@ -340,19 +293,19 @@ def test_resume_across_the_flat_flag(small_tree, tmp_path, stored, resumed):
 # under two gloo ranks
 # ---------------------------------------------------------------------------
 
-FLAT_FROZEN = dict(flat_optimizer=True, fuse_net_passes="frozen")
+FLAT_HEADS = dict(flat_optimizer=True, fuse_net_passes="heads")
 
 
 @pytest.fixture(scope="module")
 def clusters(small_tree, tmp_path_factory):
-    """flat + "frozen" learner cases on two gloo ranks, as a data-parallel
+    """flat + "heads" learner cases on two gloo ranks, as a data-parallel
     pair and as a 1 x 2 grid, and the port's one-rank step on the same
     weights and trajectory."""
     root = tmp_path_factory.mktemp("learner_variants")
     tree = torch_tree(small_tree)
     tree_dir = checkpoint.save_tree(tree, "small", root=str(root / "trees"))
     packed = torch_stepping.make_packed_tables(tree)
-    tcfg = torch_config.RNaDConfig(**CFG, **FLAT_FROZEN)
+    tcfg = torch_config.RNaDConfig(**CFG, **FLAT_HEADS)
     net_cfg = torch_config.NetConfig(max_actions=A, width=WIDTH)
     net = torch_nets.build_net(net_cfg, torch.Generator().manual_seed(0))
     traj = torch_rnad.rollout(torch_rnad.init_train_state(

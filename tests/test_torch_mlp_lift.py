@@ -42,8 +42,9 @@ C = LIFT["channels"] + 1
 SEGMENT = 20
 
 
-def _setup(small_tree, seed):
-    cfg = RNaDConfig(**CFG, obs_transform=ObsTransformConfig(**LIFT))
+def _setup(small_tree, seed, jax_kw=None):
+    cfg = RNaDConfig(**CFG, obs_transform=ObsTransformConfig(**LIFT),
+                     **(jax_kw or {}))
     net = jax_nets.build_net(NetConfig(type="MLP", max_actions=A,
                                        width=WIDTH))
     fns = jax_rnad.make_rnad_fns(net, small_tree, cfg)
@@ -68,15 +69,26 @@ def _max_param_gap(module, params):
 
 
 def test_mlp_lift_learner_step_matches(small_tree):
+    _assert_mlp_lift_learner_step(small_tree)
+
+
+def test_mlp_lift_learner_step_matches_rnad_tpus_amb_step(small_tree):
+    """rnad_tpu's step in its batch-minor layout, on its own rollout (whose
+    record is then (T, A, B)), against the port's (T, B, A) step on that
+    rollout transposed back."""
+    _assert_mlp_lift_learner_step(small_tree, dict(learner_layout="amb"))
+
+
+def _assert_mlp_lift_learner_step(small_tree, jax_kw=None):
     (_, rollout_jit, learn_jit, _), state, tcfg, _, tstate = _setup(
-        small_tree, 3)
+        small_tree, 3, jax_kw)
     state, traj = rollout_jit(state)
     assert traj.obs.shape[2] == C
     new, metrics = learn_jit(state, traj, jnp.float32(0.5))
     tree = torch_tree(small_tree)
     tmetrics = torch_rnad.learn_step(
         tstate, torch_stepping.make_packed_tables(tree),
-        torch_trajectory(traj), 0.5, tcfg)
+        torch_trajectory(traj.replace(policy=traj.policy_bma())), 0.5, tcfg)
     for k in ("loss", "loss_v", "loss_nerd"):
         np.testing.assert_allclose(tmetrics[k].item(), float(metrics[k]),
                                    rtol=1e-5, err_msg=k)

@@ -6,7 +6,9 @@ rnad_tpu_torch against rnad_tpu.
   both ways, the rollout route (a deep MLP never reaches kernel K1, whose
   packing has no place for hidden layers) and one fused train step at
   depth 2 with the tolerances of tests/test_torch_rnad.py (weights 1e-6,
-  losses rtol 1e-5).
+  losses rtol 1e-5), also against rnad_tpu's step in its batch-minor
+  ``learner_layout="amb"``, which the port's one (T, B, A) path stands in
+  for.
 - ``frozen_net_dtype="bfloat16"``: one learner step of the float32 MLP
   ("heads": the frozen heads in bfloat16) and of the EquiNet ("off": the
   frozen nets' whole forwards in bfloat16) on rnad_tpu's rollout, with the
@@ -16,7 +18,8 @@ rnad_tpu_torch against rnad_tpu.
   mode within tests/test_torch_bf16.py's ``BF16_ATOL``/``BF16_RTOL`` of
   flax's, and one learner step on rnad_tpu's rollout (weights and BatchNorm
   statistics 1e-6 but 2 lr where the gradient is 0 but for rounding,
-  losses rtol 1e-5).
+  losses rtol 1e-5), against rnad_tpu's step in its default layout and in
+  its batch-minor one.
 
 The MLP's and the ConvNet's bfloat16 learner steps are held against
 rnad_tpu's step run op by op (``jax.disable_jit``), whose layers round as
@@ -146,19 +149,20 @@ def test_deep_mlp_rolls_out_through_the_generic_turn(small_tree):
     with pytest.raises(ValueError) as got:
         torch_engine.uses_fused_turn(tnet, "on")
     assert str(got.value) == str(want.value)
-    # rnad_tpu's fuse errors for the matmul packings
-    for mode in ("frozen", "all"):
-        cfg = torch_config.RNaDConfig(fuse_net_passes=mode)
-        with pytest.raises(ValueError, match="depth-1 MLP"):
-            torch_rnad.resolve_fuse_mode(tnet, cfg)
-    cfg = torch_config.RNaDConfig(fuse_net_passes="all",
-                                  frozen_net_dtype="bfloat16")
-    with pytest.raises(ValueError, match="frozen_net_dtype to match"):
-        torch_rnad.resolve_fuse_mode(_deep(1), cfg)
 
 
 def test_deep_mlp_train_step_matches(small_tree):
-    cfg = RNaDConfig(**CFG)
+    _assert_deep_mlp_train_step(small_tree, RNaDConfig(**CFG))
+
+
+def test_deep_mlp_train_step_matches_rnad_tpus_amb_step(small_tree):
+    _assert_deep_mlp_train_step(small_tree,
+                                RNaDConfig(**CFG, learner_layout="amb"))
+
+
+def _assert_deep_mlp_train_step(small_tree, cfg):
+    """rnad_tpu's fused step under ``cfg`` against the port's default
+    step, from the same weights and noise."""
     net = jax_nets.build_net(NetConfig(type="MLP", max_actions=A,
                                        width=WIDTH, depth=2))
     step, _, _, _ = jax_rnad.make_rnad_fns(net, small_tree, cfg)
@@ -185,14 +189,17 @@ def test_deep_mlp_train_step_matches(small_tree):
 # ---------------------------------------------------------------------------
 
 
-def _learner_pair(small_tree, net_kw, key=0, eager=False, **cfg_kw):
-    """rnad_tpu's rollout and learner step (op by op where ``eager``) and
-    the port's config; returns (traj, state, new, metrics, tcfg, zero)."""
+def _learner_pair(small_tree, net_kw, key=0, eager=False, jax_kw=None,
+                  **cfg_kw):
+    """rnad_tpu's rollout and its learner step under ``cfg_kw`` and
+    ``jax_kw`` (op by op where ``eager``) and the port's config under
+    ``cfg_kw``; returns (traj, state, new, metrics, tcfg, zero)."""
     kw = dict(CFG, **cfg_kw)
     cfg = RNaDConfig(**kw)
     net = jax_nets.build_net(NetConfig(**net_kw))
-    _, rollout_jit, learn_jit, _ = jax_rnad.make_rnad_fns(net, small_tree,
-                                                          cfg)
+    _, rollout_jit, _, _ = jax_rnad.make_rnad_fns(net, small_tree, cfg)
+    _, _, learn_jit, _ = jax_rnad.make_rnad_fns(
+        net, small_tree, RNaDConfig(**kw, **(jax_kw or {})))
     state = jax_rnad.init_train_state(net, jax.random.PRNGKey(key), A, cfg)
     _, traj = rollout_jit(state)
     aux = {k: v for k, v in state.variables.items() if k != "params"}
@@ -317,9 +324,18 @@ def test_bf16_convnet_forward_matches(train):
 
 
 def test_bf16_convnet_learner_step_matches(small_tree):
+    _assert_bf16_convnet_learner_step(small_tree)
+
+
+def test_bf16_convnet_learner_step_matches_rnad_tpus_amb_step(small_tree):
+    _assert_bf16_convnet_learner_step(small_tree,
+                                      dict(learner_layout="amb"))
+
+
+def _assert_bf16_convnet_learner_step(small_tree, jax_kw=None):
     net_kw = dict(CONV, compute_dtype="bfloat16")
-    traj, state, new, metrics, tcfg, zero = _learner_pair(small_tree, net_kw,
-                                                          3, eager=True)
+    traj, state, new, metrics, tcfg, zero = _learner_pair(
+        small_tree, net_kw, 3, eager=True, jax_kw=jax_kw)
     tree = torch_tree(small_tree)
     tnet = _bf16_convnet(state.variables)
     tstate = torch_rnad.init_train_state(tnet, torch.Generator())

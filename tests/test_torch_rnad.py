@@ -132,12 +132,36 @@ def test_rnad_loop_schedule_and_eval(small_tree, tmp_path):
 
 @pytest.mark.parametrize("field,value", [
     ("frozen_net_dtype", "float16"),
+    # rnad_tpu's TPU layout and its packed fuse modes, which lost or tied
+    # on the TPU and on the H100
+    ("learner_layout", "amb"),
+    ("fuse_net_passes", "frozen"),
+    ("fuse_net_passes", "all"),
 ])
 def test_unported_fields_raise(small_tree, field, value):
     tree = torch_tree(small_tree)
     cfg = torch_config.RNaDConfig(**{field: value})
     with pytest.raises(NotImplementedError, match=field):
         torch_rnad.RNaD(tree, cfg, device="cpu")
+
+
+@pytest.mark.parametrize("field,value", [("learner_layout", "diagonal"),
+                                         ("fuse_net_passes", "packed")])
+def test_unknown_modes_raise_rnad_tpus_error(small_tree, field, value):
+    """A layout or fuse mode that neither package knows raises
+    rnad_tpu's ValueError, before the trainer starts."""
+    cfg = RNaDConfig(**{field: value})
+    with pytest.raises(ValueError) as want:
+        if field == "learner_layout":
+            jax_rnad.resolve_learner_layout(cfg, False, max_actions=A)
+        else:
+            jax_rnad.resolve_fuse_mode(jax_nets.build_net(NetConfig(
+                type="MLP", max_actions=A, width=WIDTH)), cfg)
+    with pytest.raises(ValueError) as got:
+        torch_rnad.RNaD(torch_tree(small_tree),
+                        torch_config.RNaDConfig(**{field: value}),
+                        device="cpu")
+    assert str(got.value) == str(want.value)
 
 
 def test_package_imports_no_jax():

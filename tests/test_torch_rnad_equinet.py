@@ -6,7 +6,9 @@ From the same weights, the same rollout noise and the same solves (see
 solve, the "off" learner passes) must give the same new parameters (atol
 1e-6: Adam with b1=0 moves each weight by at most lr, so this is a tight
 bound on the update, except on the few weights whose gradient is 0 but for
-rounding: 2 lr, see ``_zero_gradients``) and the same losses (rtol 1e-5); five
+rounding: 2 lr, see ``_zero_gradients``) and the same losses (rtol 1e-5),
+also where rnad_tpu runs its batch-minor ``learner_layout="amb"`` (which
+the port does not run: its one (T, B, A) path stands in for it); five
 steps with a rotation give the same target-net NashConv within 1e-4.
 """
 
@@ -44,8 +46,11 @@ def _net_kw(solver_iters, solver_prime):
                 solver_iters=solver_iters, solver_prime=solver_prime)
 
 
-def _pair(small_tree, solver_iters=16, solver_prime=True, seed=0, **kw):
-    cfg = RNaDConfig(**CFG, **kw)
+def _pair(small_tree, solver_iters=16, solver_prime=True, seed=0,
+          jax_kw=None, **kw):
+    """rnad_tpu's fused step, NashConv, state and net under ``kw`` and
+    ``jax_kw``, and the port's step, tree and state under ``kw``."""
+    cfg = RNaDConfig(**CFG, **kw, **(jax_kw or {}))
     net = jax_nets.build_net(NetConfig(**_net_kw(solver_iters,
                                                  solver_prime)))
     train_step, _, _, nashconv_fn = jax_rnad.make_rnad_fns(net, small_tree,
@@ -123,8 +128,21 @@ def _assert_params_close(module, params, atol, loose=None):
 
 @pytest.mark.parametrize("solver_prime", [True, False])
 def test_one_fused_step_matches(small_tree, solver_prime, jax_solves):
+    _assert_one_fused_step(small_tree, solver_prime)
+
+
+@pytest.mark.parametrize("solver_prime", [True, False])
+def test_one_fused_step_matches_rnad_tpus_amb_step(small_tree, solver_prime,
+                                                   jax_solves):
+    """rnad_tpu's step in its batch-minor layout (its rollout records the
+    (T, A, B) policy) against the port's (T, B, A) step."""
+    _assert_one_fused_step(small_tree, solver_prime,
+                           dict(learner_layout="amb"))
+
+
+def _assert_one_fused_step(small_tree, solver_prime, jax_kw=None):
     (step, _, state, net), (tstep, _, tstate) = _pair(
-        small_tree, solver_prime=solver_prime)
+        small_tree, solver_prime=solver_prime, jax_kw=jax_kw)
     noise = _noise(small_tree, state)
     zero = _zero_gradients(net, small_tree, state, 0.5)
     new, metrics = step(state, jnp.float32(0.5))
@@ -158,7 +176,7 @@ def test_five_steps_nashconv_matches(small_tree, jax_solves):
     assert abs(got - want) < 1e-4
 
 
-@pytest.mark.parametrize("mode", ["heads", "frozen", "all"])
+@pytest.mark.parametrize("mode", ["heads"])
 def test_fuse_mode_errors_match_jax(mode):
     jnet = jax_nets.build_net(NetConfig(**_net_kw(16, True)))
     tnet = torch_nets.build_net(torch_config.NetConfig(**_net_kw(16, True)))
@@ -178,7 +196,6 @@ def test_fuse_mode_resolution():
         net, torch_config.RNaDConfig(fuse_net_passes=mode))
     assert resolve(equi, "auto") == resolve(equi, "off") == "off"
     assert resolve(mlp, "auto") == "heads"
-    assert resolve(mlp, "frozen") == "frozen"
     assert resolve(mlp, "off") == "off"
 
 

@@ -129,7 +129,18 @@ def test_buffered_run_rolls_out_and_samples_as_rnad_tpu(small_tree,
 
 
 def test_one_sampled_learner_step_matches(small_tree):
-    cfg = RNaDConfig(**CFG, **BUFFERED)
+    _assert_one_sampled_learner_step(small_tree)
+
+
+def test_one_sampled_learner_step_matches_rnad_tpus_amb_step(small_tree):
+    """rnad_tpu's sampled step in its batch-minor layout (its buffered
+    rollouts stay (T, B, A)) against the port's (T, B, A) step."""
+    _assert_one_sampled_learner_step(small_tree,
+                                     dict(learner_layout="amb"))
+
+
+def _assert_one_sampled_learner_step(small_tree, jax_kw=None):
+    cfg = RNaDConfig(**CFG, **BUFFERED, **(jax_kw or {}))
     net = jax_nets.build_net(NetConfig(type="MLP", max_actions=A,
                                        width=WIDTH))
     _, rollout_jit, learn_jit, _ = jax_rnad.make_rnad_fns(net, small_tree,

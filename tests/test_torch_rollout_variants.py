@@ -1,16 +1,18 @@
 """The rollout's variants of rnad_tpu_torch.env.engine against rnad_tpu's:
-stored observations (``store_obs``, ``RNaDConfig.store_rollout_obs``),
-``lane_chunks`` and ``policy_minor``, and the learner steps that read them.
+stored observations (``store_obs``, ``RNaDConfig.store_rollout_obs``) and
+``lane_chunks``, the port's (T, B, A) policy record against rnad_tpu's
+batch-minor one (``policy_minor``, the record of its TPU layout, which the
+port does not run), and the learner steps that read them.
 
 The noise is drawn with jax.random under rnad_tpu's key discipline (for a
 chunked rollout: one key a chunk, ``jax.random.split(key, k)``, each chunk's
 noise assembled into the full batch's columns) and handed to both packages,
 so the episodes are the same: indices, actions, rewards and observations
-equal; policy and values within the engine tests' rtol 1e-5, atol 1e-6.
-Within the port, what the variants change is a record's layout or a copy,
-so the port holds itself bitwise: stored observations are the regathered
-ones, a chunked rollout on the same full-batch noise is the whole one, the
-(T, A, B) record is the (T, B, A) one transposed, and a train step that
+equal; policy and values within the engine tests' rtol 1e-5, atol 1e-6
+(rnad_tpu's (T, A, B) record transposed, where it records that).  Within
+the port, what the variants change is a copy, so the port holds itself
+bitwise: stored observations are the regathered ones, a chunked rollout
+on the same full-batch noise is the whole one, and a train step that
 stores the observations is the regather step.  The steps match rnad_tpu's
 at tests/test_torch_rnad.py's tolerance (weights atol 1e-6, losses rtol
 1e-5).
@@ -33,9 +35,11 @@ from rnad_tpu_torch.learn import buffer as torch_buffer
 from rnad_tpu_torch.learn import rnad as torch_rnad
 from rnad_tpu_torch.models import nets as torch_nets
 from rnad_tpu_torch.ops import stepping as torch_stepping
-from rnad_tpu_torch.parallel import shard_map_step
-from tests.torch_parity import (rollout_noise, torch_mlp, torch_tree,
-                                train_step_noise)
+from tests.test_torch_rnad_equinet import jax_solves
+from tests.torch_parity import (rollout_noise, torch_equinet, torch_mlp,
+                                torch_tree, train_step_noise)
+
+assert jax_solves  # a fixture, used by name below
 
 A, WIDTH, B = 3, 32, 128
 FIELDS = ("indices", "policy", "actions", "rewards", "values", "obs")
@@ -92,7 +96,7 @@ def _assert_episodes(got, want, bitwise_obs=True):
                                       np.asarray(getattr(want, f)), f)
     np.testing.assert_allclose(got.values.numpy(), np.asarray(want.values),
                                rtol=1e-5, atol=1e-6)
-    np.testing.assert_allclose(got.policy_bma().numpy(),
+    np.testing.assert_allclose(got.policy.numpy(),
                                np.asarray(want.policy_bma()), rtol=1e-5,
                                atol=1e-6)
     if bitwise_obs:
@@ -100,7 +104,6 @@ def _assert_episodes(got, want, bitwise_obs=True):
 
 
 def _assert_same(a, b):
-    assert a.policy_layout == b.policy_layout
     for f in FIELDS:
         x, y = getattr(a, f), getattr(b, f)
         assert (x is None) == (y is None), f
@@ -132,8 +135,7 @@ def test_stored_obs_are_regathered_and_rnad_tpus(pair, small_tree,
 
 def dataclass_without_obs(traj):
     return torch_engine.Trajectory(
-        **{f: getattr(traj, f) for f in FIELDS if f != "obs"},
-        policy_layout=traj.policy_layout)
+        **{f: getattr(traj, f) for f in FIELDS if f != "obs"})
 
 
 def test_stored_obs_in_another_dtype(pair, small_tree):
@@ -190,36 +192,70 @@ def test_lane_chunks_from_a_generator_roll_each_chunk_in_turn(pair):
 @pytest.mark.parametrize("chunks", [1, 2])
 def test_policy_minor_is_the_record_transposed(pair, small_tree, rows_actor,
                                                chunks):
-    """``policy_minor`` records the behavior policy as (T, A, B): the
-    (T, B, A) record transposed, bitwise, through the chunks' stitch, and
-    every other field bitwise; in both packages, and the two packages'
-    minor records agree as their (T, B, A) ones do."""
+    """rnad_tpu's ``policy_minor`` record (T, A, B), the record of its
+    batch-minor learner, is the port's (T, B, A) record transposed, within
+    the engine tests' tolerance, through the chunks' stitch; every other
+    field is its (T, B, A) record's."""
     key = jax.random.PRNGKey(11)
     noise = (rollout_noise(key, B, A, small_tree.max_transitions,
                            small_tree.max_depth) if chunks == 1 else
              chunked_noise(key, B, small_tree.max_transitions,
                            small_tree.max_depth, chunks))
     kw = dict(store_obs=True, lane_chunks=chunks)
-    base = _port_rollout(pair, noise, rows_actor, **kw)
-    minor = _port_rollout(pair, noise, rows_actor, policy_minor=True, **kw)
-    assert (minor.policy_layout, minor.num_actions) == ("amb", A)
-    assert minor.policy.shape == (base.policy.shape[0], A, B)
-    assert torch.equal(minor.policy, base.policy.transpose(1, 2))
-    assert torch.equal(minor.policy_bma(), base.policy)
-    assert torch.equal(base.policy_amb(), minor.policy)
-    assert torch.equal(minor.actions_oh(), base.actions_oh())
-    for f in FIELDS:
-        if f != "policy":
-            assert torch.equal(getattr(minor, f), getattr(base, f)), f
-    jbase = _jax_rollout(pair, small_tree, key, rows_actor, **kw)
-    jminor = _jax_rollout(pair, small_tree, key, rows_actor,
-                          policy_minor=True, **kw)
-    np.testing.assert_array_equal(np.asarray(jminor.policy),
-                                  np.asarray(jbase.policy_amb()))
-    np.testing.assert_allclose(minor.policy.numpy(),
-                               np.asarray(jminor.policy), rtol=1e-5,
-                               atol=1e-6)
-    _assert_episodes(minor, jminor)
+    _assert_minor_record(
+        _port_rollout(pair, noise, rows_actor, **kw),
+        _jax_rollout(pair, small_tree, key, rows_actor, policy_minor=True,
+                     **kw))
+
+
+@pytest.mark.parametrize("rows_actor", ["on", "off"])
+def test_unstored_record_is_rnad_tpus_minor_record_transposed(
+        pair, small_tree, rows_actor):
+    """As above, without stored observations (the learner regathers)."""
+    key = jax.random.PRNGKey(12)
+    noise = rollout_noise(key, B, A, small_tree.max_transitions,
+                          small_tree.max_depth)
+    got = _port_rollout(pair, noise, rows_actor)
+    assert got.obs is None
+    _assert_minor_record(got, _jax_rollout(pair, small_tree, key, rows_actor,
+                                           policy_minor=True),
+                         bitwise_obs=False)
+
+
+@pytest.mark.parametrize("store", [True, False])
+def test_equinet_record_is_rnad_tpus_minor_record_transposed(
+        small_tree, jax_solves, store):
+    """The generic turn of the solver EquiNet (the solves rnad_tpu's, see
+    ``jax_solves``): the port's record against rnad_tpu's ``policy_minor``
+    one, transposed, with stored observations and without."""
+    net = jax_nets.build_net(NetConfig(type="EquiNet", max_actions=A,
+                                       channels=8, depth=2, solver_iters=16,
+                                       solver_prime=True))
+    variables = jax_nets.init_variables(net, jax.random.PRNGKey(6), A)
+    key = jax.random.PRNGKey(13)
+    want = jax_engine.rollout_from(
+        small_tree, lambda vs, obs: jax_nets.apply_eval(net, vs, obs),
+        variables, key, jnp.ones((B,), jnp.int32), small_tree.max_depth,
+        jax_stepping.make_packed_tables(small_tree), store_obs=store,
+        policy_minor=True)
+    tree = torch_tree(small_tree)
+    got = torch_engine.rollout_from(
+        tree, torch_stepping.make_packed_tables(tree),
+        torch_equinet(variables["params"], A, 8, 2, 16, True),
+        torch.ones((B,), dtype=torch.int32),
+        noise=rollout_noise(key, B, A, small_tree.max_transitions,
+                            small_tree.max_depth), store_obs=store)
+    assert (got.obs is not None) == store
+    _assert_minor_record(got, want, bitwise_obs=store)
+
+
+def _assert_minor_record(got, want, bitwise_obs=True):
+    """The port's record against rnad_tpu's (T, A, B) one: its policy is
+    compared transposed (``policy_bma``) in ``_assert_episodes``."""
+    T = got.num_half_steps
+    assert tuple(got.policy.shape) == (T, B, A)
+    assert np.shape(want.policy) == (T, A, B)
+    _assert_episodes(got, want, bitwise_obs)
 
 
 @pytest.mark.parametrize("chunks,match", [
@@ -231,44 +267,6 @@ def test_variant_errors_are_rnad_tpus(pair, small_tree, chunks, match):
                      lane_chunks=chunks)
     with pytest.raises(ValueError, match=match):
         _port_rollout(pair, None, "on", lane_chunks=chunks)
-
-
-@pytest.mark.parametrize("layout,vtrace,buffer,want", [
-    ("amb", "auto", (1, 1), True), ("amb", "scan", (1, 1), True),
-    ("amb", "auto", (2, 1), False), ("amb", "auto", (1, 2), False),
-    ("bma", "auto", (1, 1), False), ("auto", "auto", (1, 1), False),
-    ("auto", "associative", (1, 1), False)])
-def test_policy_minor_record_rule(pair, layout, vtrace, buffer, want):
-    """rnad_tpu's rule (learn/rnad.py:612-620): the record is "amb" where
-    the resolved learner layout is "amb" and the run is on-policy; the
-    port's "auto" resolves to "bma", as rnad_tpu's does off a TPU."""
-    cfg = torch_config.RNaDConfig(
-        batch_size=B, learner_layout=layout, vtrace_mode=vtrace,
-        n_batches_per_buffer=buffer[0], buffer_mod=buffer[1])
-    assert torch_rnad.policy_minor_record(cfg, A) == want
-    state = torch_rnad.init_train_state(pair["tnet"], torch.Generator())
-    traj = torch_rnad.rollout(state, pair["tree"], pair["tpacked"], cfg)
-    assert traj.policy_layout == ("amb" if want else "bma")
-    assert traj.obs is not None  # store_rollout_obs's default
-    with pytest.raises(ValueError, match="learner_layout='amb'"):
-        torch_rnad.policy_minor_record(torch_config.RNaDConfig(
-            learner_layout="amb", vtrace_mode="associative"), A)
-
-
-def test_amb_records_are_refused_where_lanes_are_collated(pair):
-    """The buffer and the lane slice take lanes along axis 1 of every
-    field, so they refuse a (T, A, B) record (rnad_tpu never feeds one
-    there)."""
-    traj = _port_rollout(pair, None, "on", policy_minor=True)
-    with pytest.raises(ValueError, match="'bma' trajectories only"):
-        torch_buffer.TrajectoryBuffer(2).append(traj)
-    with pytest.raises(ValueError, match="'bma' trajectories only"):
-        torch_buffer.collate_slots([traj], [torch.arange(4)])
-    with pytest.raises(ValueError, match="'bma' trajectories only"):
-        shard_map_step.lane_slice(traj, slice(0, 4))
-    bma = _port_rollout(pair, None, "on", store_obs=True)
-    part = shard_map_step.lane_slice(bma, slice(0, 4))
-    assert torch.equal(part.obs, bma.obs[:, :4])
 
 
 def _jax_pair(small_tree, seed=0, **kw):
@@ -305,12 +303,11 @@ def _assert_states_equal(a, b):
             assert torch.equal(x, y), net
 
 
-@pytest.mark.parametrize("layout", ["bma", "amb"])
+@pytest.mark.parametrize("layout", ["bma"])
 def test_stored_obs_mlp_step_is_the_regather_step(small_tree, layout):
     """The MLP step with ``store_rollout_obs`` is bitwise the regather
     step (weights, target, metrics), and both match rnad_tpu's step (with
-    each setting) from the same weights and noise; under "amb" the
-    record is (T, A, B) and the learner reads it without a transpose."""
+    each setting) from the same weights and noise."""
     tree = torch_tree(small_tree)
     out = {}
     for store in (True, False):
@@ -325,7 +322,6 @@ def test_stored_obs_mlp_step_is_the_regather_step(small_tree, layout):
             tree, torch_mlp(state.variables["params"], A, WIDTH), tcfg,
             noise)
         assert (traj.obs is not None) == store
-        assert traj.policy_layout == layout
         _params_close(tstate.net, new.variables["params"], 1e-6)
         _params_close(tstate.net_target, new.variables_target["params"],
                       1e-6)
@@ -336,31 +332,6 @@ def test_stored_obs_mlp_step_is_the_regather_step(small_tree, layout):
     _assert_states_equal(out[True][0], out[False][0])
     assert all(torch.equal(out[True][1][k], out[False][1][k])
                for k in out[True][1])
-
-
-def test_amb_step_reads_the_minor_record_as_the_bma_one(small_tree):
-    """The "amb" learner's step on the (T, A, B) record is bitwise its
-    step on the same rollout recorded (T, B, A), which it transposes."""
-    tree = torch_tree(small_tree)
-    packed = torch_stepping.make_packed_tables(tree)
-    cfg = torch_config.RNaDConfig(**CFG, learner_layout="amb")
-    noise = rollout_noise(jax.random.PRNGKey(4), B, A,
-                          small_tree.max_transitions, small_tree.max_depth)
-    net = torch_nets.MLP(A, WIDTH, generator=torch.Generator().manual_seed(2))
-    init = torch.ones((B,), dtype=torch.int32)
-    states = []
-    for minor in (True, False):
-        state = torch_rnad.init_train_state(
-            torch_nets.MLP(A, WIDTH, generator=torch.Generator()
-                           .manual_seed(2)), torch.Generator())
-        traj = torch_engine.rollout_from(tree, packed, net, init,
-                                         noise=noise, store_obs=True,
-                                         policy_minor=minor)
-        states.append((state, torch_rnad.learn_step(state, packed, traj,
-                                                    0.5, cfg)))
-    _assert_states_equal(states[0][0], states[1][0])
-    assert all(torch.equal(states[0][1][k], states[1][1][k])
-               for k in states[0][1])
 
 
 def test_stored_obs_equinet_step_is_the_regather_step(small_tree):
@@ -403,7 +374,6 @@ def test_stored_obs_buffered_steps_are_the_regather_steps(small_tree,
         for _ in range(4):
             run.buffered_step(buf, 0.5)
         assert all((t.obs is not None) == store for t in buf.slots)
-        assert all(t.policy_layout == "bma" for t in buf.slots)
         sample = buf.sample(B, np.random.default_rng(0))
         assert (sample.obs is not None) == store
         runs[store] = run

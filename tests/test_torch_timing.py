@@ -98,15 +98,15 @@ FUSED = {"rnad.rollout.forward": "rnad.rollout.forward.fused",
 
 
 @pytest.mark.parametrize("fuse,net,kernels", [
-    ("off", MLP, False), ("heads", MLP, False), ("frozen", MLP, False),
-    ("all", MLP, False), ("off", EQUINET, False), ("off", EQUINET, True)],
-    ids=["off", "heads", "frozen", "all", "equinet", "equinet_kernels"])
+    ("off", MLP, False), ("heads", MLP, False), ("off", EQUINET, False),
+    ("off", EQUINET, True)],
+    ids=["off", "heads", "equinet", "equinet_kernels"])
 def test_train_step_spans_nest(small_tree, tmp_path, monkeypatch, fuse, net,
                                kernels):
     """One fused step under a profiler: the step holds the rollout (which
     holds each generic turn's net forward; the MLP's turns are K1's), then
-    the learner, which holds its passes in order; "all" has no frozen
-    pass of its own.  Where the EquiNet kernels run (here their plain
+    the learner, which holds its passes in order.  Where the EquiNet
+    kernels run (here their plain
     versions on the CPU), each turn's forward holds
     ``rnad.rollout.forward.fused`` and the learner's forward, frozen and
     backward passes each hold their ``.fused`` span (K4's forward, K4's
@@ -116,22 +116,20 @@ def test_train_step_spans_nest(small_tree, tmp_path, monkeypatch, fuse, net,
     run = _run(small_tree, tmp_path, net, fuse_net_passes=fuse)
     run.train_step(run.state, 0.5)
     spans = _spans(tmp_path, lambda: run.train_step(run.state, 0.5))
-    learner = [n for n in LEARNER
-               if fuse != "all" or n != "rnad.learn.frozen"]
     turns = ["rnad.rollout.forward"] * (
         run.tree.max_depth if net is EQUINET else 0)
     with_fused = lambda names: [m for n in names for m in (
         [n, FUSED[n]] if kernels and n in FUSED else [n])]
     assert [s[2] for s in spans] == ["rnad.train_step", "rnad.rollout"
                                      ] + with_fused(turns) + [
-        "rnad.learn"] + with_fused(learner)
+        "rnad.learn"] + with_fused(LEARNER)
     step, rollout, learn = (_one(spans, n) for n in
                             ("rnad.train_step", "rnad.rollout", "rnad.learn"))
     assert _within(rollout, step) and _within(learn, step)
     assert _in_order([rollout, learn])
     forwards = [s for s in spans if s[2] == "rnad.rollout.forward"]
     assert all(_within(f, rollout) for f in forwards) and _in_order(forwards)
-    parts = [_one(spans, n) for n in learner]
+    parts = [_one(spans, n) for n in LEARNER]
     assert all(_within(p, learn) for p in parts) and _in_order(parts)
     if kernels:
         for outer, inner in FUSED.items():

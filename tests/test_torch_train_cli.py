@@ -199,16 +199,21 @@ def test_formerly_unported_options_run(tmp_path, monkeypatch, argv):
 
 
 def test_tpu_layout_options_change_nothing(tmp_path, monkeypatch):
-    """--learner-layout and --flat-optimizer are accepted; the schedule
-    flags reach the trainer's config."""
+    """--learner-layout bma and --flat-optimizer are accepted and change
+    no weight; rnad_tpu's batch-minor "amb" is refused before the first
+    step; the schedule flags reach the trainer's config."""
     monkeypatch.chdir(tmp_path)
     common = ["--cpu", "--tree-depth", "2", "--batch-size", "16",
               "--bounds", "1", "--delta-m", "2", "--lr-schedule", "cosine",
               "--lr-decay-steps", "1", "--reg-anchor", "best"]
     plain = train.main(common + ["--name", "plain"])
-    laid = train.main(common + ["--name", "laid", "--learner-layout", "amb",
+    laid = train.main(common + ["--name", "laid", "--learner-layout", "bma",
                                 "--flat-optimizer"])
-    assert laid.cfg.learner_layout == "amb" and laid.cfg.flat_optimizer
+    assert laid.cfg.learner_layout == "bma" and laid.cfg.flat_optimizer
+    with pytest.raises(SystemExit) as refused:
+        train.main(common + ["--name", "amb", "--learner-layout", "amb"])
+    assert refused.value.code == 2  # argparse's: an invalid choice
+    assert not (tmp_path / "saved_runs" / "amb").exists()
     assert plain.cfg.reg_anchor == "best" and plain.cfg.lr_decay_steps == 1
     for p, q in zip(plain.state.net.parameters(), laid.state.net.parameters()):
         assert (p == q).all()
