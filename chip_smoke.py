@@ -24,9 +24,12 @@ Fifteen phases, and any failure exits nonzero (phase 15 runs before phase
    and prints each kernel's share of its bound.  K4 (the EquiNet's no-grad
    forwards) against the nets' own forwards at the flagship learner's
    shape (three bf16 EquiNets, A = 5, 64 channels, depth 2, primed, over
-   393,216 observations) and at a flagship rollout turn's (one net over
-   65,536; ``equinet_probe.probe``): every output bitwise, two launches
-   equal; each timed against K4's bound.  K5 (the trainable net's
+   393,216 observations), at a flagship rollout turn's (one net over
+   65,536), at a NashConv chunk's (one net over 41,942) and at
+   rnad_tpu's default width and depth (three nets, C = 128, depth 4, over
+   20,000, the weights staged a block at a time; ``equinet_probe.probe``):
+   every output bitwise, two launches equal; each timed against K4's
+   bound.  K5 (the trainable net's
    backward) once at the flagship learner's shape, one net over 393,216
    observations with random nonzero gradients of its logits and values
    (``equinet_probe.train_probe``): every leaf's gradient within
@@ -284,6 +287,12 @@ RM_ITERS = 128
 # the flagship learner's observations: 32768 lanes x 12 half-steps
 EQUI_FROZEN_N = 393216
 EQUI_TURN_N = 65536  # one flagship rollout turn: two seats of 32768 lanes
+# K4's timed shapes: (observations, nets, A, C, depth, RM+ iterations), all
+# primed: the flagship learner's, a rollout turn's, a NashConv chunk's
+# (20,971 nodes) and rnad_tpu's default width and depth
+EQUI_K4_SHAPES = ((EQUI_FROZEN_N, 3, 5, 64, 2, 128),
+                  (EQUI_TURN_N, 1, 5, 64, 2, 128), (41942, 1, 5, 64, 2, 128),
+                  (20000, 3, 5, 128, 4, 16))
 # K5's leaf gradients against eager autograd's, the largest gap over the
 # leaf's largest magnitude (bf16 roundings of float32 sums in another order)
 K5_LEAF_GAP = 0.02
@@ -905,19 +914,23 @@ def check_equinet_phase():
     """K4 against its plain version (the nets' own forwards) at the
     flagship learner's shape, three frozen bf16 EquiNets (A = 5, 64
     channels, depth 2, primed, 128 RM+ iterations) over 393,216 random
-    observations with illegal actions, and at a flagship rollout turn's,
-    one net over 65,536, through ``equinet_probe.probe``.  Every output
-    bitwise equal and two launches equal; times both.  Returns the numbers
-    of K4's entry in the kernels line (the one net's under ``rollout``)."""
+    observations with illegal actions, at a flagship rollout turn's, one
+    net over 65,536, at a NashConv chunk's, one net over 41,942, and at
+    C = 128, depth 4 (16 RM+ iterations), three nets over 20,000,
+    through ``equinet_probe.probe``.  Every output bitwise equal and two
+    launches equal; times each.  Returns the numbers of K4's entry in the
+    kernels line (the rollout turn's under ``rollout``)."""
     from rnad_tpu_torch import equinet_probe
     from rnad_tpu_torch.ops import equinet as equinet_lib
 
     equinet_lib.equinet_frozen.launches = 0
     out = {}
-    for n, nets_run in ((EQUI_FROZEN_N, 3), (EQUI_TURN_N, 1)):
-        res = equinet_probe.probe(n, iters=20, nets_run=nets_run)
-        log(f"K4 equinet_frozen ({n} observations x {nets_run} nets, A = 5,"
-            f" C = 64, depth 2, primed): "
+    for n, nets_run, A, C, depth, iters in EQUI_K4_SHAPES:
+        res = equinet_probe.probe(n, A=A, C=C, depth=depth,
+                                  solver_iters=iters, iters=20,
+                                  nets_run=nets_run)
+        log(f"K4 equinet_frozen ({n} observations x {nets_run} nets, A = "
+            f"{A}, C = {C}, depth {depth}, primed): "
             + ", ".join(f"{k} differ {v['differ_share']:.3g} (max "
                         f"{v['max_ulps']:g} bf16 ulps)"
                         for k, v in res["outputs"].items())
@@ -930,12 +943,11 @@ def check_equinet_phase():
                   if v["differ_share"] or v["nonfinite"]}
         if parted or not res["deterministic"]:
             raise AssertionError(f"K4 is not the eager forwards bit for bit "
-                                 f"at {n} x {nets_run}: {res}")
-        out[nets_run] = {"max_abs_err": 0.0, "ms": res["k4_ms"],
-                         "plain_ms": res["eager_ms"],
-                         "bound_ms": res["bound_ms"],
-                         "bound_by": res["bound_by"], "library_ms": None,
-                         "observations": n, "nets": nets_run}
+                                 f"at {n} x {nets_run}, C = {C}: {res}")
+        out[n] = {"max_abs_err": 0.0, "ms": res["k4_ms"],
+                  "plain_ms": res["eager_ms"], "bound_ms": res["bound_ms"],
+                  "bound_by": res["bound_by"], "library_ms": None,
+                  "observations": n, "nets": nets_run}
     res = equinet_probe.train_probe(EQUI_FROZEN_N, iters=5)
     worst = max(v["rel_gap"] for v in res["k5"].values())
     log(f"K5 equinet_backward ({EQUI_FROZEN_N} observations, one net, A = "
@@ -953,8 +965,8 @@ def check_equinet_phase():
                 "plain_ms": res["eager_ms"], "bound_ms": res["k5_bound_ms"],
                 "bound_by": "operations", "library_ms": None,
                 "observations": EQUI_FROZEN_N, "nets": 1}
-    return {**out[3], "rollout": out[1], "backward": backward,
-            "launches": equinet_lib.equinet_frozen.launches}
+    return {**out[EQUI_FROZEN_N], "rollout": out[EQUI_TURN_N],
+            "backward": backward, "launches": equinet_lib.equinet_frozen.launches}
 
 
 def equinet_phase(run, card):

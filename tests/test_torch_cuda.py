@@ -984,6 +984,10 @@ K4_CASES = {  # (n, A, C, depth, solver_iters, primed, obs dtype)
     "c128_depth4": (2000, 5, 128, 4, 16, True, torch.float32),
     "a8_ragged": (17, 8, 32, 1, 8, False, torch.float32),
     "one_observation": (1, 2, 48, 3, 8, True, torch.bfloat16),
+    # the wide products' other k-step counts (C / 16 = 5, 6, 7)
+    "c80_a4": (999, 4, 80, 1, 8, True, torch.float32),
+    "c96_a6_depth2": (777, 6, 96, 2, 8, False, torch.float32),
+    "c112_unprimed_c0_2": (500, 2, 112, 1, 0, False, torch.float32),
 }
 
 
@@ -1001,7 +1005,8 @@ def test_equinet_frozen_kernel_vs_eager(dev, case):
     forwards, on observations with illegal actions (zero cells), at the
     flagship's shape, unprimed without solver features (c0 = 2), at
     rnad_tpu's default width and depth (weights staged a block at a time),
-    with a ragged last tile, and on one bf16 observation."""
+    with a ragged last tile, on one bf16 observation, and at C = 80, 96
+    and 112 (each k-step count of the wide products)."""
     frozen, obs, feats = _k4_inputs(dev, *K4_CASES[case])
     want = equinet_lib.equinet_frozen_plain(frozen, obs, feats,
                                             torch.bfloat16)
