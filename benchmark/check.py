@@ -27,7 +27,12 @@ Numbers, each held to the cell's limit (``limits/<cell>.json``):
   bias that the softmax cancels, moves under Adam by round-off alone);
 * ``later_lanes_diverged``: ``lanes_diverged`` of the later checked
   steps' rollouts, the largest (a reading: where the weights already
-  differ by rounding, a lane may part at a near-tie).
+  differ by rounding, a lane may part at a near-tie);
+* ``state_gap``, where both readings hold a net's state that is not
+  trained (a ConvNet's BatchNorm running averages): the worst buffer's
+  gap between the norms of its change over the checked steps, the
+  learner's and the EMA target's, over the larger of the reference's norm
+  of that buffer and the median buffer's.
 
 Where the net solves games with RM+ (the EquiNet's features, kernel K3),
 the reference follows the program step by step from the program's own
@@ -113,6 +118,8 @@ def numbers(got: Readings, want: Readings, iters: int = 0,
             [float(_parted(a, b).float().mean())
              for a, b in zip(got.later, want.later)], default=0.0),
     }
+    if got.state and want.state:
+        out["state_gap"] = _leaf_gap(got.state, want.state, list(want.state))
     if got.solves:
         out.update(solve_numbers(got.solves, iters, device))
     return out

@@ -46,10 +46,12 @@ def reference(cell, inputs, got: Readings, device="cuda",
               precision: Optional[str] = None) -> Readings:
     """The plain reference's readings of the same checked steps from the
     same inputs, in the configuration's precision or ``precision``."""
-    arrays, params0, noise_seed = inputs
-    return ref.run(ref.Game(arrays, device), cell.config, cell.lanes,
-                   params0, noise_seed, cell.traffic["checked_steps"],
-                   precision, device=device, solves=got.solves)
+    arrays, params0, noise_seed, lift = inputs
+    sigma = cell.config["rnad"].get("obs_transform", {}).get("sigma", 0.0)
+    return ref.run(ref.Game(arrays, device, lift, sigma), cell.config,
+                   cell.lanes, params0, noise_seed,
+                   cell.traffic["checked_steps"], precision, device=device,
+                   solves=got.solves)
 
 
 def numbers(cell, got: Readings, want: Readings, device="cuda"
@@ -66,8 +68,10 @@ def _named(net, tensors: List[torch.Tensor]) -> Dict[str, torch.Tensor]:
 def checked(system: System, cell) -> Readings:
     """The first ``checked_steps`` train steps, read as the reference reads
     its own: the losses, the first rollout, Adam's second moment after the
-    first step and the weights, target and moments after the last, and
-    the RM+ solves the steps made.  These steps are the window's own call
+    first step and the weights, target and moments after the last, the
+    learner's and the target's state after the last where the net keeps
+    state (BatchNorm's running averages), and the RM+ solves the steps
+    made.  These steps are the window's own call
     (``RNaD.train_step``) on the same state; what is read goes to the
     host."""
     solves = []
@@ -75,6 +79,11 @@ def checked(system: System, cell) -> Readings:
         readings = _checked_steps(system, cell.traffic["checked_steps"])
     readings.solves = solves or None
     return readings
+
+
+def _buffers(net) -> Dict[str, torch.Tensor]:
+    return {name: b.detach().cpu().clone() for name, b in net.named_buffers()
+            if b.is_floating_point()}
 
 
 def _checked_steps(system: System, steps: int) -> Readings:
@@ -88,7 +97,7 @@ def _checked_steps(system: System, steps: int) -> Readings:
         record = {"indices": traj.indices.cpu(), "actions": traj.actions.cpu(),
                   "rewards": traj.rewards.cpu()}
         if n == 0:
-            first = dict(record, policy=traj.policy_bma().cpu(),
+            first = dict(record, policy=traj.policy.cpu(),
                          obs=None if traj.obs is None else traj.obs.cpu())
             nu1 = _named(state.net, state.opt.nu)
         else:
@@ -96,11 +105,14 @@ def _checked_steps(system: System, steps: int) -> Readings:
         del traj
     params = _named(state.net, list(state.net.parameters()))
     target = _named(state.net_target, list(state.net_target.parameters()))
+    buffers = _buffers(state.net)
     return Readings(
         losses=losses, rollout=first, grad=grad_norms(nu1, b2),
-        change=norms({k: params[k] - p0[k] for k in p0}),
-        target_change=norms({k: target[k] - p0[k] for k in p0}),
-        moment=norms(_named(state.net, state.opt.nu)), later=later)
+        change=norms({k: params[k] - p0[k] for k in params}),
+        target_change=norms({k: target[k] - p0[k] for k in target}),
+        moment=norms(_named(state.net, state.opt.nu)), later=later,
+        state=ref.state_changes(buffers, _buffers(state.net_target),
+                                {k: p0[k] for k in buffers}))
 
 
 @dataclasses.dataclass

@@ -23,9 +23,7 @@ def _lanes(traj, lanes: slice):
     out = {}
     for f in dataclasses.fields(traj):
         v = getattr(traj, f.name)
-        if f.name == "policy" and traj.policy_layout == "amb":
-            v = v[:, :, lanes]
-        elif hasattr(v, "dim") and v.dim() >= 2:
+        if hasattr(v, "dim") and v.dim() >= 2:
             v = v[:, lanes]
         out[f.name] = v
     return dataclasses.replace(traj, **out)

@@ -51,14 +51,16 @@ def _exchangeable(h: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
 
 
 def forward(params: Params, obs: torch.Tensor, net: dict,
-                    prec: Precision, feats=None
-                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(N, 2, A, A) observations -> (logits (N, A), values (N,)): the
+            prec: Precision, feats=None, state=None, train: bool = False,
+            mask=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(N, C, A, A) observations -> (logits (N, A), values (N,)): the
     channels-last observation with the solver channels, ``depth``
     exchangeable layers with ReLU, a policy head on each row's mean and a
     value head on the global mean, both beside the input's same pools, and
     with ``solver_prime`` the solve's log x and value through the gates.
-    ``feats`` is ``solver_features`` of the same observations."""
+    ``feats`` is ``solver_features`` of the same observations.  The
+    EquiNet keeps no state and has no train mode."""
+    del state, train, mask
     x = obs.permute(0, 2, 3, 1)
     iters = net.get("solver_iters", 0)
     if iters:
@@ -89,12 +91,13 @@ def features(net: dict, obs: torch.Tensor, solver=None) -> Optional[tuple]:
     return None
 
 
-def param_shapes(net: dict, A: int):
-    """The leaves at A actions in the program's state_dict order: (name,
-    shape, bound), each starting U(-bound, bound), torch's Linear default
-    of its layer; a bound of None marks a gate that starts at 1."""
+def param_shapes(net: dict, A: int, in_channels: int = 2):
+    """The leaves at A actions and ``in_channels`` input channels in the
+    program's state_dict order: (name, shape, bound), each starting
+    U(-bound, bound), torch's Linear default of its layer; a bound of None
+    marks a gate that starts at 1."""
     C = net["channels"]
-    c0 = 2 + (6 if net.get("solver_iters", 0) else 0)
+    c0 = in_channels + (6 if net.get("solver_iters", 0) else 0)
     out, cin = [], c0
     if net.get("solver_iters", 0) and net.get("solver_prime", False):
         out += [("policy_prime_gate", (), None),

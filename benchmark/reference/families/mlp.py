@@ -24,9 +24,11 @@ def head(params: Params, x: torch.Tensor, name: str, depth: int,
 
 
 def forward(params: Params, obs: torch.Tensor, net: dict, prec: Precision,
-            feats=None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(N, 2, A, A) observations -> (logits (N, A), values (N,))."""
-    del feats
+            feats=None, state=None, train: bool = False, mask=None
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(N, C, A, A) observations -> (logits (N, A), values (N,)); the MLP
+    keeps no state and has no train mode."""
+    del feats, state, train, mask
     x = obs.reshape(obs.shape[0], -1)
     depth = net.get("depth", 1)
     return (head(params, x, "policy", depth, prec),
@@ -38,11 +40,11 @@ def features(net: dict, obs: torch.Tensor, solver=None) -> None:
     return None
 
 
-def param_shapes(net: dict, A: int):
-    """The leaves at A actions in the program's state_dict order: (name,
-    shape, bound), each starting U(-bound, bound), torch's Linear default
-    of its layer."""
-    din, W, depth = 2 * A * A, net["width"], net.get("depth", 1)
+def param_shapes(net: dict, A: int, in_channels: int = 2):
+    """The leaves at A actions and ``in_channels`` input channels in the
+    program's state_dict order: (name, shape, bound), each starting
+    U(-bound, bound), torch's Linear default of its layer."""
+    din, W, depth = in_channels * A * A, net["width"], net.get("depth", 1)
     out = []
     for name, fan, width in (("policy_fc0", din, W), ("policy_fc1", W, A),
                              ("value_fc0", din, W), ("value_fc1", W, 1)):

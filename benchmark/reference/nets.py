@@ -4,13 +4,20 @@ and each net family's forward, found by name.
 A family is ``families/<type>.py`` (the configuration's net type in lower
 case), written from the architecture's description (``rnad_tpu/models/
 nets.py``, the flax modules the port follows), with ``forward(params,
-obs, net, prec, feats)``, ``features(net, obs, solver)`` (what every pass
-over the same observations shares, or None) and ``param_shapes(net, A)``.
-A net is a dict of float32 parameter tensors under the program's
-state_dict names (a Linear's weight is (out, in)); its forward computes in
-the configuration's precision as flax's ``dtype`` does: each layer casts
-its input, kernel and bias to the compute type and computes in it, and
-the outputs leave as float32.
+obs, net, prec, feats, state=None, train=False, mask=None)``,
+``features(net, obs, solver)`` (what every pass over the same
+observations shares, or None), ``param_shapes(net, A, in_channels)`` and,
+where the net keeps state that is not trained (BatchNorm's running
+averages), ``state_shapes(net, A, in_channels)``.  A net is a dict of
+float32 parameter tensors under the program's state_dict names (a
+Linear's weight is (out, in)), and its state another such dict; its
+forward computes in the configuration's precision as flax's ``dtype``
+does: each layer casts its input, kernel and bias to the compute type and
+computes in it, and the outputs leave as float32.  ``train`` is the
+learner's pass: its per-sample ``mask`` (N,) weighs the batch statistics,
+and the pass moves ``state`` in place, outside autograd; otherwise the
+pass reads ``state``.  Observations have ``in_channels`` channels: 2 raw,
+or the lift's C + 1 (``in_channels``).
 
 ``Precision`` names the type of the products: "float32" (TF32 off),
 "bfloat16", and for the control, the type below the one stated: "tf32"
@@ -164,8 +171,24 @@ def features(net: dict, obs: torch.Tensor, solver=None):
     return family(net).features(net, obs, solver)
 
 
-def param_shapes(net: dict, A: int):
-    """The leaves of a net of ``net`` at A actions, in the program's
-    state_dict order: (name, shape, bound), where a leaf starts U(-bound,
-    bound) and a bound of None marks a gate that starts at 1."""
-    return family(net).param_shapes(net, A)
+def in_channels(config: dict) -> int:
+    """The channels of the observations a configuration's net reads: its
+    lift's C + 1, or 2 raw."""
+    lift = config.get("rnad", {}).get("obs_transform", {})
+    return lift["channels"] + 1 if lift.get("kind") == "lift" else 2
+
+
+def param_shapes(net: dict, A: int, in_channels: int = 2):
+    """The trained leaves of a net of ``net`` at A actions reading
+    ``in_channels`` channels, in the program's state_dict order: (name,
+    shape, bound), where a leaf starts U(-bound, bound), a bound of 0 at 0
+    and a bound of None at 1 (a gate, a BatchNorm scale)."""
+    return family(net).param_shapes(net, A, in_channels)
+
+
+def state_shapes(net: dict, A: int, in_channels: int = 2):
+    """The leaves a net of ``net`` keeps but does not train, in the
+    program's state_dict order: (name, shape, (low, high)), each drawn
+    U(low, high); none where the family keeps none."""
+    shapes = getattr(family(net), "state_shapes", None)
+    return [] if shapes is None else shapes(net, A, in_channels)

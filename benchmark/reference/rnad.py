@@ -11,6 +11,21 @@ logits, and the joint cell's chance outcome is the Gumbel-max of its log
 chance.  The noise is drawn from one generator in the program's documented
 order (each turn ``g_act`` (2B, A), then ``g_chance`` drawn as (T, B)), so
 the same seed plays the same episodes.
+
+Where the configuration lifts its observations, each seat's raw (2, A, A)
+observation becomes ``[lifted_0, legal, lifted_1, ..., lifted_{C-1}]`` with
+``lifted[c] = sum_d mix[c, d] raw[d] + bias[c] + sigma eps[c]``: ``mix``
+and ``bias`` are the seeded data both sides are handed, and the unit
+Gaussian ``eps`` (2B, C, A, A) is drawn each turn after ``g_act`` and
+``g_chance``, the program's documented order under a lift.
+
+A net's state that is not trained (a ConvNet's BatchNorm running averages)
+is carried beside each net's weights: the learner's pass runs in train
+mode over the valid half-steps (its mask) and moves the learner's state;
+every rollout turn and the three frozen passes read their net's state; the
+EMA target averages the learner's state after Adam as it averages the
+weights; the regularization pair keep theirs, since no update boundary
+falls inside a run.
 """
 
 from __future__ import annotations
@@ -29,10 +44,17 @@ TINY = torch.finfo(torch.float32).tiny
 
 
 class Game:
-    """The tree's arrays on a device."""
+    """The tree's arrays on a device, and the lift of the observations:
+    ``lift`` holds its ``mix`` and ``bias``, ``sigma`` its noise's scale
+    (module docstring); without it the observations are raw."""
 
-    def __init__(self, arrays: Dict[str, np.ndarray], device):
+    def __init__(self, arrays: Dict[str, np.ndarray], device,
+                 lift: Optional[Dict[str, torch.Tensor]] = None,
+                 sigma: float = 0.0):
         t = lambda k: torch.as_tensor(arrays[k]).to(device)
+        self.lift = (None if lift is None
+                     else {k: v.to(device).float() for k, v in lift.items()})
+        self.sigma = sigma
         self.ev = t("expected_value")[:, 0]  # (S, A, A)
         self.legal = t("legal")[:, 0]
         self.chance = t("chance")  # (S, T, A, A)
@@ -42,14 +64,21 @@ class Game:
         self.A = self.ev.shape[-1]
         self.T = self.chance.shape[1]
 
-    def observe(self, idx: torch.Tensor):
-        """Both seats' observations (2B, 2, A, A) and legal actions (2B,
-        A) at states ``idx`` (B,)."""
+    def observe(self, idx: torch.Tensor, eps: Optional[torch.Tensor] = None):
+        """Both seats' observations (2B, C, A, A) and legal actions (2B,
+        A) at states ``idx`` (B,): raw (C = 2), or lifted with the noise
+        ``eps`` (2B, C - 1, A, A)."""
         ev, lg = self.ev[idx], self.legal[idx]
         row = torch.stack([ev, lg], 1)
         col = torch.stack([-ev, lg], 1).transpose(2, 3)
         masks = torch.cat([lg[:, :, 0], lg[:, 0, :]])
-        return torch.cat([row, col]), masks
+        raw = torch.cat([row, col])
+        if self.lift is None:
+            return raw, masks
+        lifted = (torch.einsum("cd,ndij->ncij", self.lift["mix"], raw)
+                  + self.lift["bias"] + self.sigma * eps)
+        return torch.cat([lifted[:, :1], raw[:, 1:2], lifted[:, 1:]],
+                         1), masks
 
 
 def gumbel(shape, gen: torch.Generator, device) -> torch.Tensor:
@@ -82,10 +111,13 @@ def rollout(game: Game, forward, lanes: int, gen: torch.Generator,
     idx = torch.ones((B,), dtype=torch.long, device=device)
     rec = {k: [] for k in ("indices", "policy", "actions", "rewards",
                            "values", "obs")}
+    C = None if game.lift is None else game.lift["mix"].shape[0]
     for _ in range(game.max_depth):
         g_act = gumbel((2 * B, A), gen, device)
         g_ch = gumbel((T, B), gen, device).t()
-        obs, legal = game.observe(idx)
+        eps = (None if C is None else torch.randn(
+            (2 * B, C, A, A), generator=gen, device=device))
+        obs, legal = game.observe(idx, eps)
         logits, values = forward(obs)
         act = torch.argmax(masked_logits(logits, legal) + g_act, 1)
         ra, ca = act[:B], act[B:]
@@ -102,7 +134,7 @@ def rollout(game: Game, forward, lanes: int, gen: torch.Generator,
         rec["rewards"].append(torch.stack([torch.zeros_like(reward),
                                            reward]))
         rec["values"].append(values.reshape(2, B))
-        rec["obs"].append(obs.reshape(2, B, 2, A, A))
+        rec["obs"].append(obs.reshape((2, B) + obs.shape[1:]))
         idx = new
     return {k: torch.cat(v) for k, v in rec.items()}
 
@@ -195,8 +227,11 @@ def neurd(logits, pi, q, mask_legal, mask, clip: float, threshold: float):
 
 def learner_loss(params, frozen, traj, game: Game, net: dict, cfg: dict,
                  alpha: float, neurd_scale: float, prec: nets.Precision,
-                 solver=None):
-    """The loss of one update and its parts (loss_v, loss_nerd)."""
+                 solver=None, state=None):
+    """The loss of one update and its parts (loss_v, loss_nerd).  The
+    learner's pass runs in train mode over the valid half-steps and moves
+    its ``state``; ``frozen`` is the (weights, state) of the target and
+    the regularization pair, read in eval mode."""
     forward = nets.family(net).forward
     Tn, B = traj["indices"].shape
     A = game.A
@@ -206,7 +241,8 @@ def learner_loss(params, frozen, traj, game: Game, net: dict, cfg: dict,
     player_id = (torch.arange(Tn, device=valid.device) % 2)[:, None].expand(
         Tn, B)
     feats = nets.features(net, obs, solver)
-    logits, v = forward(params, obs, net, prec, feats)
+    logits, v = forward(params, obs, net, prec, feats, state=state,
+                        train=True, mask=valid.reshape(-1))
     logits = logits.reshape(Tn, B, A)
     v = v.reshape(Tn, B, 1)
     pi = policy(logits, masks)
@@ -214,8 +250,8 @@ def learner_loss(params, frozen, traj, game: Game, net: dict, cfg: dict,
     a32 = np.float32(alpha)
     alpha_, beta = float(a32), float(np.float32(1) - a32)
     with torch.no_grad():
-        target, reg, reg_prev = (forward(p, obs, net, prec, feats)
-                                 for p in frozen)
+        target, reg, reg_prev = (forward(p, obs, net, prec, feats,
+                                         state=st) for p, st in frozen)
         v_target = target[1].reshape(Tn, B, 1)
         lp_reg = log_policy(reg[0].reshape(Tn, B, A), masks)
         lp_reg_prev = log_policy(reg_prev[0].reshape(Tn, B, A), masks)
@@ -345,6 +381,10 @@ class Readings:
     # the RM+ solves (M, lr, lc, x, y, v), where the net solves: the
     # program's, or the control's own
     solves: Optional[list] = None
+    # where the net keeps state (BatchNorm's running averages): per buffer
+    # the norm of its change over the checked steps, the learner's under
+    # "net.<name>" and the EMA target's under "target.<name>"
+    state: Optional[Dict[str, float]] = None
 
 
 def norms(tensors: Dict[str, torch.Tensor]) -> Dict[str, float]:
@@ -359,24 +399,44 @@ def grad_norms(nu: Dict[str, torch.Tensor], b2: float) -> Dict[str, float]:
             for k, t in nu.items()}
 
 
+def state_changes(state: Dict[str, torch.Tensor],
+                  target: Dict[str, torch.Tensor],
+                  state0: Dict[str, torch.Tensor]) -> Optional[Dict[str,
+                                                                  float]]:
+    """``Readings.state`` of the learner's and the target's state against
+    where both started; None for a net that keeps none."""
+    if not state0:
+        return None
+    return {**norms({f"net.{k}": state[k] - v for k, v in state0.items()}),
+            **norms({f"target.{k}": target[k] - v
+                     for k, v in state0.items()})}
+
+
 def run(game: Game, config: dict, lanes: int, params0: Dict[str,
                                                          torch.Tensor],
         noise_seed: int, steps: int, precision: Optional[str] = None,
         device="cuda", solves: Optional[list] = None) -> Readings:
-    """``steps`` train steps from ``params0`` (all four nets start there)
-    with the rollout noise of ``noise_seed``, in the configuration's
-    precision or ``precision``.  A net that solves games takes the
-    program's ``solves`` where given (``Recorded``); in another
-    ``precision`` (the control) it solves them itself with the plain RM+
-    in ``CONTROL_SOLVE`` and its readings hold those solves (``Solving``),
-    as the program's hold its own."""
+    """``steps`` train steps from ``params0`` (all four nets start there,
+    with its state where the net keeps state) with the rollout noise of
+    ``noise_seed``, in the configuration's precision or ``precision``.  A
+    net that solves games takes the program's ``solves`` where given
+    (``Recorded``); in another ``precision`` (the control) it solves them
+    itself with the plain RM+ in ``CONTROL_SOLVE`` and its readings hold
+    those solves (``Solving``), as the program's hold its own."""
     net, cfg = config["net"], config["rnad"]
     prec = nets.Precision(precision or net["compute_dtype"])
     forward = nets.family(net).forward
-    p0 = {k: v.detach().to(device).float() for k, v in params0.items()}
+    kept = {name for name, _, _ in nets.state_shapes(
+        net, game.A, nets.in_channels(config))}
+    p0 = {k: v.detach().to(device).float() for k, v in params0.items()
+          if k not in kept}
+    state0 = {k: v.detach().to(device).float() for k, v in params0.items()
+              if k in kept}
     learner = {k: v.clone().requires_grad_(True) for k, v in p0.items()}
     target = {k: v.clone() for k, v in p0.items()}
     reg, reg_prev = dict(p0), dict(p0)
+    state = {k: v.clone() for k, v in state0.items()}
+    target_state = {k: v.clone() for k, v in state0.items()}
     mu = {k: torch.zeros_like(v) for k, v in p0.items()}
     nu = {k: torch.zeros_like(v) for k, v in p0.items()}
     gen = torch.Generator(device=device)
@@ -391,7 +451,8 @@ def run(game: Game, config: dict, lanes: int, params0: Dict[str,
         solver = Recorded(solves, iters)
     for n in range(steps):
         actor = lambda obs: forward(learner, obs, net, prec,
-                                    nets.features(net, obs, solver))
+                                    nets.features(net, obs, solver),
+                                    state=state)
         traj = rollout(game, actor, lanes, gen, device)
         if first is None:
             first = {k: traj[k].cpu() for k in ("indices", "actions",
@@ -401,9 +462,10 @@ def run(game: Game, config: dict, lanes: int, params0: Dict[str,
                                                      "rewards")})
         scale = (1.0 if n >= cfg["policy_warmup_steps"] else 0.0)
         alpha = alpha_schedule(n, cfg["delta_m"][0])
-        loss, lv, ln = learner_loss(learner, (target, reg, reg_prev), traj,
-                                    game, net, cfg, alpha, scale, prec,
-                                    solver)
+        loss, lv, ln = learner_loss(
+            learner, ((target, target_state), (reg, state0),
+                      (reg_prev, state0)), traj, game, net, cfg, alpha,
+            scale, prec, solver, state)
         losses.append((float(lv.detach()), float(ln.detach())))
         del traj
         grads = dict(zip(learner, torch.autograd.grad(
@@ -424,6 +486,10 @@ def run(game: Game, config: dict, lanes: int, params0: Dict[str,
                 p += (-lr) * update
                 target[k] = (cfg["gamma_averaging"] * p
                              + (1.0 - cfg["gamma_averaging"]) * target[k])
+            for k, v in state.items():
+                target_state[k] = (cfg["gamma_averaging"] * v
+                                   + (1.0 - cfg["gamma_averaging"])
+                                   * target_state[k])
         if n == 0:
             nu1 = {k: v.clone() for k, v in nu.items()}
     with torch.no_grad():
@@ -432,4 +498,5 @@ def run(game: Game, config: dict, lanes: int, params0: Dict[str,
             change=norms({k: learner[k] - p0[k] for k in p0}),
             target_change=norms({k: target[k] - p0[k] for k in p0}),
             moment=norms(nu), later=later,
-            solves=solver.records if isinstance(solver, Solving) else None)
+            solves=solver.records if isinstance(solver, Solving) else None,
+            state=state_changes(state, target_state, state0))

@@ -2,11 +2,15 @@
 every traffic kind's driver (``drivers/<kind>.py``) shares.
 
 Everything the program receives is made here from the seed: the game tree
-(``trees.py``), the initial weights of all four nets (one draw on the card
-from a generator of the weight seed, each leaf scaled to its layer's
-initial range) and the rollout noise (the state's generator, seeded with
-the noise seed).  The reference (``reference/``) gets the same tree arrays,
-weights and noise seed.
+(``trees.py``); from one generator on the card, seeded with the weight
+seed, the initial weights of all four nets (one draw, each leaf scaled to
+its layer's initial range), then where the net keeps state (BatchNorm's
+running averages) that state (a second draw), then where the
+configuration lifts its observations the lift's fixed ``mix`` (C, 2) ~
+N(0, 1) / sqrt(2) and ``bias`` (C, A, A) ~ ``bias_scale`` N(0, 1), the JAX
+package's scales; and the rollout noise (the state's generator, seeded
+with the noise seed).  The reference (``reference/``) gets the same tree
+arrays, weights, state, lift and noise seed.
 """
 
 from __future__ import annotations
@@ -16,7 +20,7 @@ import dataclasses
 import math
 import shutil
 import tempfile
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -32,23 +36,49 @@ def seeds(seed: int):
     return mixed, mixed + 1
 
 
-def make_weights(net: dict, A: int, seed: int, device
-                 ) -> Dict[str, torch.Tensor]:
-    """Every leaf of ``net`` from one uniform draw on ``device``: U(-b, b)
-    at its layer's initial range b, gates at 1.  The EquiNet's heads are
-    drawn too, not zero as the published priming starts them: with zero
-    heads the tower's first gradient is exactly zero, and the check would
-    not see the tower's backward."""
-    shapes = ref_nets.param_shapes(net, A)
-    sizes = [math.prod(s) for _, s, _ in shapes]
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
-    flat = torch.rand((sum(sizes),), generator=gen, device=device) * 2 - 1
+def make_weights(net: dict, A: int, gen: torch.Generator,
+                 in_channels: int = 2) -> Dict[str, torch.Tensor]:
+    """Every leaf of ``net`` from ``gen``: one uniform draw of the trained
+    leaves, U(-b, b) at its layer's initial range b, gates and BatchNorm
+    scales at 1 and BatchNorm biases at 0; then, where the net keeps state,
+    a second draw of it, U(low, high) each.  The EquiNet's heads are drawn
+    too, not zero as the published priming starts them: with zero heads
+    the tower's first gradient is exactly zero, and the check would not
+    see the tower's backward."""
+    device = gen.device
     out = {}
-    for (name, shape, bound), part in zip(shapes, flat.split(sizes)):
-        out[name] = (part.reshape(shape) * bound if bound is not None
-                     else torch.ones(shape, device=device))
+    for shapes in (ref_nets.param_shapes(net, A, in_channels),
+                   ref_nets.state_shapes(net, A, in_channels)):
+        if not shapes:
+            continue
+        sizes = [math.prod(s) for _, s, _ in shapes]
+        flat = torch.rand((sum(sizes),), generator=gen, device=device)
+        for (name, shape, span), part in zip(shapes, flat.split(sizes)):
+            part = part.reshape(shape)
+            if isinstance(span, tuple):
+                out[name] = span[0] + part * (span[1] - span[0])
+            elif span is None:
+                out[name] = torch.ones(shape, device=device)
+            elif span == 0:
+                out[name] = torch.zeros(shape, device=device)
+            else:
+                out[name] = (part * 2 - 1) * span
     return out
+
+
+def make_lift(config: dict, A: int, gen: torch.Generator
+              ) -> Optional[Dict[str, torch.Tensor]]:
+    """The lift's ``mix`` and ``bias`` from ``gen``, where the
+    configuration lifts its observations; else None."""
+    lift = config["rnad"].get("obs_transform", {})
+    if lift.get("kind") != "lift":
+        return None
+    C = lift["channels"]
+    mix = torch.randn((C, 2), generator=gen, device=gen.device) / math.sqrt(
+        2.0)
+    bias = lift["bias_scale"] * torch.randn((C, A, A), generator=gen,
+                                            device=gen.device)
+    return {"mix": mix, "bias": bias}
 
 
 @dataclasses.dataclass
@@ -64,6 +94,7 @@ class System:
     tree_generated: bool
     tree_s: float
     store: str
+    lift: Optional[Dict[str, torch.Tensor]] = None
     steps: int = 0  # train steps taken, the alpha schedule's n
 
     @property
@@ -73,8 +104,8 @@ class System:
     @property
     def inputs(self):
         """What the reference is handed: the tree's arrays, the initial
-        weights and the noise seed."""
-        return self.arrays, self.params0, self.noise_seed
+        weights and state, the noise seed and the lift (or None)."""
+        return self.arrays, self.params0, self.noise_seed, self.lift
 
     def step(self, with_trajectory: bool = False):
         """One ``RNaD.train_step`` at the schedule's alpha."""
@@ -107,14 +138,21 @@ def build(config: dict, lanes: int, seed: int, device="cuda") -> System:
                             runs_root=store, device=device)
     trainer.initialize()
     weight_seed, noise_seed = seeds(seed)
-    params0 = make_weights(config["net"], tree.max_actions, weight_seed,
-                           device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(weight_seed)
+    params0 = make_weights(config["net"], tree.max_actions, gen,
+                           ref_nets.in_channels(config))
+    lift = make_lift(config, tree.max_actions, gen)
     state = trainer.state
     for net in (state.net, state.net_target, state.net_reg, state.net_reg_):
         net.load_state_dict(params0, strict=True)
+    if lift is not None:
+        with torch.no_grad():
+            trainer.obs_transform.mix.copy_(lift["mix"])
+            trainer.obs_transform.bias.copy_(lift["bias"])
     state.generator.manual_seed(noise_seed)
     return System(trainer, arrays, params0, noise_seed, cfg.delta_m[0],
-                  generated, tree_s, store)
+                  generated, tree_s, store, lift)
 
 
 @contextlib.contextmanager

@@ -9,11 +9,11 @@ import math
 import pytest
 
 from benchmark import check, faults, system
-from benchmark.tests.helpers import FLAGSHIP, MLP, small
+from benchmark.tests.helpers import FLAGSHIP, MLP, NOISYCONV, limits, small
 
 
 @pytest.mark.parametrize("fault", faults.FAULTS)
-@pytest.mark.parametrize("name", [MLP, FLAGSHIP])
+@pytest.mark.parametrize("name", [MLP, FLAGSHIP, NOISYCONV])
 def test_fault_is_caught(name, fault):
     cell = small(name)
     driver = cell.driver
@@ -24,7 +24,7 @@ def test_fault_is_caught(name, fault):
     system.free(sut)
     want = driver.reference(cell, inputs, got, "cpu")
     ok, table = check.judge(driver.numbers(cell, got, want, "cpu"),
-                            check.limits(cell.name))
+                            limits(cell.name))
     assert not ok, check.lines(table)
     assert all(math.isfinite(v["value"]) for v in table.values()), table
 

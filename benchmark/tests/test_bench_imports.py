@@ -29,6 +29,8 @@ def test_no_jax_loaded():
         "import benchmark.system, benchmark.check, benchmark.trace\n"
         "import benchmark.drivers.train, benchmark.reference.families.mlp\n"
         "import benchmark.reference.families.equinet\n"
+        "import benchmark.reference.families.convnet\n"
+        "import benchmark.work.convnet\n"
         "import rnad_tpu_torch.learn.rnad\n"
         "from benchmark import system\n"
         "print(system.forbidden_loaded(sys.modules))\n"

@@ -10,7 +10,7 @@ import pytest
 import torch
 
 from benchmark import check, system
-from benchmark.tests.helpers import FLAGSHIP, MLP, small
+from benchmark.tests.helpers import FLAGSHIP, MLP, NOISYCONV, limits, small
 
 LANES = 64
 
@@ -28,21 +28,21 @@ def _readings(name, seed, precision=None):
     return driver.numbers(cell, got, want, "cpu"), cell
 
 
-@pytest.mark.parametrize("name", [MLP, FLAGSHIP])
+@pytest.mark.parametrize("name", [MLP, FLAGSHIP, NOISYCONV])
 def test_reference_agrees_with_port(name):
     values, cell = _readings(name, 2**31 + 7)
-    ok, table = check.judge(values, check.limits(cell.name))
+    ok, table = check.judge(values, limits(cell.name))
     assert ok, check.lines(table)
     assert values["lanes_diverged"] == 0.0
     assert values["obs_gap"] == 0.0
 
 
-@pytest.mark.parametrize("name", [MLP, FLAGSHIP])
+@pytest.mark.parametrize("name", [MLP, FLAGSHIP, NOISYCONV])
 def test_control_fails(name):
     cell = small(name)
     control = check.CONTROL[cell.config["net"]["compute_dtype"]]
     values, cell = _readings(name, 11, control)
-    ok, table = check.judge(values, check.limits(cell.name))
+    ok, table = check.judge(values, limits(cell.name))
     assert not ok, check.lines(table)
     # every number compared is read, and one of them fails
     assert all(math.isfinite(v["value"]) for v in table.values()), table
@@ -61,8 +61,8 @@ def test_rounding_of_the_control():
 def test_families_found_by_name():
     from benchmark.reference import nets
 
-    for name in (MLP, FLAGSHIP):
+    for name in (MLP, FLAGSHIP, NOISYCONV):
         net = small(name).config["net"]
         assert nets.family(net).__name__.endswith(net["type"].lower())
-    with pytest.raises(ValueError, match="families/convnet.py"):
-        nets.family({"type": "ConvNet"})
+    with pytest.raises(ValueError, match="families/gridnet.py"):
+        nets.family({"type": "GridNet"})

@@ -1,7 +1,8 @@
 """The work models: the MLP's counts equal the program's roofline
 (``rnad_tpu_torch/roofline.py``) on ``profile_step.py``'s shapes today, the
-frozen kernel counts equal the program's, and the EquiNet's count equals
-a count of the products one exchangeable layer runs at a tiny size."""
+frozen kernel counts equal the program's, the EquiNet's count equals
+a count of the products one exchangeable layer runs at a tiny size, and
+the ConvNet's equals a count of the products the plain ConvNet runs."""
 
 import dataclasses
 
@@ -9,7 +10,7 @@ import pytest
 import torch
 from torch.utils.flop_counter import FlopCounterMode
 
-from benchmark.work import equinet, kernels, mlp
+from benchmark.work import convnet, equinet, kernels, mlp
 
 
 def _config(name):
@@ -92,3 +93,49 @@ def test_flagship_step_count():
     work = equinet.step(config, 32768, 6)
     assert set(work.flops) == {"bfloat16"}
     assert work.total_flops == pytest.approx(1.1507e12, rel=1e-4)
+
+
+def test_convnet_counts_needed_products():
+    """The plain ConvNet's forward and backward products at a small shape,
+    counted by torch: each CrossConv's gathered taps are the A row and A
+    column cells an output needs, never the zero padding."""
+    from benchmark.reference import nets
+    from benchmark.reference.families import convnet as family
+
+    n, A, C, depth, c0 = 6, 3, 4, 2, 9
+    net = {"type": "ConvNet", "channels": C, "depth": depth,
+           "batch_norm": True}
+    gen = torch.Generator().manual_seed(0)
+    params = {name: (torch.rand(shape, generator=gen) - 0.5)
+              .requires_grad_(True)
+              for name, shape, _ in nets.param_shapes(net, A, c0)}
+    state = {name: torch.rand(shape, generator=gen) + 0.5
+             for name, shape, _ in nets.state_shapes(net, A, c0)}
+    obs = torch.randn(n, c0, A, A, generator=gen)
+    with FlopCounterMode(display=False) as counter:
+        logits, values = family.forward(
+            params, obs, net, nets.Precision("float32"), state=state,
+            train=True, mask=torch.tensor([1.0, 0, 1, 1, 0, 1]))
+    assert counter.get_total_flops() == convnet.forward_flops(
+        n, A, C, depth, c0) == 2 * n * A * A * (
+            2 * A * (c0 * C + 2 * depth * C * C) + C * (A + 1))
+    with FlopCounterMode(display=False) as counter:
+        (logits.sum() + values.sum()).backward()
+    assert counter.get_total_flops() == convnet.backward_flops(
+        n, A, C, depth, c0)
+
+
+def test_convnet_step_count():
+    config = {"tree": {"max_actions": 3},
+              "net": {"channels": 16, "depth": 2,
+                      "compute_dtype": "float32"},
+              "rnad": {"frozen_net_dtype": "float32",
+                       "obs_transform": {"kind": "lift", "channels": 8}}}
+    lanes, levels = 1024, 4
+    n = 2 * levels * lanes
+    work = convnet.step(config, lanes, levels)
+    forward = convnet.forward_flops(n, 3, 16, 2, 9)
+    assert set(work.flops) == {"float32"}
+    # the rollout's levels turns of 2 lanes observations are n in all
+    assert work.total_flops == pytest.approx(
+        5 * forward + convnet.backward_flops(n, 3, 16, 2, 9), rel=1e-12)

@@ -2,7 +2,8 @@
 an FMA counting two, at the net's compute type.
 
 One forward over n observations (A x A cells, C channels, c0 input
-channels: 2, and 6 more with solver features) takes, in each
+channels: 2 raw or the lift's C + 1, and 6 more with solver features)
+takes, in each
 exchangeable layer of C_in input channels, six block products against
 its (C_in, C) kernel blocks: the cells' (n A^2 rows), the row and column
 means' and maxes' (n A rows each) and the global mean's (n rows); then the
@@ -22,6 +23,7 @@ from __future__ import annotations
 
 from typing import List
 
+from ..reference.nets import in_channels
 from .peaks import Work
 
 
@@ -49,7 +51,7 @@ def backward_flops(n: int, A: int, C: int, depth: int, c0: int) -> float:
 
 def shape(config: dict):
     net = config["net"]
-    c0 = 2 + (6 if net.get("solver_iters", 0) else 0)
+    c0 = in_channels(config) + (6 if net.get("solver_iters", 0) else 0)
     return (config["tree"]["max_actions"], net["channels"], net["depth"],
             c0)
 

@@ -16,6 +16,7 @@ from __future__ import annotations
 
 from typing import List, Optional, Tuple
 
+from ..reference.nets import in_channels
 from . import kernels
 from .peaks import Work
 
@@ -27,8 +28,9 @@ def _elt(dtype: str) -> int:
 
 
 def forward_matmuls(n: int, A: int, width: int, depth: int = 1,
-                    heads: Optional[Tuple[int, ...]] = None) -> List[Matmul]:
-    din = 2 * A * A
+                    heads: Optional[Tuple[int, ...]] = None,
+                    cin: int = 2) -> List[Matmul]:
+    din = cin * A * A
     ms: List[Matmul] = []
     for out in (heads if heads is not None else (A, 1)):
         ms.append((n, din, width))
@@ -37,10 +39,11 @@ def forward_matmuls(n: int, A: int, width: int, depth: int = 1,
     return ms
 
 
-def backward_matmuls(n: int, A: int, width: int, depth: int = 1
-                     ) -> List[Matmul]:
+def backward_matmuls(n: int, A: int, width: int, depth: int = 1,
+                     cin: int = 2) -> List[Matmul]:
     ms: List[Matmul] = []
-    for i, (M, K, N) in enumerate(forward_matmuls(n, A, width, depth)):
+    for i, (M, K, N) in enumerate(forward_matmuls(n, A, width, depth,
+                                                  cin=cin)):
         ms.append((K, M, N))
         if i % (depth + 1):
             ms.append((M, N, K))
@@ -51,8 +54,9 @@ def flops(ms: List[Matmul]) -> float:
     return float(sum(2 * M * K * N for M, K, N in ms))
 
 
-def params(A: int, width: int, depth: int = 1) -> int:
-    return sum(K * N + N for _, K, N in forward_matmuls(1, A, width, depth))
+def params(A: int, width: int, depth: int = 1, cin: int = 2) -> int:
+    return sum(K * N + N for _, K, N in forward_matmuls(1, A, width, depth,
+                                                        cin=cin))
 
 
 def phases(config: dict, lanes: int, levels: int, rows: float,
@@ -66,23 +70,25 @@ def phases(config: dict, lanes: int, levels: int, rows: float,
     frozen_dtype = (dtype if cfg["frozen_net_dtype"] == "float32"
                     else cfg["frozen_net_dtype"])
     n = 2 * levels * lanes
-    din = 2 * A * A
+    cin = in_channels(config)
+    din = cin * A * A
     roll = kernels.k1_step(config, lanes, levels, rows, cells)
-    frozen = (forward_matmuls(n, A, W, depth, heads=(1,))
-              + forward_matmuls(2 * n, A, W, depth, (A,)))
+    frozen = (forward_matmuls(n, A, W, depth, (1,), cin)
+              + forward_matmuls(2 * n, A, W, depth, (A,), cin))
     passes = 4
     if cfg.get("detailed_metrics", True):
-        frozen += forward_matmuls(n, A, W, depth, (A,))
+        frozen += forward_matmuls(n, A, W, depth, (A,), cin)
         passes += 1
-    learner = (Work({dtype: flops(forward_matmuls(n, A, W, depth))})
+    learner = (Work({dtype: flops(forward_matmuls(n, A, W, depth,
+                                                  cin=cin))})
                + Work({frozen_dtype: flops(frozen)},
                       4.0 * n * (din + A)
                       + passes * n * (2 * din + A + 1) * _elt(dtype)
                       + 24.0 * n * A * 4))
-    backward = Work({dtype: flops(backward_matmuls(n, A, W, depth))},
+    backward = Work({dtype: flops(backward_matmuls(n, A, W, depth, cin))},
                     2.0 * n * (2 * din + A + 1) * _elt(dtype)
-                    + 4.0 * params(A, W, depth))
-    update = Work({}, 4.0 * 9 * params(A, W, depth))
+                    + 4.0 * params(A, W, depth, cin))
+    update = Work({}, 4.0 * 9 * params(A, W, depth, cin))
     return [("rollout", roll),
             ("learner + frozen passes, v-trace, loss", learner),
             ("backward", backward), ("clip + Adam + EMA", update)]
